@@ -1,0 +1,101 @@
+"""Command-line interface (the -align command), muscle-flag-compatible.
+
+    python -m muscle_tpu_torch.cli -align seqs.fa -output aln.afa [-device cuda|cpu]
+
+Mirrors the reference's single-dash command style (reference:
+src/main.cpp:55-73, src/usage.txt) and muscle_tpu.cli for the options
+below; -align computes one replicate.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from .sequence import MultiSequence
+
+USAGE = """\
+muscle_tpu_torch — multiple sequence alignment on the GPU (MUSCLE v5 -align)
+
+  -align FILE        Align FASTA (MPC algorithm) -> -output
+  -output FILE       Output path ('@' expands to <perm>.<perturb seed>)
+  -perm none|abc|acb|bca   Guide-tree permutation
+  -perturb N         HMM perturbation seed
+  -consiters N       Consistency iterations (default 2)
+  -refineiters N     Refinement iterations (default 100)
+  -nt / -amino       Force alphabet (default: guess)
+  -device cuda|cpu   Where the pair-HMM and consistency run (default cuda)
+  -quiet / -log FILE
+"""
+
+_BOOL_OPTS = {"nt", "amino", "quiet", "help", "version"}
+_VALUE_OPTS = {"output", "perm", "perturb", "consiters", "refineiters",
+               "device", "log"}
+
+
+def parse_args(argv: list[str]) -> tuple[str | None, dict]:
+    """-> (input path of -align or None, {option: value})."""
+    path = None
+    opts: dict[str, object] = {}
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if not a.startswith("-"):
+            raise SystemExit(f"unexpected argument {a!r}")
+        name = a.lstrip("-")
+        if name == "align":
+            if i + 1 >= len(argv) or argv[i + 1].startswith("-"):
+                raise SystemExit("-align requires an input file")
+            path = argv[i + 1]
+            i += 1
+        elif name in _BOOL_OPTS:
+            opts[name] = True
+        elif name in _VALUE_OPTS:
+            if i + 1 >= len(argv):
+                raise SystemExit(f"option -{name} requires a value")
+            opts[name] = argv[i + 1]
+            i += 1
+        else:
+            raise SystemExit(f"unknown option -{name}")
+        i += 1
+    return path, opts
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    path, opts = parse_args(argv)
+    if opts.get("help") or path is None:
+        print(USAGE)
+        return 0 if opts.get("help") or not argv else 1
+    if opts.get("version"):
+        from . import __version__
+        print(f"muscle_tpu_torch {__version__}")
+        return 0
+    out = opts.get("output")
+    if not out:
+        raise SystemExit("must set -output")
+
+    from .pipeline.mpc import (DEFAULT_CONSISTENCY_ITERS,
+                               DEFAULT_REFINE_ITERS, align)
+    from .utils import logging as mlog
+    mlog.configure(log_path=opts.get("log"), quiet=bool(opts.get("quiet")))
+    mlog.log("muscle_tpu_torch %s", " ".join(argv))
+    nucleo = True if opts.get("nt") else (False if opts.get("amino") else None)
+    seed = int(opts.get("perturb", 0) or 0)
+    perm = str(opts.get("perm", "none") or "none")
+    if "@" in out:
+        pos = out.index("@")
+        out = f"{out[:pos]}{perm}.{seed}{out[pos + 1:]}"
+    seqs = MultiSequence.from_fasta(path)
+    msa = align(seqs, nucleo=nucleo, perturb_seed=seed, tree_perm=perm,
+                consistency_iters=int(opts.get("consiters",
+                                               DEFAULT_CONSISTENCY_ITERS)),
+                refine_iters=int(opts.get("refineiters",
+                                          DEFAULT_REFINE_ITERS)),
+                device=opts.get("device"))
+    msa.write_fasta(out)
+    mlog.finish()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,199 @@
+// Shared device code of the pair-HMM kernels (pairhmm_fwd.cu,
+// pairhmm_bwd_post.cu): log-space arithmetic and the warp-level lane
+// machinery.
+//
+// Lane layout. A block owns one pair; its Ly lanes (one DP column each)
+// are cut into 64-lane segments, and warp w owns segments w, w + W, ...
+// (S of them; W * S >= Ly / 64). Inside a segment, thread l owns the
+// two adjacent lanes 2l and 2l+1, so the Hillis-Steele rounds of the
+// segmented within-row scan run in registers with __shfl_up_sync, and
+// only a one-lane shift across a segment edge goes through shared
+// memory.
+//
+// Arithmetic. Products and sums are rounded separately (__fmul_rn /
+// __fadd_rn, never contracted to FMA; the build also passes
+// -fmad=false) and the sentinels stay IEEE (no fast math), so the
+// kernels repeat the plain torch twins' and the TPU kernels' bits.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define PH_FULL 0xffffffffu
+
+namespace ph {
+
+constexpr float LOG_ZERO = -2e20f;
+constexpr float LOG_UNDERFLOW = 7.5f;
+constexpr float NEG_BIG = -1e30f;
+constexpr float MIN_SPARSE_SCORE = -4.605170185988091f;  // log(0.01)
+
+// params layout (ops/pairhmm_cuda.py P_*)
+enum { TSM, TSI, TSJ, TMM, TMI, TMJ, TII, TIM, TJJ, TJM };
+
+__device__ __forceinline__ float madd(float a, float x, float c) {
+  return __fadd_rn(__fmul_rn(a, x), c);
+}
+
+// log(1 + e^x) on [0, 7.5]: the reference's 4-segment cubic
+// (src/scoretype.h:100-109), coefficients selected first.
+__device__ __forceinline__ float logexp1_sel(float x) {
+  const bool s1 = x <= 1.0f, s2 = x <= 2.5f, s3 = x <= 4.5f;
+  const float c0 = s2 ? (s1 ? -0.009350833524763f : -0.014532321752540f)
+                      : (s3 ? -0.004605031767994f : -0.000458661602210f);
+  const float c1 = s2 ? (s1 ? 0.130659527668286f : 0.139942324101744f)
+                      : (s3 ? 0.063427417320019f : 0.009695946122598f);
+  const float c2 = s2 ? (s1 ? 0.498799810682272f : 0.495635523139337f)
+                      : (s3 ? 0.695956496475118f : 0.930734667215156f);
+  const float c3 = s2 ? (s1 ? 0.693203116424741f : 0.692140569840976f)
+                      : (s3 ? 0.514272634594009f : 0.168037164329057f);
+  return madd(madd(madd(c0, x, c1), x, c2), x, c3);
+}
+
+// LOG_ADD with the reference cubic (M/IX/JX updates, total prob).
+__device__ __forceinline__ float log_add(float x, float y) {
+  const float hi = fmaxf(x, y), lo = fminf(x, y);
+  const float d = __fsub_rn(hi, lo);
+  const bool small = (lo <= LOG_ZERO) || (d >= LOG_UNDERFLOW);
+  const float dc = fminf(fmaxf(d, 0.0f), LOG_UNDERFLOW);
+  return small ? hi : __fadd_rn(lo, logexp1_sel(dc));
+}
+
+__device__ __forceinline__ float log_add5(float a, float b, float c, float d,
+                                          float e) {
+  return log_add(a, log_add(b, log_add(c, log_add(d, e))));
+}
+
+// LOG_ADD with the selection-free degree-8 fit, used inside the
+// within-row scans (muscle_tpu/ops/pairhmm_pallas.py _log_add_p).
+__device__ __forceinline__ float log_add_p(float x, float y) {
+  const float hi = fmaxf(x, y), lo = fminf(x, y);
+  const float d = fminf(__fsub_rn(hi, lo), LOG_UNDERFLOW);
+  const bool small = (lo <= LOG_ZERO) || (d >= LOG_UNDERFLOW);
+  float r = -6.73338208e-07f;
+  r = madd(r, d, 2.39144278e-05f);
+  r = madd(r, d, -3.51821887e-04f);
+  r = madd(r, d, 2.68814008e-03f);
+  r = madd(r, d, -1.01874083e-02f);
+  r = madd(r, d, 4.79808334e-03f);
+  r = madd(r, d, 1.22831020e-01f);
+  r = madd(r, d, 5.00330250e-01f);
+  r = madd(r, d, 6.93143978e-01f);
+  return small ? hi : __fadd_rn(lo, r);
+}
+
+// Hillis-Steele rounds k = 1..32 of the affine scan inside one 64-lane
+// segment; (a[e], c[e]) are lanes 2l+e. Composition of lane j with
+// lane j-k: (a_j + a_{j-k}, LOG_ADD_p(c_{j-k} + a_j, c_j)); lanes with
+// no partner combine with (0, NEG_BIG) as in the Pallas kernel.
+__device__ __forceinline__ void seg_scan(float a[2], float c[2], int l) {
+  {
+    const float a_up = __shfl_up_sync(PH_FULL, a[1], 1);
+    const float c_up = __shfl_up_sync(PH_FULL, c[1], 1);
+    const bool v0 = l >= 1;
+    const float a_p0 = v0 ? a_up : 0.0f, c_p0 = v0 ? c_up : NEG_BIG;
+    const float a_p1 = a[0], c_p1 = c[0];
+    const float c0n = log_add_p(__fadd_rn(c_p0, a[0]), c[0]);
+    const float c1n = log_add_p(__fadd_rn(c_p1, a[1]), c[1]);
+    a[0] = __fadd_rn(a[0], a_p0);
+    a[1] = __fadd_rn(a[1], a_p1);
+    c[0] = c0n;
+    c[1] = c1n;
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {  // k = 2d
+    const float a_u0 = __shfl_up_sync(PH_FULL, a[0], d);
+    const float a_u1 = __shfl_up_sync(PH_FULL, a[1], d);
+    const float c_u0 = __shfl_up_sync(PH_FULL, c[0], d);
+    const float c_u1 = __shfl_up_sync(PH_FULL, c[1], d);
+    const bool v = l >= d;
+    const float c0n = log_add_p(__fadd_rn(v ? c_u0 : NEG_BIG, a[0]), c[0]);
+    const float c1n = log_add_p(__fadd_rn(v ? c_u1 : NEG_BIG, a[1]), c[1]);
+    a[0] = __fadd_rn(a[0], v ? a_u0 : 0.0f);
+    a[1] = __fadd_rn(a[1], v ? a_u1 : 0.0f);
+    c[0] = c0n;
+    c[1] = c1n;
+  }
+}
+
+// Sequential carry chain over the segment totals of the IY (t = 0) and
+// JY (t = 1) scans, run by threads 0 and 1: tot holds
+// [a_IY | c_IY | a_JY | c_JY], each nseg long; carry[t * nseg + g] is
+// the transform entering segment g (NEG_BIG for g = 0).
+__device__ __forceinline__ void carry_chain(const float* tot, float* carry,
+                                            int nseg) {
+  const int t = threadIdx.x;
+  if (t < 2) {
+    const float* ta = tot + 2 * t * nseg;
+    const float* tc = ta + nseg;
+    float* car = carry + t * nseg;
+    float cc = NEG_BIG;
+    car[0] = cc;
+    for (int g = 0; g + 1 < nseg; ++g) {
+      cc = log_add_p(__fadd_rn(cc, ta[g]), tc[g]);
+      car[g + 1] = cc;
+    }
+  }
+}
+
+// Value of lane j-1 for the even lane 2l of segment g: the odd lane of
+// thread l-1, or the last lane of segment g-1 (edge[g-1]), or `fill`
+// left of lane 0. Called by all 32 threads of the warp.
+__device__ __forceinline__ float left_of_even(float odd, float fill,
+                                              const float* edge, int g,
+                                              int l) {
+  const float up = __shfl_up_sync(PH_FULL, odd, 1);
+  return l > 0 ? up : (g == 0 ? fill : edge[g - 1]);
+}
+
+// Full-width Hillis-Steele prefix sum through one shared row (the
+// Pallas kernels' _cumsum_lanes): round k adds lane j-k (or 0.0).
+template <int S>
+__device__ __forceinline__ void block_cumsum(float v[S][2], float* row,
+                                             int Ly, int nseg, int W,
+                                             int warp, int l) {
+  for (int k = 1; k < Ly; k <<= 1) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int g = warp + s * W;
+      if (g < nseg) {
+        row[g * 64 + 2 * l] = v[s][0];
+        row[g * 64 + 2 * l + 1] = v[s][1];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int g = warp + s * W;
+      if (g < nseg) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = g * 64 + 2 * l + e;
+          v[s][e] = __fadd_rn(v[s][e], j >= k ? row[j - k] : 0.0f);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Launch geometry shared by both kernels.
+struct Geometry {
+  int nseg, S, W;
+  size_t smem;
+};
+
+inline Geometry geometry(int Ly, int kk, int extra_rows_nseg) {
+  Geometry g;
+  g.nseg = Ly / 64;
+  g.S = (g.nseg + 31) / 32;
+  g.W = (g.nseg + g.S - 1) / g.S;
+  g.smem = sizeof(float) *
+           (size_t)(kk * kk + kk + Ly + extra_rows_nseg * g.nseg);
+  return g;
+}
+
+}  // namespace ph
+
+extern "C" const char* pairhmm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,457 @@
+"""Pair-HMM posteriors on the GPU: two hand-written CUDA kernels.
+
+Port of muscle_tpu.ops.pairhmm_pallas (the path the JAX package runs on
+a TPU: `batch_posteriors_pallas` -> `_letter_path` ->
+`_emissions_path_fused`):
+
+* kernel A, `pairhmm_fwd` (csrc/pairhmm_fwd.cu), replaces `_fwd_kernel`:
+  the forward recurrence, writing the forward M lattice and each pair's
+  five final states at (lx, ly);
+* `_total_prob`, a plain (B, 5) LOG_ADD fold in the reference order;
+* kernel B, `pairhmm_bwd_post` (csrc/pairhmm_bwd_post.cu), replaces
+  `_bwd_post_kernel`: the backward recurrence fused with the posterior
+  combine (0.01 threshold) and the MEA row scan that gives EA.
+
+Beside each kernel is its plain twin (`fwd_plain`, `bwd_post_plain`): a
+torch transcription of the Pallas kernel's math over (B, Ly) rows with
+a Python loop over DP rows. The twins share the kernels' summation
+structure (segmented within-row scan with the degree-8 LOG_ADD,
+Hillis-Steele row-0 prefix sums, the reference cubic for M/IX/JX,
+products and sums rounded separately), so on the card kernel and twin
+agree bit for bit (chip_smoke.py). A kernel wrapper given CPU tensors
+runs the twin; given CUDA tensors it launches the kernel or raises.
+`LAUNCHES` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .logspace import LOG_UNDERFLOW, LOG_ZERO, _C0, _C1, _C2, _C3
+from .pairhmm import MIN_SPARSE_SCORE
+
+NEG_BIG = -1e30  # sentinel more negative than any reachable score sum
+
+# (16,) params layout shared by the twins and the kernels
+P_TSM, P_TSI, P_TSJ, P_TMM, P_TMI, P_TMJ, P_TII, P_TIM, P_TJJ, P_TJM = range(10)
+
+MAX_LY = 8192     # lane-axis cap of the kernels (Ly % 128 == 0)
+
+LAUNCHES = {"pairhmm_fwd": 0, "pairhmm_bwd_post": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# log-space helpers of the Pallas kernels (plain torch, no FMA)
+# ---------------------------------------------------------------------------
+
+def _logexp1_sel(x):
+    """Reference cubic with the segment's coefficients selected first."""
+    s1 = x <= 1.0
+    s2 = x <= 2.5
+    s3 = x <= 4.5
+
+    def pick(i):
+        return torch.where(s2, torch.where(s1, _C0[i], _C1[i]),
+                           torch.where(s3, _C2[i], _C3[i])).float()
+    c0, c1, c2, c3 = pick(0), pick(1), pick(2), pick(3)
+    return ((c0 * x + c1) * x + c2) * x + c3
+
+
+def _log_add(x, y):
+    hi = torch.maximum(x, y)
+    lo = torch.minimum(x, y)
+    d = hi - lo
+    small = (lo <= LOG_ZERO) | (d >= LOG_UNDERFLOW)
+    return torch.where(small, hi,
+                       lo + _logexp1_sel(torch.clamp(d, 0.0, LOG_UNDERFLOW)))
+
+
+def _log_add5(x1, x2, x3, x4, x5):
+    return _log_add(x1, _log_add(x2, _log_add(x3, _log_add(x4, x5))))
+
+
+# degree-8 fit of log(1 + e^x) on [0, 7.5] used inside the within-row
+# scans (muscle_tpu/ops/pairhmm_pallas.py `_P8`)
+_P8 = (-6.73338208e-07, 2.39144278e-05, -3.51821887e-04, 2.68814008e-03,
+       -1.01874083e-02, 4.79808334e-03, 1.22831020e-01, 5.00330250e-01,
+       6.93143978e-01)
+
+
+def _log_add_p(x, y):
+    hi = torch.maximum(x, y)
+    lo = torch.minimum(x, y)
+    d = torch.clamp(hi - lo, max=LOG_UNDERFLOW)
+    small = (lo <= LOG_ZERO) | (d >= LOG_UNDERFLOW)
+    r = torch.full_like(d, _P8[0])
+    for c in _P8[1:]:
+        r = r * d + c
+    return torch.where(small, hi, lo + r)
+
+
+def _shift_fill(x, fill):
+    """Shift lanes right by one; lane 0 takes `fill` ((B,1) or scalar)."""
+    out = torch.roll(x, 1, dims=1)
+    out[:, :1] = fill
+    return out
+
+
+_SEG = 64   # segment width of the two-level within-row scan
+
+
+def _affine_scan_seg(a, c):
+    """Inclusive scan of T_j(u) = LOG_ADD_p(u + a_j, c_j), u_0 = -inf:
+    Hillis-Steele rounds inside 64-lane segments, a sequential carry
+    chain over the segment totals, one combine per lane."""
+    width = a.shape[1]
+    seg = min(_SEG, width)
+    seg_pos = (torch.arange(width, device=a.device) % seg)[None, :]
+    k = 1
+    while k < seg:
+        valid = seg_pos >= k
+        a_prev = torch.where(valid, torch.roll(a, k, dims=1), 0.0)
+        c_prev = torch.where(valid, torch.roll(c, k, dims=1), NEG_BIG)
+        c = _log_add_p(c_prev + a, c)
+        a = a + a_prev
+        k *= 2
+    n_seg = width // seg
+    if n_seg <= 1:
+        return c
+    carry = torch.full_like(a[:, :1], NEG_BIG)
+    carries = [carry]
+    for s in range(n_seg - 1):
+        e = (s + 1) * seg
+        carry = _log_add_p(carry + a[:, e - 1:e], c[:, e - 1:e])
+        carries.append(carry)
+    carry_vec = torch.cat([cc.expand(-1, seg) for cc in carries], dim=1)
+    return _log_add_p(carry_vec + a, c)
+
+
+def _scan2(a1, c1, a2, c2):
+    b = a1.shape[0]
+    c = _affine_scan_seg(torch.cat([a1, a2]), torch.cat([c1, c2]))
+    return c[:b], c[b:]
+
+
+def _cumsum_lanes(x):
+    """Hillis-Steele prefix sum over the full lane width."""
+    lane = torch.arange(x.shape[1], device=x.device)[None, :]
+    k = 1
+    while k < x.shape[1]:
+        x = x + torch.where(lane >= k, torch.roll(x, k, dims=1), 0.0)
+        k *= 2
+    return x
+
+
+def params_vec(pack, device) -> torch.Tensor:
+    """(16,) f32 [tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM, 0...]."""
+    p = torch.zeros(16, dtype=torch.float32)
+    p[P_TSM] = float(pack.start[0])
+    p[P_TSI] = float(pack.start[1])
+    p[P_TSJ] = float(pack.start[3])
+    p[3:10] = torch.tensor([pack.tMM, pack.tMI, pack.tMJ, pack.tII,
+                            pack.tIM, pack.tJJ, pack.tJM])
+    return p.to(device)
+
+
+def tables(pack, device):
+    """(match (K+1)^2, insert (K+1,), params (16,)) f32 on `device`."""
+    return (torch.as_tensor(pack.match, dtype=torch.float32).to(device),
+            torch.as_tensor(pack.insert, dtype=torch.float32).to(device),
+            params_vec(pack, device))
+
+
+def _unpack(params):
+    return [params[k] for k in range(10)]
+
+
+# ---------------------------------------------------------------------------
+# plain twins (torch transcriptions of the Pallas kernels)
+# ---------------------------------------------------------------------------
+
+def fwd_plain(xb, yb, lxb, lyb, match, insert, params):
+    """Twin of kernel A. Returns (fm (B, Lx, Ly) forward M rows 1..Lx
+    over columns 1..Ly, fend (B, 5) states [M, IX, IY, JX, JY] at
+    (lx, ly)). reference: src/fwdflat3.cpp:12-153."""
+    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
+    xb = xb.long()
+    yb = yb.long()
+    b, lx_pad = xb.shape
+    width = yb.shape[1]
+    dev = xb.device
+    lane = torch.arange(width, device=dev)[None, :]
+    insy = insert[yb]
+    lz = torch.full((b, width), LOG_ZERO, dtype=torch.float32, device=dev)
+    # row 0 boundary (reference: src/fwdflat3.cpp:35-93)
+    m, ix, jx = lz, lz, lz
+    iy = tSI - tII + _cumsum_lanes(insy + tII)
+    jy = tSJ - tJJ + _cumsum_lanes(insy + tJJ)
+    ix0 = torch.full((b, 1), LOG_ZERO, dtype=torch.float32, device=dev)
+    jx0 = ix0
+    fm = torch.empty((b, lx_pad, width), dtype=torch.float32, device=dev)
+    fend = torch.full((b, 5), LOG_ZERO, dtype=torch.float32, device=dev)
+    ar = torch.arange(b, device=dev)
+    for i in range(lx_pad):
+        e_row = match[xb[:, i:i + 1], yb]
+        insx = insert[xb[:, i]][:, None]
+        # M row: fold the five predecessors, shift the fold once
+        comb = _log_add5(m + tMM, ix + tIM, jx + tJM, iy + tIM, jy + tJM)
+        m_new = _shift_fill(comb, _log_add(ix0 + tIM, jx0 + tJM)) + e_row
+        if i == 0:
+            m_new = torch.where(lane == 0, tSM + e_row, m_new)
+        ix_new = _log_add(ix + tII, m + tMI) + insx
+        jx_new = _log_add(jx + tJJ, m + tMJ) + insx
+        if i == 0:
+            ix0, jx0 = tSI + insx, tSJ + insx
+        else:
+            ix0, jx0 = ix0 + tII + insx, jx0 + tJJ + insx
+        m_sh = _shift_fill(m_new, LOG_ZERO)
+        iy, jy = _scan2(insy + tII, m_sh + tMI + insy,
+                        insy + tJJ, m_sh + tMJ + insy)
+        m, ix, jx = m_new, ix_new, jx_new
+        fm[:, i] = m
+        last = lxb == i + 1
+        if bool(last.any()):
+            col = (lyb.long() - 1)
+            vals = torch.stack([r[ar, col] for r in (m, ix, iy, jx, jy)],
+                               dim=1)
+            fend = torch.where(last[:, None], vals, fend)
+    return fm, fend
+
+
+def _total_prob(fend, params):
+    """Total log-prob per pair: LOG_ADD fold over the states of
+    F[s](lx, ly) + the start scores, in the reference order
+    (src/totalprobflat.cpp:3-16)."""
+    bstart = (params[P_TSM], params[P_TSI], params[P_TSI],
+              params[P_TSJ], params[P_TSJ])
+    tot = torch.full(fend.shape[:1], LOG_ZERO, dtype=torch.float32,
+                     device=fend.device)
+    for s in range(5):
+        tot = _log_add(tot, fend[:, s] + bstart[s])
+    return tot
+
+
+def bwd_post_plain(xb, yb, lxb, lyb, match, insert, params, tot, fm,
+                   with_mea: bool = True):
+    """Twin of kernel B. Returns (post (B, Lx, Ly), mea (B,) MEA score).
+
+    Lane q holds forward column Ly-1-q (sequences plainly flipped, so
+    each pair's real lanes end-align); padding lanes q < Ly-ly carry the
+    column boundary chains and rows u <= Lx-lx keep the boundary state.
+    reference: src/bwdflat3.cpp:10-190, src/calcposteriorflat.cpp:4-27,
+    src/calcalnscoreflat.cpp:4-32.
+    """
+    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
+    xb = xb.long()
+    yb = yb.long()
+    b, n_rows = xb.shape
+    width = yb.shape[1]
+    dev = xb.device
+    lxv = lxb.float()[:, None]
+    u0 = float(n_rows) - lxv                     # last pinned row
+    lane = torch.arange(width, device=dev)[None, :].float()
+    padmask = lane < (float(width) - lyb.float()[:, None])
+    yfl = yb.flip(1)
+    insy_raw = insert[yfl]
+    insy = torch.where(padmask, LOG_ZERO, insy_raw)
+    tot = tot[:, None]
+
+    cum_i = _cumsum_lanes(torch.where(padmask, 0.0, insy_raw + tII))
+    iy = torch.where(padmask, tSI, tSI + cum_i)
+    cum_j = _cumsum_lanes(torch.where(padmask, 0.0, insy_raw + tJJ))
+    jy = torch.where(padmask, tSJ, tSJ + cum_j)
+    m = _log_add(tMI + _shift_fill(iy, tSI) + insy,
+                 tMJ + _shift_fill(jy, tSJ) + insy)
+    m = torch.where(padmask, tSM, m)
+    lz = torch.full((b, width), LOG_ZERO, dtype=torch.float32, device=dev)
+    ix = torch.where(padmask, tSI, lz)
+    jx = torch.where(padmask, tSJ, lz)
+    col = torch.zeros((b, 1), dtype=torch.float32, device=dev)
+    ix0, jx0, m0 = col + tSI, col + tSJ, col + tSM
+    mea = torch.zeros((b, width), dtype=torch.float32, device=dev)
+    post = torch.empty((b, n_rows, width), dtype=torch.float32, device=dev)
+
+    for u in range(n_rows):
+        if u > 0:
+            xi = n_rows - u
+            e_row = torch.where(padmask, LOG_ZERO, match[xb[:, xi:xi + 1], yfl])
+            insx = insert[xb[:, xi]][:, None]
+            next_m = _shift_fill(m, m0) + e_row
+            next_ix = ix + insx
+            next_jx = jx + insx
+            ix_new = _log_add(tII + next_ix, tIM + next_m)
+            jx_new = _log_add(tJJ + next_jx, tJM + next_m)
+            ix0_new = tII + ix0 + insx
+            jx0_new = tJJ + jx0 + insx
+            m0_new = _log_add(tMI + ix0 + insx, tMJ + jx0 + insx)
+            iy_new, jy_new = _scan2(insy + tII, tIM + next_m,
+                                    insy + tJJ, tJM + next_m)
+            next_iy = _shift_fill(iy_new, LOG_ZERO) + insy
+            next_jy = _shift_fill(jy_new, LOG_ZERO) + insy
+            m_new = _log_add5(tMM + next_m, tMI + next_ix, tMJ + next_jx,
+                              tMI + next_iy, tMJ + next_jy)
+            pin = float(u) <= u0
+            m = torch.where(pin, m, m_new)
+            ix = torch.where(pin, ix, ix_new)
+            iy = torch.where(pin, iy, iy_new)
+            jx = torch.where(pin, jx, jx_new)
+            jy = torch.where(pin, jy, jy_new)
+            ix0 = torch.where(pin, ix0, ix0_new)
+            jx0 = torch.where(pin, jx0, jx0_new)
+            m0 = torch.where(pin, m0, m0_new)
+        # combine with forward row n_rows-1-u, threshold at 0.01
+        pf = n_rows - 1 - u
+        score = fm[:, pf].flip(1) + _shift_fill(m, m0) - tot
+        valid = (float(pf) < lxv) & ~padmask
+        post_nat = torch.where((score >= MIN_SPARSE_SCORE) & valid,
+                               torch.exp(torch.clamp(score, max=0.0)), 0.0)
+        post[:, pf] = post_nat.flip(1)
+        if with_mea:
+            e = torch.maximum(_shift_fill(mea, 0.0) + post_nat, mea)
+            mea = torch.cummax(torch.clamp(e, min=0.0), dim=1).values
+    return post, mea[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# kernel build + launch
+# ---------------------------------------------------------------------------
+
+_KERNELS = ("pairhmm_fwd", "pairhmm_bwd_post")
+_libs: dict = {}
+
+
+def kernel_specs():
+    from ..utils.build import LibSpec, nvcc, package_path
+    flags = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+    dep = package_path("csrc", "pairhmm_common.cuh")
+    return [LibSpec(name=k, compiler=nvcc(), flags=flags,
+                    sources=(package_path("csrc", f"{k}.cu"),), deps=(dep,))
+            for k in _KERNELS]
+
+
+def _lib(name: str):
+    if name not in _libs:
+        from ..utils.build import ensure_built
+        paths = ensure_built(kernel_specs())
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        argtypes = {
+            "pairhmm_fwd": [vp] * 7 + [ci] * 4 + [vp] * 3,
+            "pairhmm_bwd_post": [vp] * 8 + [ci] * 5 + [vp] * 4,
+        }
+        for k in _KERNELS:
+            lib = ctypes.CDLL(paths[k])
+            fn = getattr(lib, k)
+            fn.restype = ci
+            fn.argtypes = argtypes[k]
+            lib.pairhmm_error_string.restype = ctypes.c_char_p
+            lib.pairhmm_error_string.argtypes = [ci]
+            _libs[k] = lib
+    return _libs[name]
+
+
+def _check_inputs(xb, yb, lxb, lyb, match, insert, params):
+    dev = xb.device
+    for name, t in (("xb", xb), ("yb", yb), ("lxb", lxb), ("lyb", lyb)):
+        if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous int32 on {dev}")
+    for name, t in (("match", match), ("insert", insert), ("params", params)):
+        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous float32 on {dev}")
+    b, lx = xb.shape
+    ly = yb.shape[1]
+    if yb.shape[0] != b or lxb.shape != (b,) or lyb.shape != (b,):
+        raise ValueError("batch shapes disagree")
+    if ly % 128 or not 0 < ly <= MAX_LY or lx < 1:
+        raise ValueError(f"Ly={ly} must be a multiple of 128 in "
+                         f"[128, {MAX_LY}]")
+    kk = insert.shape[0]
+    if match.shape != (kk, kk) or params.shape != (16,):
+        raise ValueError("score table shapes")
+    return b, lx, ly, kk
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _raise_on(lib, rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.pairhmm_error_string(rc).decode()}")
+
+
+def pairhmm_fwd(xb, yb, lxb, lyb, match, insert, params):
+    """Kernel A (forward). CPU tensors run `fwd_plain`."""
+    if xb.device.type == "cpu":
+        return fwd_plain(xb, yb, lxb, lyb, match, insert, params)
+    if xb.device.type != "cuda":
+        raise ValueError(f"unsupported device {xb.device}")
+    b, lx, ly, kk = _check_inputs(xb, yb, lxb, lyb, match, insert, params)
+    fm = torch.empty((b, lx, ly), dtype=torch.float32, device=xb.device)
+    fend = torch.empty((b, 5), dtype=torch.float32, device=xb.device)
+    lib = _lib("pairhmm_fwd")
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    rc = lib.pairhmm_fwd(_ptr(xb), _ptr(yb), _ptr(lxb), _ptr(lyb),
+                         _ptr(match), _ptr(insert), _ptr(params),
+                         b, lx, ly, kk, _ptr(fm), _ptr(fend),
+                         ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "pairhmm_fwd")
+    LAUNCHES["pairhmm_fwd"] += 1
+    return fm, fend
+
+
+def pairhmm_bwd_post(xb, yb, lxb, lyb, match, insert, params, tot, fm,
+                     with_mea: bool = True):
+    """Kernel B (backward + posterior + MEA). CPU tensors run
+    `bwd_post_plain`."""
+    if xb.device.type == "cpu":
+        return bwd_post_plain(xb, yb, lxb, lyb, match, insert, params, tot,
+                              fm, with_mea)
+    if xb.device.type != "cuda":
+        raise ValueError(f"unsupported device {xb.device}")
+    b, lx, ly, kk = _check_inputs(xb, yb, lxb, lyb, match, insert, params)
+    if (tot.dtype != torch.float32 or tot.shape != (b,)
+            or tot.device != xb.device or fm.shape != (b, lx, ly)
+            or fm.dtype != torch.float32 or fm.device != xb.device
+            or not fm.is_contiguous()):
+        raise ValueError("tot (B,) / fm (B, Lx, Ly) float32 on the device")
+    post = torch.empty((b, lx, ly), dtype=torch.float32, device=xb.device)
+    mea = torch.empty((b,), dtype=torch.float32, device=xb.device)
+    lib = _lib("pairhmm_bwd_post")
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    rc = lib.pairhmm_bwd_post(_ptr(xb), _ptr(yb), _ptr(lxb), _ptr(lyb),
+                              _ptr(match), _ptr(insert), _ptr(params),
+                              _ptr(tot), b, lx, ly, kk, int(with_mea),
+                              _ptr(fm), _ptr(post), _ptr(mea),
+                              ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "pairhmm_bwd_post")
+    LAUNCHES["pairhmm_bwd_post"] += 1
+    return post, mea
+
+
+def batch_posteriors_cuda(xb, yb, lxb, lyb, pack, with_mea: bool = True):
+    """Posteriors (B, Lx, Ly) f32 and EA (B,) f32 for a batch of pairs:
+    kernel A, the total-probability fold, kernel B. Same contract as
+    ops.pairhmm.batch_posteriors."""
+    match, insert, params = tables(pack, xb.device)
+    xb = xb.to(torch.int32).contiguous()
+    yb = yb.to(torch.int32).contiguous()
+    lxb = lxb.to(torch.int32).contiguous()
+    lyb = lyb.to(torch.int32).contiguous()
+    fm, fend = pairhmm_fwd(xb, yb, lxb, lyb, match, insert, params)
+    tot = _total_prob(fend, params)
+    post, mea = pairhmm_bwd_post(xb, yb, lxb, lyb, match, insert, params,
+                                 tot, fm, with_mea)
+    if with_mea:
+        ea = mea / torch.minimum(lxb, lyb).float()
+    else:
+        ea = torch.zeros_like(mea)
+    return post, ea

@@ -1,0 +1,219 @@
+"""MPC — the core MSA pipeline (Multithreaded ProbCons), torch port.
+
+Equivalent of the reference's MPCFlat::Run (reference:
+src/mpcflat.cpp:285-337) and of muscle_tpu.pipeline.mpc. Stage order:
+
+  derep -> all-pairs posteriors + EA distances (device, batched)
+        -> UPGMA5 guide tree (+ permutation)
+        -> consistency transform (device, one matrix product per iter)
+        -> join order -> progressive align -> refine (host)
+        -> sort by tree -> re-insert dupes
+
+Ported branches: the small-family dense branch (n >= 3,
+n * pad <= SMALL_DENSE_NL, host refine) and the no-consistency branch
+(n = 2 or consistency_iters = 0). The blocked consistency for larger
+families and the device refinement joins for n >= 64 raise
+NotImplementedError (ROADMAP.md, open item 8).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from ..alphabet import ALPHA_AMINO, ALPHA_NUCLEO, guess_is_nucleo
+from ..hmm.params import HMMParams
+from ..sequence import MultiSequence, Sequence
+from ..tree.joinorder import guide_tree_join_order
+from ..tree.tree import Tree
+from ..tree.upgma import LINKAGE_BIASED, fix_ea_distmx, upgma5
+from ..utils import logging as mlog
+from ..utils.device import resolve_device
+from ..utils.rng import GlibcRand, MwcRng
+from . import posteriors as post_mod
+from .derep import Derep
+from .progressive import progressive_align, refine
+
+DEFAULT_CONSISTENCY_ITERS = 2   # reference: src/pairhmm.h:8
+DEFAULT_REFINE_ITERS = 100      # reference: src/pairhmm.h:9
+PAIR_BATCH = 256                # pairs per call on the bucketed branch
+SPARSE_K = 32                   # slots per posterior row in the store
+
+# the JAX package refines families of this size and above with device
+# joins (muscle_tpu/pipeline/devjoin.py), not ported yet
+DEVICE_REFINE_N = 64
+
+
+class MPC:
+    def __init__(self,
+                 consistency_iters: int = DEFAULT_CONSISTENCY_ITERS,
+                 refine_iters: int = DEFAULT_REFINE_ITERS,
+                 tree_perm: str | None = None,
+                 device=None):
+        self.consistency_iters = consistency_iters
+        self.refine_iters = refine_iters
+        self.tree_perm = tree_perm
+        self.device = resolve_device(device)
+        self.guide_tree: Tree | None = None
+        self.dist_mx: np.ndarray | None = None
+
+    def _prepare(self, input_seqs: MultiSequence):
+        derep = Derep()
+        derep.run(input_seqs)
+        unique = derep.unique_seqs(input_seqs)
+        n = len(unique)
+        labels = unique.labels()
+        if n > 1 and len(set(labels)) != n:
+            raise ValueError("duplicate labels in input")
+        label_to_index = {lb: i for i, lb in enumerate(labels)}
+        # pad to the bucket ladder (the JAX package's padding: it
+        # decides the kernels' lane layout and so the numbers)
+        lmax = max(len(s) for s in unique)
+        if lmax > post_mod.BUCKET_LADDER[-1]:
+            pad_to = post_mod.round_up(lmax, 128)
+        else:
+            pad_to = max(128, post_mod._bucket_of(
+                lmax, post_mod.BUCKET_LADDER[-1]))
+        pairs = [(x, y) for x in range(n) for y in range(x + 1, n)]
+        return derep, unique, n, labels, label_to_index, pad_to, pairs
+
+    def _tree_from_dist(self, labels, dist_mx):
+        """Guide tree from EA distances (+ optional permutation)."""
+        d = fix_ea_distmx(dist_mx)
+        tree = upgma5(labels, d, LINKAGE_BIASED)
+        if self.tree_perm and self.tree_perm != "none":
+            from ..tree.permute import perm_tree
+            tree = perm_tree(tree, self.tree_perm)
+        return tree
+
+    def run(self, input_seqs: MultiSequence, hp: HMMParams, alpha: str,
+            refine_rng: GlibcRand | None = None) -> MultiSequence:
+        derep, unique, n, labels, label_to_index, pad_to, pairs = \
+            self._prepare(input_seqs)
+
+        if n == 1:
+            # all sequences identical: output a copy of the input
+            return MultiSequence([Sequence(s.label, s.bytes_view())
+                                  for s in input_seqs])
+
+        pack = hp.to_scores()
+        mlog.log("MPC: %d unique seqs, %d pairs, pad %d, device %s", n,
+                 len(pairs), pad_to, self.device)
+        # single-device capacity guard of the blocked branch, kept as the
+        # JAX package has it: the (P+1, L, K) sparse store is 8 B/slot
+        p_total = len(pairs)
+        store_gb = (p_total + 1) * pad_to * SPARSE_K * 8 / 1e9
+        budget_gb = float(os.environ.get("MUSCLE_TPU_HBM_BUDGET_GB", 12.0))
+        if store_gb > budget_gb and n * pad_to > post_mod.SMALL_DENSE_NL:
+            raise MemoryError(
+                f"MPC sparse store for {n} seqs ({p_total} pairs, "
+                f"L={pad_to}, K={SPARSE_K}) needs ~{store_gb:.0f} GB "
+                f"device memory (> {budget_gb:.0f} GB budget). Use "
+                f"-super5, or raise MUSCLE_TPU_HBM_BUDGET_GB.")
+        if n >= DEVICE_REFINE_N:
+            raise NotImplementedError(
+                f"{n} sequences: families of {DEVICE_REFINE_N} or more "
+                "refine with device joins, not ported yet (ROADMAP.md, "
+                "open item 8: blocked consistency and device refine)")
+        use_dense = (n >= 3 and self.consistency_iters > 0
+                     and n * pad_to <= post_mod.SMALL_DENSE_NL)
+        if n >= 3 and self.consistency_iters > 0 and not use_dense:
+            raise NotImplementedError(
+                f"{n} sequences x {pad_to} columns > "
+                f"{post_mod.SMALL_DENSE_NL}: the blocked consistency is "
+                "not ported yet (ROADMAP.md, open item 8: blocked "
+                "consistency and device refine)")
+
+        codes, lens = post_mod.encode_batch(unique, alpha, pad_to=pad_to)
+        with mlog.stage("posteriors+consistency" if use_dense
+                        else "posteriors"):
+            if use_dense:
+                store_v, store_c, ea, max_nnz = \
+                    post_mod.small_family_store(
+                        codes, lens, pack, pairs, n, SPARSE_K,
+                        self.consistency_iters, self.device)
+            else:
+                store_v, store_c, ea, max_nnz = \
+                    post_mod.all_pairs_posteriors_sparse(
+                        codes, lens, pack, pairs, self.device,
+                        batch_size=PAIR_BATCH, k=SPARSE_K)
+        if max_nnz > SPARSE_K:
+            mlog.log(f"sparse posterior truncation: max row nnz {max_nnz} > "
+                     f"K={SPARSE_K}")
+        # trim the store to the occupied K-prefix (sparsify packs valid
+        # slots first)
+        k2s = min(SPARSE_K, max(8, -(-int(max_nnz) // 8) * 8))
+        if k2s < store_v.shape[2]:
+            store_v = store_v[:, :, :k2s]
+            store_c = store_c[:, :, :k2s]
+        self.dist_mx = post_mod.ea_dist_matrix(n, pairs, ea)
+
+        # guide tree from the pre-consistency EA distances
+        # (reference: src/mpcflat.cpp:306-310)
+        with mlog.stage("tree"):
+            tree = self._tree_from_dist(labels, self.dist_mx)
+        self.guide_tree = tree
+
+        with mlog.stage("store-fetch"):
+            posts = post_mod.posts_from_store(store_v, store_c, pairs, lens)
+        del store_v, store_c
+
+        idx1, idx2 = guide_tree_join_order(tree, label_to_index)
+        with mlog.stage("progressive"):
+            msa = progressive_align(unique, idx1, idx2, label_to_index,
+                                    posts)
+        with mlog.stage("refine"):
+            msa = refine(msa, self.refine_iters, label_to_index, posts,
+                         rng=refine_rng)
+        msa = self._sort(msa, tree)
+        dupes = derep.rep_label_to_dupe_labels(input_seqs)
+        if dupes:
+            msa = self._insert_dupes(msa, dupes)
+        return msa
+
+    @staticmethod
+    def _sort(msa: MultiSequence, tree: Tree) -> MultiSequence:
+        by_label = {s.label: s for s in msa}
+        ordered = []
+        for node in tree.depth_first():
+            if tree.is_leaf(node):
+                ordered.append(by_label[tree.labels[node]])
+        return MultiSequence(ordered)
+
+    @staticmethod
+    def _insert_dupes(msa: MultiSequence,
+                      dupes: dict[str, list[str]]) -> MultiSequence:
+        out = MultiSequence()
+        for s in msa:
+            out.add(s)
+            for dl in dupes.get(s.label, ()):
+                out.add(Sequence(dl, s.bytes_view()))
+        return out
+
+
+def align(seqs: MultiSequence, *,
+          nucleo: bool | None = None,
+          perturb_seed: int = 0,
+          tree_perm: str | None = None,
+          consistency_iters: int = DEFAULT_CONSISTENCY_ITERS,
+          refine_iters: int = DEFAULT_REFINE_ITERS,
+          device=None) -> MultiSequence:
+    """Align a set of unaligned sequences (reference: -align, src/align.cpp).
+
+    Runs on the GPU unless `device="cpu"` is given; raises when no GPU
+    is present and no device was asked for.
+    """
+    device = resolve_device(device)
+    if nucleo is None:
+        nucleo = guess_is_nucleo(seqs, MwcRng(1))
+    alpha = ALPHA_NUCLEO if nucleo else ALPHA_AMINO
+
+    hp = HMMParams.from_defaults(nucleo=nucleo)
+    if perturb_seed > 0:
+        hp.perturb(perturb_seed)
+
+    mpc = MPC(consistency_iters=consistency_iters,
+              refine_iters=refine_iters, tree_perm=tree_perm,
+              device=device)
+    return mpc.run(seqs, hp, alpha)

@@ -1,0 +1,77 @@
+"""Profile one `muscle_tpu_torch.align` call on the GPU with torch.profiler.
+
+    python tools/torch_profile_align.py [--trace build/align_trace.json]
+
+Aligns the synthetic n = 32 family of chip_smoke.py (lengths 400-512,
+the top of the dense branch) once to warm up, then once under the
+profiler. Prints the device kernels by total time, the device busy time
+(the union of kernel intervals), the wall of the profiled call and the
+device's idle share of it. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def busy_us(events) -> float:
+    """Union of the device kernels' [start, end) intervals, microseconds."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", default=None,
+                    help="write a chrome trace of the profiled call here")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_line, synthetic_family
+    from muscle_tpu_torch import align
+    from torch.profiler import ProfilerActivity, profile
+
+    print(card_line())
+    seqs = synthetic_family()
+    align(seqs, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        align(seqs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(prof.key_averages().table(sort_by="device_time_total",
+                                    row_limit=15))
+    busy = busy_us(prof.events()) / 1e6
+    print(f"profiled align wall {wall:.4f} s, device busy {busy:.4f} s, "
+          f"idle share {1 - busy / wall:.4f}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
+                    exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
