@@ -7,22 +7,35 @@ Phases (each raises on failure, so the run exits non-zero):
 
 1. print the card (nvidia-smi name and power limit), build the CUDA
    kernels and the native host library from the sources in this
-   checkout, timing the build;
-2. hold each kernel against its plain torch twin on the card at the
-   main path's shape (B = 512 ragged amino pairs, lengths 170-512,
-   padded to 512), and time kernel and twin with CUDA events;
+   checkout, all at once, timing the build;
+2. hold each kernel against its plain torch version on the card at the
+   main path's shapes, and time kernel, plain version and (where one
+   exists) the one torch call computing the same function with CUDA
+   events: pair-HMM forward and backward+posterior at B = 512 ragged
+   amino pairs padded to 512; densify on one z-tile of the n = 200 Gram
+   panel (blk = 16, L = 512, K = 24) in f32 and bf16; densify-reduce on
+   a 100 x 100 join grid (L = 512, k2 = 24, cc = 768); the MEA direction
+   DP at 768 x 768;
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
-   with default settings, on every in-repo family (the degapped
-   tests/goldens/BB1100*.seq.afa and tests/data/nt/nt*.fa), checking
-   each output is an alignment of its input, printing whether it is
-   column-identical to its golden and its Q against it, and requiring
-   BB11001 to be column-identical;
-   (and run the n = 2 and -consiters 0 branch on BB11001);
-4. align a synthetic family at the top of the dense branch (n = 32,
-   lengths 400-512), print its stage walls and peak device memory
-   (tools/torch_profile_align.py splits its device time by kernel);
-5. print the kernels' JSON line (launch counts from phases 3-4), then
-   the card line and the final {"ok": true, ...} line.
+   with default settings, checking each output is an alignment of its
+   input and that each kernel its branch runs was launched (counts set
+   to 0 just before each call, read just after):
+   - every in-repo family (the degapped tests/goldens/BB1100*.seq.afa
+     and tests/data/nt/nt*.fa), printing whether it is column-identical
+     to its golden and its Q against it, requiring BB11001 to be
+     column-identical (and the n = 2 and -consiters 0 branch on
+     BB11001);
+   - synthetic families (mutated copies of one random protein):
+     n = 32, lengths 400-512 (top of the dense branch, host refine);
+     n = 70, lengths 100-128 (dense consistency + device refine), run
+     again with host refine and required to give the same alignment;
+     n = 24, lengths 700-1000 (blocked f32 Gram consistency + host
+     refine); n = 200, lengths 400-512 (blocked bf16 Gram consistency +
+     device refine, full width), printing stage walls, peak device
+     memory and launches (tools/torch_profile_align.py splits the
+     device time by kernel);
+4. print the kernels' JSON line (launch counts summed over phase 3),
+   then the card line and the final {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device.
 """
@@ -206,6 +219,176 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
     ]
 
 
+def synthetic_store(dev, p1, l, k, seed):
+    """(P1, l, k) sparse store on the card: 1-8 valid slots per row, valid
+    slots first, unique columns (start + q * step mod l, step odd, l a
+    power of two), values in [0.02, 0.92); the last row is the empty
+    dump slot."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (p1, l, 1), generator=g, device=dev,
+                             dtype=torch.int32)
+    q = torch.arange(k, device=dev, dtype=torch.int32)
+    cols = (ints(0, l) + q * (2 * ints(0, l // 2) + 1)) % l
+    valid = q < ints(1, 9)
+    valid[-1] = False
+    vals = torch.rand((p1, l, k), generator=g, device=dev) * 0.9 + 0.02
+    return (torch.where(valid, vals, 0.0).contiguous(),
+            torch.where(valid, cols, -1).to(torch.int32).contiguous())
+
+
+def phase_gram_join_kernels(dev) -> list[dict]:
+    """Kernel 8 (densify), kernel 7 (densify-reduce) and the MEA
+    direction DP against their plain versions at the n = 200 family's
+    shapes; each must be equal (max |d| = 0)."""
+    import torch
+    from muscle_tpu_torch.ops import consistency as cons
+    from muscle_tpu_torch.ops import densify_cuda as dc
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    from muscle_tpu_torch.pipeline.posteriors import store_rows
+
+    n, l, k, blk = 200, 512, 24, 16
+    p1 = store_rows(n * (n - 1) // 2)
+    dump = p1 - 1
+    vals, cols = synthetic_store(dev, p1, l, k, seed=200)
+    out = []
+
+    # densify: z-tile 6 of the Gram panel (blocks of 16, rectangles of
+    # two blocks: 13 + 1 blocks wide), as consistency_sparse builds it
+    nblk = -(-n // blk)
+    nbp = (nblk + min(max(1, 16384 // (blk * l)), nblk) - 1) * blk
+    pid, flag = cons._block_maps(n, nbp, dump)
+    pids = torch.as_tensor(pid[6 * blk:7 * blk], device=dev)
+    flags = torch.as_tensor(flag[6 * blk:7 * blk], device=dev)
+    errs, same = [], True
+    for dtype in (torch.float32, torch.bfloat16):
+        got = dc.densify_panel(vals, cols, pids, flags, dtype)
+        want = dc.densify_panel_plain(vals, cols, pids, flags, dtype)
+        torch.cuda.synchronize()
+        errs.append(float((got.float() - want.float()).abs().max()))
+        same = same and torch.equal(got, want)
+        del got, want
+    ms = time_cuda(lambda: dc.densify_panel(vals, cols, pids, flags,
+                                            torch.bfloat16))
+    ms_f32 = time_cuda(lambda: dc.densify_panel(vals, cols, pids, flags))
+    plain_ms = time_cuda(lambda: dc.densify_panel_plain(
+        vals, cols, pids, flags, torch.bfloat16), reps=3)
+    # one torch call for the same expansion: an out-of-place scatter of
+    # the tile's slots onto a zero (m, L, L + 1) f32 template, empty slots
+    # sent to the spare column (no orientation, no panel layout); it
+    # writes its whole output, as the kernel does
+    ids = pids.reshape(-1).long()
+    v, c = vals[ids], cols[ids]
+    idx = torch.where(c >= 0, c, l).long()
+    buf = torch.zeros((ids.numel(), l, l + 1), device=dev)
+    lib_ms = time_cuda(lambda: torch.scatter(buf, 2, idx, v))
+    real = flags.reshape(-1) != cons.FLAG_EYE
+    slots = float((c[real & (ids != dump)] >= 0).sum())
+    # the bf16 panel written once, each real slot (value, column) and the
+    # tile's maps read once
+    panel_cells = pids.numel() * l * l
+    bnd = bound_ms(2 * panel_cells + 8 * slots + 8 * pids.numel(), 0)
+    print(f"densify (kernel 8) vs plain on a 16 x {nbp} z-tile at L={l}, "
+          f"K={k}: max |d| f32 {errs[0]:.3e}, bf16 {errs[1]:.3e} "
+          f"{'equal' if same else 'FAIL'}; bf16 {ms:.3f} ms, f32 "
+          f"{ms_f32:.3f} ms (plain {plain_ms:.1f} ms, scatter {lib_ms:.3f} "
+          f"ms, bound {bnd[0]:.3f} ms by {bnd[1]})", flush=True)
+    if not same:
+        raise SmokeFailure("densify disagrees with its plain version")
+    out.append({"name": "densify", "route": "cuda",
+                "source": "muscle_tpu_torch/csrc/densify.cu",
+                "replaces": "muscle_tpu/ops/sparse.py:152",
+                "launches": 0, "max_abs_err": max(errs), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib_ms})
+    del buf, idx, v, c
+
+    # densify-reduce: one half of a refine join of the n = 200 family, a
+    # random 100 / 100 split; pos->col maps into 768 columns
+    rng = np.random.default_rng(7)
+    order = rng.permutation(n)
+    rows, cols_of = np.sort(order[:100]), np.sort(order[100:])
+    pm = np.full((n, n), dump, np.int32)
+    for x in range(n):
+        for y in range(x + 1, n):
+            pm[x, y] = cons.pair_index(x, y, n)
+    cc, k2 = 768, k
+    pid_g = torch.as_tensor(pm[np.ix_(rows, cols_of)], device=dev)
+    bank = torch.as_tensor(np.stack([np.sort(rng.choice(cc, l, replace=False))
+                                     for _ in cols_of]).astype(np.int32),
+                           device=dev)
+    got = djc.densify_reduce(vals, cols, k2, pid_g, bank, dump, cc)
+    want = djc.densify_reduce_plain(vals, cols, k2, pid_g, bank, dump, cc)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    same = torch.equal(got, want)
+    del got, want
+    ms = time_cuda(lambda: djc.densify_reduce(vals, cols, k2, pid_g, bank,
+                                              dump, cc))
+    plain_ms = time_cuda(lambda: djc.densify_reduce_plain(
+        vals, cols, k2, pid_g, bank, dump, cc), reps=3)
+    # one torch call for the same sums: an out-of-place index_add of every
+    # valid slot of the real pairs at its flat (s, l, col) index onto a
+    # zero F template
+    s_i, t_i = torch.nonzero(pid_g != dump, as_tuple=True)
+    p = pid_g[s_i, t_i].long()
+    c = cols[p, :, :k2].long()
+    ok = c >= 0
+    col = bank.long()[t_i[:, None, None], c.clamp(min=0)]
+    flat = ((s_i[:, None, None] * l + torch.arange(l, device=dev)[:, None])
+            * cc + col)[ok]
+    vsel = vals[p, :, :k2][ok]
+    f = torch.zeros(len(rows) * l * cc, device=dev)
+    lib_ms = time_cuda(lambda: torch.index_add(f, 0, flat, vsel))
+    bnd = bound_ms(8 * float(vsel.numel()) + 4 * pid_g.numel()
+                   + 4 * bank.numel() + 4 * len(rows) * l * cc,
+                   float(vsel.numel()))
+    print(f"densify_reduce (kernel 7) vs plain on a 100 x 100 grid, "
+          f"{int(p.numel())} real pairs, L={l}, k2={k2}, cc={cc}: max |d| "
+          f"{err:.3e} {'equal' if same else 'FAIL'}; {ms:.3f} ms (plain "
+          f"{plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, bound "
+          f"{bnd[0]:.3f} ms by {bnd[1]})", flush=True)
+    if not same:
+        raise SmokeFailure("densify_reduce disagrees with its plain version")
+    out.append({"name": "densify_reduce", "route": "cuda",
+                "source": "muscle_tpu_torch/csrc/densify_reduce.cu",
+                "replaces": "muscle_tpu/pipeline/devjoin.py:88",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib_ms})
+    del f, flat, vsel, col, c, ok, vals, cols
+
+    # MEA direction DP at 768 x 768 (no single torch call computes it)
+    g = torch.Generator(device=dev).manual_seed(768)
+    post = torch.rand((cc, cc), generator=g, device=dev) * 100.0
+    packed, scores = djc.mea_dirs(post)
+    want_p, want_s = djc.mea_dirs_plain(post)
+    torch.cuda.synchronize()
+    err = float((scores - want_s).abs().max())
+    same = torch.equal(packed, want_p) and torch.equal(scores, want_s)
+    ms = time_cuda(lambda: djc.mea_dirs(post))
+    plain_ms = time_cuda(lambda: djc.mea_dirs_plain(post), reps=3)
+    # per cell: one add, the max of b and x, the running max, three
+    # compares for the direction
+    bnd = bound_ms(4 * cc * cc + 4 * cc * (cc // 16) + 4 * cc, 6 * cc * cc)
+    print(f"mea_dirs vs plain at {cc} x {cc}: max |d| {err:.3e}, "
+          f"directions {'equal' if same else 'FAIL'}; {ms:.3f} ms (plain "
+          f"{plain_ms:.1f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})",
+          flush=True)
+    if not same:
+        raise SmokeFailure("mea_dirs disagrees with its plain version")
+    out.append({"name": "mea_dirs", "route": "cuda",
+                "source": "muscle_tpu_torch/csrc/mea_dirs.cu",
+                "replaces": "muscle_tpu/pipeline/devjoin.py:180",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None})
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_alignment(inp, msa, name):
     """Same labels, equal row widths, each row degapped = its input."""
     want = {s.label: s.text() for s in inp}
@@ -243,26 +426,63 @@ def q_score(test, ref) -> float:
     return hit / max(total, 1)
 
 
-def launches_snapshot():
-    from muscle_tpu_torch.ops import pairhmm_cuda as pc
-    return dict(pc.LAUNCHES)
+# kernels each branch of the main path runs
+PAIR_KERNELS = ("pairhmm_fwd", "pairhmm_bwd_post")
+REFINE_KERNELS = ("densify_reduce", "mea_dirs")
+
+# launches of each kernel over the main path's runs (phase 3)
+MAIN_PATH: dict[str, int] = {}
+
+
+def _kernel_modules():
+    from muscle_tpu_torch.ops import densify_cuda, devjoin_cuda, pairhmm_cuda
+    return (pairhmm_cuda, densify_cuda, devjoin_cuda)
+
+
+def reset_launches():
+    for m in _kernel_modules():
+        m.reset_launches()
+
+
+def launches() -> dict[str, int]:
+    out = {}
+    for m in _kernel_modules():
+        out.update(m.LAUNCHES)
+    return out
+
+
+def run_path(name, seqs, dev, kernels, **kwargs):
+    """One align() call of the main path: the launch counts are set to 0
+    just before it and read just after; each kernel of `kernels` must
+    have launched. Returns (msa, wall s, stage walls, launches)."""
+    import torch
+    from muscle_tpu_torch import align
+    from muscle_tpu_torch.utils import logging as mlog
+    mlog.STAGE_TIMES.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    msa = align(seqs, device=dev, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launches()
+    for k, v in got.items():
+        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
+    missing = [k for k in kernels if got[k] <= 0]
+    if missing:
+        raise SmokeFailure(f"{name}: {missing} not launched")
+    check_alignment(seqs, msa, name)
+    stages = {k: round(v, 4) for k, v in mlog.STAGE_TIMES.items()}
+    return msa, wall, stages, got
 
 
 def phase_families(dev) -> dict:
-    from muscle_tpu_torch import MultiSequence, align
+    from muscle_tpu_torch import MultiSequence
     results = {}
     for name, inp, strip, golden in FAMILIES:
         seqs = MultiSequence.from_fasta(os.path.join(ROOT, inp),
                                         strip_gaps=strip)
         gold = MultiSequence.from_fasta(os.path.join(ROOT, golden))
-        before = launches_snapshot()
-        t0 = time.perf_counter()
-        msa = align(seqs, device=dev)
-        wall = time.perf_counter() - t0
-        check_alignment(seqs, msa, name)
-        after = launches_snapshot()
-        if any(after[k] <= before[k] for k in after):
-            raise SmokeFailure(f"{name}: a kernel was not launched")
+        msa, wall, _, _ = run_path(name, seqs, dev, PAIR_KERNELS)
         same = ({s.label: s.text() for s in msa}
                 == {s.label: s.text() for s in gold})
         q = q_score(msa, gold)
@@ -277,12 +497,8 @@ def phase_families(dev) -> dict:
                                   strip_gaps=True)
     for name, seqs, iters in (("BB11001 first two", MultiSequence(list(bb)[:2]), 2),
                               ("BB11001 consiters 0", bb, 0)):
-        before = launches_snapshot()
-        msa = align(seqs, consistency_iters=iters, device=dev)
-        check_alignment(seqs, msa, name)
-        after = launches_snapshot()
-        if any(after[k] <= before[k] for k in after):
-            raise SmokeFailure(f"{name}: a kernel was not launched")
+        msa, _, _, _ = run_path(name, seqs, dev, PAIR_KERNELS,
+                                consistency_iters=iters)
         print(f"family {name}: valid alignment, width {msa.col_count()}",
               flush=True)
     return results
@@ -305,29 +521,49 @@ def synthetic_family(n=32, lo=400, hi=512, seed=32):
     return seqs
 
 
-def phase_realistic(dev) -> dict:
+def phase_synthetic(dev) -> dict:
+    """The synthetic families, one per branch of the main path."""
     import torch
-    from muscle_tpu_torch import align
-    from muscle_tpu_torch.utils import logging as mlog
-    seqs = synthetic_family()
-    mlog.STAGE_TIMES.clear()
-    torch.cuda.reset_peak_memory_stats()
-    before = launches_snapshot()
-    t0 = time.perf_counter()
-    msa = align(seqs, device=dev)
-    wall = time.perf_counter() - t0
-    check_alignment(seqs, msa, "synthetic n=32")
-    after = launches_snapshot()
-    if any(after[k] <= before[k] for k in after):
-        raise SmokeFailure("n=32 family: a kernel was not launched")
-    peak = torch.cuda.max_memory_allocated()
-    stages = {k: round(v, 4) for k, v in mlog.STAGE_TIMES.items()}
-    print(f"family synthetic n=32 L=400-512: wall={wall:.2f}s "
-          f"width={msa.col_count()} peak_device_mem={peak / 2**30:.3f} GiB "
-          f"stages={json.dumps(stages)} "
-          f"launches={json.dumps({k: after[k] - before[k] for k in after})}",
-          flush=True)
-    return {"wall_s": wall, "peak_bytes": peak, "stages": stages}
+    from muscle_tpu_torch.pipeline import mpc
+    out = {}
+    for n, lo, hi, kernels, what in (
+            (32, 400, 512, PAIR_KERNELS, "dense, host refine"),
+            (70, 100, 128, PAIR_KERNELS + REFINE_KERNELS,
+             "dense, device refine"),
+            (24, 700, 1000, PAIR_KERNELS + ("densify",),
+             "blocked f32 Gram, host refine"),
+            (200, 400, 512, PAIR_KERNELS + ("densify",) + REFINE_KERNELS,
+             "blocked bf16 Gram, device refine")):
+        name = f"synthetic n={n} L={lo}-{hi}"
+        seqs = synthetic_family(n, lo, hi, seed=n)
+        torch.cuda.reset_peak_memory_stats()
+        msa, wall, stages, got = run_path(name, seqs, dev, kernels)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"family {name} ({what}): wall={wall:.2f}s "
+              f"width={msa.col_count()} "
+              f"peak_device_mem={peak / 2**30:.3f} GiB "
+              f"stages={json.dumps(stages)} launches={json.dumps(got)}",
+              flush=True)
+        out[n] = {"wall_s": wall, "peak_bytes": peak, "stages": stages}
+        if n == 70:
+            # ROADMAP item 8's gate on the card: device refine joins give
+            # the host joins' alignment
+            saved = mpc.DEVICE_REFINE_N
+            mpc.DEVICE_REFINE_N = n + 1
+            try:
+                host, hwall, hstages, _ = run_path(
+                    f"{name} host refine", seqs, dev, PAIR_KERNELS)
+            finally:
+                mpc.DEVICE_REFINE_N = saved
+            same = ({s.label: s.text() for s in host}
+                    == {s.label: s.text() for s in msa})
+            print(f"family {name} with host refine: wall={hwall:.2f}s "
+                  f"stages={json.dumps(hstages)} "
+                  f"equal-to-device-refine={same}", flush=True)
+            if not same:
+                raise SmokeFailure(f"{name}: device refine and host refine "
+                                   "give different alignments")
+    return out
 
 
 def main() -> int:
@@ -337,7 +573,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from muscle_tpu_torch import native
-    from muscle_tpu_torch.ops import pairhmm_cuda as pc
     from muscle_tpu_torch.utils.build import build_all
 
     card = card_line()
@@ -348,13 +583,14 @@ def main() -> int:
           f"native host library loaded: {native.loaded()}", flush=True)
     dev = torch.device("cuda")
 
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev) + phase_gram_join_kernels(dev)
 
-    pc.reset_launches()
+    t0 = time.perf_counter()
     phase_families(dev)
-    phase_realistic(dev)
+    phase_synthetic(dev)
+    print(f"main path: {time.perf_counter() - t0:.1f}s", flush=True)
     for k in kernels:
-        k["launches"] = pc.LAUNCHES[k["name"]]
+        k["launches"] = MAIN_PATH.get(k["name"], 0)
         if k["launches"] <= 0:
             raise SmokeFailure(f"{k['name']} never launched on the main path")
 

@@ -1,0 +1,180 @@
+"""The device refine joins' kernels: two hand-written CUDA kernels.
+
+* `densify_reduce` (csrc/densify_reduce.cu) replaces
+  muscle_tpu.pipeline.devjoin._dr_kernel (kernel 7, grid variant): for
+  every row-owner s of a pair-index grid, the K-sparse rows of the
+  pairs (s, t) summed over the col-owners t in order, each slot's
+  position mapped to t's column. It reads the store through the grid,
+  so JAX's gathered (W, n_c, L, k2) slot panels never exist.
+* `mea_dirs` (csrc/mea_dirs.cu) replaces devjoin._mea_dirs, the MEA
+  direction DP (an XLA scan in the JAX package) with its 2-bit packing.
+
+Beside each is its plain torch version (`densify_reduce_plain`, a loop
+over t; `mea_dirs_plain`, a loop over rows with torch.cummax). Each F
+cell takes at most one value per t, added in t order, and max is exact,
+so kernels and plain versions agree bit for bit. A CPU tensor runs the
+plain version; a CUDA tensor launches the kernel or raises. `LAUNCHES`
+counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+LAUNCHES = {"densify_reduce": 0, "mea_dirs": 0}
+
+# shared-memory tile of densify_reduce: at most 48 KB of f32
+_TILE = 12288
+# mea_dirs: 16 * wpt columns per thread, at most 1024 threads, one
+# (threads * 16 * wpt + 1) f32 row in shared memory (227 KB per block)
+_MEA_SMEM = 232448 - 128
+
+_fns: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def kernel_specs():
+    from ..utils.build import cuda_spec
+    return [cuda_spec(k) for k in LAUNCHES]
+
+
+def _kernel(name: str):
+    if name not in _fns:
+        from ..utils.build import load_kernel
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        argtypes = {"densify_reduce": [vp, vp] + [ci] * 4 + [vp] + [ci] * 2
+                    + [vp] + [ci] * 4 + [vp, vp],
+                    "mea_dirs": [vp] + [ci] * 4 + [vp] * 3}[name]
+        spec = next(s for s in kernel_specs() if s.name == name)
+        _fns[name] = load_kernel(spec, argtypes)
+    return _fns[name]
+
+
+def _launch(name: str, *args) -> None:
+    fn, err = _kernel(name)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {err(rc).decode()}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# densify-reduce
+# ---------------------------------------------------------------------------
+
+def densify_reduce_plain(vals, cols, k2: int, pid, bank, dump: int, cc: int):
+    """(P1, L, K) store, (n_r, n_c) pair grid, (n_c, L) pos->col maps of
+    the col-owners -> F (n_r, L, cc) f32: F[s, l, bank[t, p]] summed
+    over t in order of vals[pid[s, t], l, k] at p = cols[pid[s, t], l, k].
+    Dump pairs, empty slots and columns outside [0, cc) add nothing."""
+    n_r, n_c = pid.shape
+    l = vals.shape[1]
+    f = torch.zeros((n_r, l, cc + 1), dtype=torch.float32, device=vals.device)
+    for t in range(n_c):
+        p = pid[:, t].long()
+        v = vals[p, :, :k2]
+        pos = cols[p, :, :k2]
+        col = bank[t].long()[pos.clamp(0, l - 1).long()]
+        ok = ((pos >= 0) & (pos < l) & (col >= 0) & (col < cc)
+              & (p != dump)[:, None, None])
+        f += torch.zeros_like(f).scatter_(2, torch.where(ok, col, cc),
+                                          torch.where(ok, v, 0.0))
+    return f[..., :cc].contiguous()
+
+
+def densify_reduce(vals, cols, k2: int, pid, bank, dump: int, cc: int):
+    """Kernel 7 on a CUDA store; the plain version on a CPU one."""
+    if vals.device.type == "cpu":
+        return densify_reduce_plain(vals, cols, k2, pid, bank, dump, cc)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    dev = vals.device
+    if (vals.dtype != torch.float32 or cols.dtype != torch.int32
+            or vals.dim() != 3 or cols.shape != vals.shape
+            or not vals.is_contiguous() or not cols.is_contiguous()
+            or cols.device != dev):
+        raise ValueError(f"vals f32 / cols int32: contiguous (P1, L, K) "
+                         f"on {dev}")
+    p1, l, k = vals.shape
+    n_r, n_c = pid.shape
+    for name, t, shape in (("pid", pid, (n_r, n_c)), ("bank", bank, (n_c, l))):
+        if (t.dtype != torch.int32 or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: contiguous int32 {shape} on {dev}")
+    if not 0 < k2 <= k or cc < 1:
+        raise ValueError(f"k2={k2} (K={k}), cc={cc}")
+    out = torch.empty((n_r, l, cc), dtype=torch.float32, device=dev)
+    if n_r == 0 or n_c == 0:
+        return out.zero_()
+    tc = min(cc, _TILE)
+    tr = max(1, min(l, _TILE // tc))
+    _launch("densify_reduce", vals.data_ptr(), cols.data_ptr(), p1, l, k, k2,
+            pid.data_ptr(), n_r, n_c, bank.data_ptr(), dump, cc, tr, tc,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MEA direction DP
+# ---------------------------------------------------------------------------
+
+def _pack(dirs: torch.Tensor) -> torch.Tensor:
+    """(cc1, 16w) 2-bit codes -> (cc1, w) int32, column j in bits
+    2(j % 16) of word j // 16 (two's complement, as JAX's int32 sum)."""
+    cc1 = dirs.shape[0]
+    shifts = 2 * torch.arange(16, dtype=torch.int64, device=dirs.device)
+    p = (dirs.long().view(cc1, -1, 16) << shifts).sum(-1)
+    return torch.where(p >= 2 ** 31, p - 2 ** 32, p).to(torch.int32)
+
+
+def mea_dirs_plain(post: torch.Tensor):
+    """(cc1, cc2) f32 posterior -> (packed (cc1, ceil(cc2/16)) int32
+    directions, scores (cc1,) f32: new[cc2] of every row)."""
+    cc1, cc2 = post.shape
+    w = -(-cc2 // 16)
+    dev = post.device
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    old = torch.zeros(cc2 + 1, dtype=torch.float32, device=dev)
+    dirs = torch.zeros((cc1, 16 * w), dtype=torch.int32, device=dev)
+    scores = torch.empty(cc1, dtype=torch.float32, device=dev)
+    for i in range(cc1):
+        b = old[:-1] + post[i]
+        x = old[1:]
+        new = torch.cummax(torch.cat([zero, torch.maximum(b, x)]), 0).values
+        y = new[:-1]
+        dirs[i, :cc2] = torch.where((b >= x) & (b >= y), 0,
+                                    torch.where(x >= y, 1, 2))
+        scores[i] = new[cc2]
+        old = new
+    return _pack(dirs), scores
+
+
+def mea_dirs(post: torch.Tensor):
+    """The MEA direction kernel on a CUDA posterior; the plain version
+    on a CPU one."""
+    if post.device.type == "cpu":
+        return mea_dirs_plain(post)
+    if post.device.type != "cuda":
+        raise ValueError(f"unsupported device {post.device}")
+    if (post.dtype != torch.float32 or post.dim() != 2
+            or not post.is_contiguous()):
+        raise ValueError("post: contiguous (cc1, cc2) float32")
+    cc1, cc2 = post.shape
+    w = -(-cc2 // 16)
+    wpt = next((p for p in (1, 2, 4) if -(-w // p) <= 1024), 4)
+    threads = 32 * -(-w // (32 * wpt))
+    if (cc1 < 1 or cc2 < 1 or threads > 1024
+            or (threads * 16 * wpt + 1) * 4 > _MEA_SMEM):
+        raise ValueError(f"mea_dirs: {cc1} x {cc2} posterior out of range")
+    packed = torch.empty((cc1, w), dtype=torch.int32, device=post.device)
+    scores = torch.empty(cc1, dtype=torch.float32, device=post.device)
+    _launch("mea_dirs", post.data_ptr(), cc1, cc2, threads, wpt,
+            packed.data_ptr(), scores.data_ptr(),
+            torch.cuda.current_stream(post.device).cuda_stream)
+    return packed, scores

@@ -328,11 +328,9 @@ _libs: dict = {}
 
 
 def kernel_specs():
-    from ..utils.build import LibSpec, nvcc, package_path
-    flags = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+    from ..utils.build import CUDA_FLAGS, LibSpec, nvcc, package_path
     dep = package_path("csrc", "pairhmm_common.cuh")
-    return [LibSpec(name=k, compiler=nvcc(), flags=flags,
+    return [LibSpec(name=k, compiler=nvcc(), flags=CUDA_FLAGS,
                     sources=(package_path("csrc", f"{k}.cu"),), deps=(dep,))
             for k in _KERNELS]
 

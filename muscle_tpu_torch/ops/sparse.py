@@ -41,6 +41,23 @@ def sparsify(post: torch.Tensor, k: int = DEFAULT_K):
     return vals, cols, max_nnz
 
 
+def densify(vals: torch.Tensor, cols: torch.Tensor, l_out: int) -> torch.Tensor:
+    """(m, L, K) fixed-K rows -> (m, L, l_out) dense f32.
+
+    Exact: column indices are unique within a row, so every output cell
+    takes at most one value. Empty slots (cols == -1) go to a spare
+    column that is cut off. The plain version of kernel 8
+    (ops/densify_cuda.py, which writes the consistency row panel).
+    """
+    m, l, _ = vals.shape
+    out = torch.zeros((m, l, l_out + 1), dtype=torch.float32,
+                      device=vals.device)
+    valid = cols >= 0
+    idx = torch.where(valid, cols, l_out).long()
+    out.scatter_(2, idx, torch.where(valid, vals, 0.0))
+    return out[..., :l_out]
+
+
 def densify_np(vals: np.ndarray, cols: np.ndarray, ly: int) -> np.ndarray:
     """(Lx, K) sparse -> (Lx, ly) dense, host-side (plain assignment —
     column indices are unique within a row)."""

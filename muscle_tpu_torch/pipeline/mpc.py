@@ -5,15 +5,21 @@ src/mpcflat.cpp:285-337) and of muscle_tpu.pipeline.mpc. Stage order:
 
   derep -> all-pairs posteriors + EA distances (device, batched)
         -> UPGMA5 guide tree (+ permutation)
-        -> consistency transform (device, one matrix product per iter)
-        -> join order -> progressive align -> refine (host)
+        -> consistency transform (device)
+        -> join order -> progressive align (host) -> refine
         -> sort by tree -> re-insert dupes
 
-Ported branches: the small-family dense branch (n >= 3,
-n * pad <= SMALL_DENSE_NL, host refine) and the no-consistency branch
-(n = 2 or consistency_iters = 0). The blocked consistency for larger
-families and the device refinement joins for n >= 64 raise
-NotImplementedError (ROADMAP.md, open item 8).
+Ported branches, routed as in the JAX package, for pads up to
+posteriors.LONG_PAIR_THRESHOLD (longer pairs raise NotImplementedError,
+ROADMAP.md item 12):
+* n * pad <= SMALL_DENSE_NL: one batched pair call and the dense
+  consistency (pipeline/posteriors.small_family_store);
+* n * pad > SMALL_DENSE_NL: the length-bucketed pair store and the
+  blocked Gram-scheme consistency (ops/consistency.consistency_sparse),
+  bf16 panels from n = 32 on (consistency_precision_for);
+* n = 2 or consistency_iters = 0: the bucketed store, no consistency.
+Refinement joins run on the host below DEVICE_REFINE_N sequences and on
+the device from there on (pipeline/devjoin.DeviceJoiner).
 """
 
 from __future__ import annotations
@@ -21,9 +27,11 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from ..alphabet import ALPHA_AMINO, ALPHA_NUCLEO, guess_is_nucleo
 from ..hmm.params import HMMParams
+from ..ops.consistency import consistency_sparse
 from ..sequence import MultiSequence, Sequence
 from ..tree.joinorder import guide_tree_join_order
 from ..tree.tree import Tree
@@ -33,6 +41,7 @@ from ..utils.device import resolve_device
 from ..utils.rng import GlibcRand, MwcRng
 from . import posteriors as post_mod
 from .derep import Derep
+from .devjoin import DeviceJoiner
 from .progressive import progressive_align, refine
 
 DEFAULT_CONSISTENCY_ITERS = 2   # reference: src/pairhmm.h:8
@@ -40,9 +49,18 @@ DEFAULT_REFINE_ITERS = 100      # reference: src/pairhmm.h:9
 PAIR_BATCH = 256                # pairs per call on the bucketed branch
 SPARSE_K = 32                   # slots per posterior row in the store
 
-# the JAX package refines families of this size and above with device
-# joins (muscle_tpu/pipeline/devjoin.py), not ported yet
+# families of this size and above refine with device joins
+# (pipeline/devjoin.py), as the JAX package's default rule
 DEVICE_REFINE_N = 64
+
+
+def consistency_precision_for(n: int, requested: str = "auto") -> str:
+    """Precision of the blocked consistency's products: 'auto' keeps
+    full f32 below 32 sequences (the regime the golden tier pins) and
+    rounds the panels to bf16 from 32 on, as the JAX package does."""
+    if requested != "auto":
+        return requested
+    return "highest" if n < 32 else "default"
 
 
 class MPC:
@@ -111,19 +129,13 @@ class MPC:
                 f"L={pad_to}, K={SPARSE_K}) needs ~{store_gb:.0f} GB "
                 f"device memory (> {budget_gb:.0f} GB budget). Use "
                 f"-super5, or raise MUSCLE_TPU_HBM_BUDGET_GB.")
-        if n >= DEVICE_REFINE_N:
+        if pad_to > post_mod.LONG_PAIR_THRESHOLD:
             raise NotImplementedError(
-                f"{n} sequences: families of {DEVICE_REFINE_N} or more "
-                "refine with device joins, not ported yet (ROADMAP.md, "
-                "open item 8: blocked consistency and device refine)")
+                f"pairs padded to {pad_to} > {post_mod.LONG_PAIR_THRESHOLD} "
+                "columns need the long-pair path (ROADMAP.md, open item "
+                "12: long pairs)")
         use_dense = (n >= 3 and self.consistency_iters > 0
                      and n * pad_to <= post_mod.SMALL_DENSE_NL)
-        if n >= 3 and self.consistency_iters > 0 and not use_dense:
-            raise NotImplementedError(
-                f"{n} sequences x {pad_to} columns > "
-                f"{post_mod.SMALL_DENSE_NL}: the blocked consistency is "
-                "not ported yet (ROADMAP.md, open item 8: blocked "
-                "consistency and device refine)")
 
         codes, lens = post_mod.encode_batch(unique, alpha, pad_to=pad_to)
         with mlog.stage("posteriors+consistency" if use_dense
@@ -145,8 +157,8 @@ class MPC:
         # slots first)
         k2s = min(SPARSE_K, max(8, -(-int(max_nnz) // 8) * 8))
         if k2s < store_v.shape[2]:
-            store_v = store_v[:, :, :k2s]
-            store_c = store_c[:, :, :k2s]
+            store_v = store_v[:, :, :k2s].contiguous()
+            store_c = store_c[:, :, :k2s].contiguous()
         self.dist_mx = post_mod.ea_dist_matrix(n, pairs, ea)
 
         # guide tree from the pre-consistency EA distances
@@ -155,8 +167,26 @@ class MPC:
             tree = self._tree_from_dist(labels, self.dist_mx)
         self.guide_tree = tree
 
+        if not use_dense and n >= 3 and self.consistency_iters > 0:
+            # panels are (blk*l) x (blocks*l): blk*l <= 8192 bounds them
+            seq_block = max(1, min(16, 8192 // pad_to))
+            with mlog.stage("consistency"):
+                store_v = consistency_sparse(
+                    store_v, store_c, n, self.consistency_iters,
+                    seq_block=seq_block,
+                    precision=consistency_precision_for(n),
+                    max_nnz=min(int(max_nnz), SPARSE_K))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+
         with mlog.stage("store-fetch"):
             posts = post_mod.posts_from_store(store_v, store_c, pairs, lens)
+        joiner = None
+        if n >= DEVICE_REFINE_N:
+            # the store stays on the device for the refine joins
+            joiner = DeviceJoiner(store_v, store_c, pairs, n,
+                                  min(int(max_nnz), SPARSE_K),
+                                  label_to_index)
         del store_v, store_c
 
         idx1, idx2 = guide_tree_join_order(tree, label_to_index)
@@ -165,7 +195,7 @@ class MPC:
                                     posts)
         with mlog.stage("refine"):
             msa = refine(msa, self.refine_iters, label_to_index, posts,
-                         rng=refine_rng)
+                         rng=refine_rng, joiner=joiner)
         msa = self._sort(msa, tree)
         dupes = derep.rep_label_to_dupe_labels(input_seqs)
         if dupes:

@@ -160,11 +160,14 @@ def progressive_align(seqs: MultiSequence, idx1: list[int], idx2: list[int],
 
 def refine(msa: MultiSequence, iters: int,
            label_to_index: dict[str, int], posts: PairPosteriors,
-           rng: GlibcRand | None = None) -> MultiSequence:
+           rng: GlibcRand | None = None, joiner=None) -> MultiSequence:
     """Random-bipartition refinement (reference: src/refineflat.cpp).
 
     The reference splits with libc rand()%2 (never seeded — glibc seed
-    1); GlibcRand reproduces that stream.
+    1); GlibcRand reproduces that stream. With `joiner` (a
+    devjoin.DeviceJoiner over the family's resident sparse store) each
+    join's column posterior and MEA direction DP run on the device and
+    only the packed directions come back.
     """
     n = len(msa)
     if n < 3:
@@ -179,5 +182,8 @@ def refine(msa: MultiSequence, iters: int,
             continue
         m1 = msa.project(g1)
         m2 = msa.project(g2)
-        msa, _ = align_alns(m1, m2, label_to_index, posts)
+        if joiner is not None:
+            msa = join_by_path(m1, m2, joiner.align(m1, m2)[1])
+        else:
+            msa, _ = align_alns(m1, m2, label_to_index, posts)
     return msa

@@ -90,8 +90,38 @@ def ensure_built(specs) -> dict[str, str]:
     return out
 
 
+# nvcc flags of every kernel library: Hopper's sm_90a, IEEE arithmetic
+# (no fast math, no FMA contraction: kernels and plain versions claim
+# bit equality), a plain C interface loaded with ctypes
+CUDA_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def cuda_spec(name: str) -> LibSpec:
+    """Library `name` built from csrc/<name>.cu alone."""
+    return LibSpec(name=name, compiler=nvcc(), flags=CUDA_FLAGS,
+                   sources=(package_path("csrc", f"{name}.cu"),))
+
+
+def load_kernel(spec: LibSpec, argtypes):
+    """(fn, error_string) of a one-kernel library: `fn` is the C function
+    named like the library, returning a cudaError_t as an int, and
+    `error_string(code)` the C function `<name>_error_string`."""
+    import ctypes
+    lib = ctypes.CDLL(ensure_built([spec])[spec.name])
+    fn = getattr(lib, spec.name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    err = getattr(lib, f"{spec.name}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    return fn, err
+
+
 def build_all() -> dict[str, str]:
     """Build the CUDA kernels and the native host library together."""
     from ..native import native_spec
-    from ..ops.pairhmm_cuda import kernel_specs
-    return ensure_built(list(kernel_specs()) + [native_spec()])
+    from ..ops import densify_cuda, devjoin_cuda, pairhmm_cuda
+    return ensure_built(list(pairhmm_cuda.kernel_specs())
+                        + densify_cuda.kernel_specs()
+                        + devjoin_cuda.kernel_specs() + [native_spec()])

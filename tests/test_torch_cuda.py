@@ -127,3 +127,159 @@ def test_align_on_card_matches_golden(cuda_device):
     gold = MultiSequence.from_fasta(path)
     assert {s.label: s.text() for s in msa} == \
         {s.label: s.text() for s in gold}
+
+
+# ---------------------------------------------------------------------------
+# kernels 7-8 and the MEA direction DP (ops/densify_cuda.py,
+# ops/devjoin_cuda.py)
+# ---------------------------------------------------------------------------
+
+def _store(rng, p1, l, k, max_nnz=6):
+    """(P1, l, k) store with 1..max_nnz unique columns per row, valid
+    slots first; the last row is the empty dump slot."""
+    cols = np.argsort(rng.random((p1, l, l)), axis=-1)[..., :k].astype(
+        np.int32)
+    nnz = rng.integers(1, max_nnz + 1, size=(p1, l, 1))
+    valid = np.arange(k) < nnz
+    valid[-1] = False
+    vals = np.where(valid, rng.random((p1, l, k)) * 0.9 + 0.02, 0.0)
+    return vals.astype(np.float32), np.where(valid, cols, -1).astype(np.int32)
+
+
+def test_new_kernel_build_flags(monkeypatch):
+    from muscle_tpu_torch.ops import densify_cuda, devjoin_cuda
+    from muscle_tpu_torch.utils import build
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    specs = densify_cuda.kernel_specs() + devjoin_cuda.kernel_specs()
+    assert [s.name for s in specs] == ["densify", "densify_reduce",
+                                       "mea_dirs"]
+    for spec in specs:
+        assert "arch=compute_90a,code=sm_90a" in spec.flags
+        assert "-fmad=false" in spec.flags
+        assert spec.sources[0].endswith(f"csrc/{spec.name}.cu")
+
+
+def test_new_kernels_on_cpu_run_plain_versions_and_count_nothing():
+    from muscle_tpu_torch.ops import densify_cuda as dc
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    rng = np.random.default_rng(1)
+    vals, cols = _store(rng, 7, 16, 8)
+    before = (dict(dc.LAUNCHES), dict(djc.LAUNCHES))
+    v, c = torch.from_numpy(vals), torch.from_numpy(cols)
+    pids = torch.tensor([[0, 1, 6], [2, 6, 3]], dtype=torch.int32)
+    flags = torch.tensor([[0, 1, 2], [1, 0, 0]], dtype=torch.int32)
+    panel = dc.densify_panel(v, c, pids, flags, torch.bfloat16)
+    assert panel.shape == (32, 48) and panel.dtype == torch.bfloat16
+    bank = torch.arange(16, dtype=torch.int32).repeat(3, 1)
+    f = djc.densify_reduce(v, c, 8, pids[:, :3].contiguous(), bank, 6, 20)
+    assert f.shape == (2, 16, 20)
+    packed, scores = djc.mea_dirs(torch.rand(5, 40))
+    assert packed.shape == (5, 3) and scores.shape == (5,)
+    assert (dict(dc.LAUNCHES), dict(djc.LAUNCHES)) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_densify_kernel_matches_plain(cuda_device, dtype):
+    from muscle_tpu_torch.ops import consistency as cons
+    from muscle_tpu_torch.ops import densify_cuda as dc
+    rng = np.random.default_rng(2)
+    n, l, k, blk = 13, 128, 16, 4
+    p1 = n * (n - 1) // 2 + 2
+    vals, cols = _store(rng, p1, l, k)
+    v, c = (torch.from_numpy(a).to(cuda_device) for a in (vals, cols))
+    pid, flag = cons._block_maps(n, 20, p1 - 1)
+    before = dc.LAUNCHES["densify"]
+    for zi in range(-(-n // blk)):
+        zs = slice(zi * blk, (zi + 1) * blk)
+        p = torch.from_numpy(pid[zs]).to(cuda_device)
+        f = torch.from_numpy(flag[zs]).to(cuda_device)
+        got = dc.densify_panel(v, c, p, f, dtype)
+        want = dc.densify_panel_plain(v, c, p, f, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert dc.LAUNCHES["densify"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,cc", [(256, 300), (128, 13000)],
+                         ids=["one-column-tile", "column-tiles"])
+def test_densify_reduce_kernel_matches_plain(cuda_device, l, cc):
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    rng = np.random.default_rng(3)
+    k, k2, n_r, n_c, p1 = 16, 8, 9, 11, 120
+    vals, cols = _store(rng, p1, l, k)
+    pid = rng.integers(0, p1 - 1, size=(n_r, n_c)).astype(np.int32)
+    pid[rng.random((n_r, n_c)) < 0.5] = p1 - 1
+    bank = np.stack([np.sort(rng.choice(cc, l, replace=False))
+                     for _ in range(n_c)]).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (vals, cols, pid, bank)]
+    got = djc.densify_reduce(args[0], args[1], k2, args[2], args[3], p1 - 1,
+                             cc)
+    want = djc.densify_reduce_plain(args[0], args[1], k2, args[2], args[3],
+                                    p1 - 1, cc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cc1,cc2", [(1, 1), (37, 50), (300, 768),
+                                     (20, 20000), (3, 40000)])
+def test_mea_dirs_kernel_matches_plain(cuda_device, cc1, cc2):
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    gen = torch.Generator(device=cuda_device).manual_seed(cc1 + cc2)
+    post = torch.rand((cc1, cc2), generator=gen, device=cuda_device) ** 3
+    packed, scores = djc.mea_dirs(post)
+    want_p, want_s = djc.mea_dirs_plain(post)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, want_p)
+    assert torch.equal(scores, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_consistency_sparse_on_card_matches_cpu(cuda_device, precision):
+    """The card's products (f32 with TF32 off, or bf16 with an f32
+    result) against the CPU's on the same store: only the order of the
+    f32 sums differs."""
+    from muscle_tpu_torch.ops import consistency as cons
+    rng = np.random.default_rng(4)
+    n, l, k = 40, 64, 8
+    p1 = n * (n - 1) // 2 + 1
+    vals, cols = _store(rng, p1, l, k, max_nnz=5)
+    v, c = torch.from_numpy(vals), torch.from_numpy(cols)
+    want = cons.consistency_sparse(v, c, n, 2, seq_block=8,
+                                   precision=precision)
+    got = cons.consistency_sparse(v.to(cuda_device), c.to(cuda_device), n, 2,
+                                  seq_block=8, precision=precision)
+    assert float((got.cpu() - want).abs().max()) < 1e-5
+    assert not got[-1].any()
+
+
+@pytest.mark.cuda
+def test_device_refine_on_card_matches_host_refine(cuda_device):
+    """ROADMAP item 8's gate on the card: device joins give the host
+    joins' alignment (a 16-sequence family, the joiner forced)."""
+    from muscle_tpu_torch import MultiSequence, Sequence, align
+    from muscle_tpu_torch.pipeline import mpc
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 20, size=110)
+    seqs = MultiSequence()
+    for i in range(16):
+        ln = int(rng.integers(60, 111))
+        mut = base[:ln].copy()
+        pos = rng.integers(0, ln, size=int(rng.integers(0, ln // 3)))
+        mut[pos] = rng.integers(0, 20, size=len(pos))
+        seqs.add(Sequence(f"s{i}", "".join("ARNDCQEGHILKMFPSTWYV"[a]
+                                             for a in mut)))
+    host = align(seqs, refine_iters=12, device=cuda_device)
+    saved = mpc.DEVICE_REFINE_N
+    mpc.DEVICE_REFINE_N = 1
+    try:
+        dev = align(seqs, refine_iters=12, device=cuda_device)
+    finally:
+        mpc.DEVICE_REFINE_N = saved
+    assert {s.label: s.text() for s in host} == \
+        {s.label: s.text() for s in dev}

@@ -4,7 +4,8 @@
   sparsify) against the JAX package's on the same encoded family;
 * align(device="cpu") column-identical to the reference binary's
   goldens (BB11001, nt3) and to muscle_tpu.align on a seeded family;
-* the entry points refuse to run on the CPU unless asked;
+* the entry points refuse to run on the CPU unless asked, and pairs
+  beyond the ported lengths name the roadmap item;
 * the CLI writes the same alignment as align().
 """
 
@@ -145,13 +146,14 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
         align(seqs, device="meta")
 
 
-def test_branches_not_ported_raise():
-    """Families beyond the dense branch name the roadmap item instead
-    of running another path."""
+def test_branches_not_ported_raise(monkeypatch):
+    """Pairs longer than LONG_PAIR_THRESHOLD (lowered here) name the
+    roadmap item instead of running another path."""
+    monkeypatch.setattr(t_post, "LONG_PAIR_THRESHOLD", 128)
     rng = np.random.default_rng(0)
     seqs = MultiSequence([
         Sequence(f"s{i}", "".join("ACDEFGHIKLMNPQRSTVWY"[c]
-                                  for c in rng.integers(0, 20, 300)))
-        for i in range(60)])
+                                  for c in rng.integers(0, 20, 200)))
+        for i in range(3)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         align(seqs, device="cpu")

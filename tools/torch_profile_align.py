@@ -1,12 +1,15 @@
 """Profile one `muscle_tpu_torch.align` call on the GPU with torch.profiler.
 
-    python tools/torch_profile_align.py [--trace build/align_trace.json]
+    python tools/torch_profile_align.py [--n 32 --lo 400 --hi 512]
+                                        [--trace build/align_trace.json]
 
-Aligns the synthetic n = 32 family of chip_smoke.py (lengths 400-512,
-the top of the dense branch) once to warm up, then once under the
-profiler. Prints the device kernels by total time, the device busy time
-(the union of kernel intervals), the wall of the profiled call and the
-device's idle share of it. Needs a CUDA device.
+Aligns a synthetic family of chip_smoke.py (n mutated copies of one
+random protein, lengths lo-hi; by default n = 32, lengths 400-512, the
+top of the dense branch; n = 200 takes the blocked Gram branch with
+device refine) once to warm up, then once under the profiler. Prints
+the device kernels by total time, the device busy time (the union of
+kernel intervals), the wall of the profiled call and the device's idle
+share of it. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ def busy_us(events) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=32, help="sequences")
+    ap.add_argument("--lo", type=int, default=400, help="shortest length")
+    ap.add_argument("--hi", type=int, default=512, help="longest length")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
     args = ap.parse_args()
@@ -52,7 +58,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     print(card_line())
-    seqs = synthetic_family()
+    seqs = synthetic_family(args.n, args.lo, args.hi, seed=args.n)
     align(seqs, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -62,7 +68,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(prof.key_averages().table(sort_by="device_time_total",
-                                    row_limit=15))
+                                    row_limit=30))
     busy = busy_us(prof.events()) / 1e6
     print(f"profiled align wall {wall:.4f} s, device busy {busy:.4f} s, "
           f"idle share {1 - busy / wall:.4f}")
