@@ -15,7 +15,15 @@ Phases (each raises on failure, so the run exits non-zero):
    amino pairs padded to 512; densify on one z-tile of the n = 200 Gram
    panel (blk = 16, L = 512, K = 24) in f32 and bf16; densify-reduce on
    a 100 x 100 join grid (L = 512, k2 = 24, cc = 768); the MEA direction
-   DP at 768 x 768;
+   DP at 768 x 768. Then the long-pair kernels, each required equal to
+   its plain version: kernels A/B at Ly = 2176-10240 (2 pairs, Lx 192;
+   every segment geometry S = 2..5 and every rung the long families
+   launch them at), the Y-striped kernels 5/6 on every stripe launch of
+   8 ragged pairs (Lx 512, By = 2 x 2048); their ptxas registers and
+   spills; the whole striped route on a 9000 x 8950 pair (5 stripes)
+   held to kernels A/B at the kernel gate; and their times at the long
+   families' shapes (A/B on one 11000 x 9800 pair at 11264 x 10240, 5/6
+   on one stripe of the 19000 x 18900 nt pair);
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
@@ -34,7 +42,16 @@ Phases (each raises on failure, so the run exits non-zero):
      device refine, full width), printing stage walls, peak device
      memory and launches (tools/torch_profile_align.py splits the
      device time by kernel);
-4. print the kernels' JSON line (launch counts summed over phase 3),
+   - the long families at full length through the long-pair router,
+     each required to take its routes: "long mixed", six proteins of
+     8,700-11,000 residues (7 pairs on kernels A/B, one at Ly = 10240,
+     5 transposed, 3 on the striped kernels; pad 12288, blocked f32 Gram
+     consistency with one sequence a block, host refine cut to 50
+     iterations); "long pair", two ~19 kb nucleotide sequences on the
+     striped kernels (10 stripes);
+4. one 512 x 480 pair through the checkpoint/recompute scan on the
+   card, held to kernels A/B at the kernel gate;
+5. print the kernels' JSON line (launch counts summed over phase 3),
    then the card line and the final {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -216,6 +233,279 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
          "launches": 0, "max_abs_err": err_b, "ms": ms_b,
          "plain_ms": plain_b, "bound_ms": bnd_b[0], "bound_by": bnd_b[1],
          "library_ms": None},
+    ]
+
+
+def ptxas_lines(names) -> list[str]:
+    """Registers and spills of each kernel instantiation of the libraries
+    `names`, from the ptxas report kept in their build logs."""
+    import re
+    from muscle_tpu_torch.ops import pairhmm_cuda, pairhmm_striped
+    from muscle_tpu_torch.utils.build import build_log
+    specs = pairhmm_cuda.kernel_specs() + pairhmm_striped.kernel_specs()
+    out = []
+    for name in names:
+        cur, spill = None, ""
+        for line in build_log(name, specs).splitlines():
+            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            if m:
+                cur = m.group(2)[:int(m.group(1))]
+                t = re.match(r"ILi(\d+)E", m.group(2)[int(m.group(1)):])
+                if t:
+                    cur += f"<S={t.group(1)}>"
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                out.append(f"{cur}: {m.group(1)} registers, {spill}")
+                cur = None
+    return out
+
+
+def batch_of(lengths_x, lengths_y, width_x, width_y, nletters, seed):
+    """Random codes (wildcard-padded) for pairs of the given lengths."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths_x)
+    xb = np.full((b, width_x), nletters, np.int32)
+    yb = np.full((b, width_y), nletters, np.int32)
+    for i in range(b):
+        xb[i, :lengths_x[i]] = rng.integers(0, nletters, lengths_x[i])
+        yb[i, :lengths_y[i]] = rng.integers(0, nletters, lengths_y[i])
+    return (xb, yb, np.asarray(lengths_x, np.int32),
+            np.asarray(lengths_y, np.int32))
+
+
+def stripe_cells(lx, ly, sigma, w):
+    """Real DP cells of forward stripe sigma: rows < lx, lanes < ly."""
+    cols = np.clip(np.asarray(ly, np.int64) - sigma * w, 0, w)
+    return float(np.sum(np.asarray(lx, np.int64) * cols))
+
+
+# widths of kernels A/B held against their twins beyond phase 2's 512:
+# S = 2, S = 3 and S = 4 with 1 and 2 idle segment slots, S = 4 full, and
+# the long families' rungs 8704, 9728 (S = 5, 4 and 3 idle slots) and
+# 10240 (S = 5 full); phase_long_families fails on any other width
+AB_CHECK_WIDTHS = (2176, 4352, 6272, 8192, 8704, 9728, 10240)
+
+
+def phase_long_kernels(dev) -> list[dict]:
+    """Kernels A and B at the widths of AB_CHECK_WIDTHS, and kernels 5
+    and 6 (Y-striped), against their plain versions (max |d| = 0
+    required); the striped route against kernels A/B on one 9000-residue
+    pair at the kernel gate; their times at the long families' shapes."""
+    import torch
+    from muscle_tpu_torch.alphabet import ALPHA_AMINO
+    from muscle_tpu_torch.hmm.params import HMMParams
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    from muscle_tpu_torch.ops import pairhmm_striped as ps
+    from muscle_tpu_torch.ops import sparse
+    from muscle_tpu_torch.pipeline.posteriors import encode_batch
+
+    for line in ptxas_lines(["pairhmm_fwd", "pairhmm_bwd_post",
+                             "pairhmm_fwd_stripe", "pairhmm_bwd_stripe"]):
+        print(f"ptxas: {line}", flush=True)
+    amino = pc.tables(HMMParams.from_defaults(nucleo=False).to_scores(), dev)
+    nt_pack = HMMParams.from_defaults(nucleo=True).to_scores()
+    nt = pc.tables(nt_pack, dev)
+
+    def cuda(*arrs):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrs)
+
+    # kernels A/B against their twins at every segment geometry above
+    # phase 2's (S = 2..5, with and without idle segment slots) and at
+    # every rung the long families launch them at: 2 pairs, Lx 192, one
+    # pair at the full width, one with padding across two segments
+    for width in AB_CHECK_WIDTHS:
+        x, y, lxt, lyt = cuda(*batch_of([192, 150], [width, width - 131],
+                                        192, width, 20, seed=width))
+        fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *amino)
+        fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *amino)
+        rows = (torch.arange(192, device=dev)[None, :, None]
+                < lxt[:, None, None])
+        tot = pc._total_prob(fend, amino[2])
+        post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, *amino, tot, fm)
+        post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *amino, tot, fm)
+        torch.cuda.synchronize()
+        d_ab = max(float((fm - fm2).abs().where(rows, 0.0).max()),
+                   float((fend - fend2).abs().max()),
+                   float((post - post2).abs().max()),
+                   float((mea - mea2).abs().max()))
+        nseg = width // 64
+        s_ = -(-nseg // 32)
+        print(f"kernels A/B at Ly={width} (S={s_}, {-(-nseg // s_)} warps, "
+              f"{-(-nseg // s_) * s_ - nseg} idle segment slots; 2 pairs, "
+              f"Lx 192) vs twins: max |d| {d_ab:.3e} "
+              f"{'equal' if d_ab == 0 else 'FAIL'}", flush=True)
+        if d_ab != 0:
+            raise SmokeFailure(f"kernels A/B at Ly = {width} differ from "
+                               "their twins")
+        del fm, fm2, post, post2
+
+    # their time at the long mixed family's in-cap rung (one pair
+    # 11000 x 9800, padded 11264 x 10240)
+    x, y, lxt, lyt = cuda(*batch_of([11000], [9800], 11264, 10240, 20,
+                                    seed=11))
+    ms_a = time_cuda(lambda: pc.pairhmm_fwd(x, y, lxt, lyt, *amino))
+    fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *amino)
+    tot = pc._total_prob(fend, amino[2])
+    ms_b = time_cuda(lambda: pc.pairhmm_bwd_post(x, y, lxt, lyt, *amino,
+                                                 tot, fm))
+    cells = 11000.0 * 9800.0
+    bnd_a = bound_ms(4 * (11000 + 9800 + cells + 5), cells * FWD_OPS_PER_CELL)
+    bnd_b = bound_ms(4 * (11000 + 9800 + cells + 11264 * 10240),
+                     cells * BWD_POST_OPS_PER_CELL)
+    print(f"kernels A/B at 11264 x 10240 (one pair 11000 x 9800): A "
+          f"{ms_a:.3f} ms (bound {bnd_a[0]:.4f} ms by {bnd_a[1]}), B "
+          f"{ms_b:.3f} ms (bound {bnd_b[0]:.4f} ms by {bnd_b[1]})", flush=True)
+    del fm
+
+    # kernels 5/6 vs twins: 8 pairs, Lx 512, By = 2 x 2048, padding
+    # inside either stripe, every stripe launch compared on the same
+    # inputs
+    w = ps.MAX_W
+    lx = [512, 500, 300, 512, 100, 450, 257, 511]
+    ly = [4096, 4000, 2048, 2049, 1500, 3000, 4095, 100]
+    xb, yb, lxn, lyn = batch_of(lx, ly, 512, 2 * w, 20, seed=2048)
+    args = cuda(xb, yb, lxn, lyn) + amino
+    match, insert, params = amino
+    iy0, jy0, iy0b, jy0b = ps.row0_closed_forms(args[1], args[3], insert,
+                                                params)
+    d_st, plain_f, plain_b = 0.0, [], []
+
+    def twin_timed(fn, store):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        store.append(s.elapsed_time(e))
+        return out
+
+    def diff(a, b):
+        return max(float((p - q).abs().max()) for p, q in zip(a, b)
+                   if p is not None)
+
+    bnds, fms, fend = [], [], None
+    for s in range(2):
+        bin_ = bnds[-1] if s else None
+        got = ps.pairhmm_fwd_stripe(*args, iy0, jy0, bin_, s, w)
+        want = twin_timed(lambda: ps.fwd_stripe_plain(
+            *args, iy0, jy0, bin_, s, w), plain_f)
+        d_st = max(d_st, diff(got, want))
+        bnds.append(got[0])
+        fms.append(got[2])
+        fend = got[1] if fend is None else torch.maximum(fend, got[1])
+    tot = pc._total_prob(fend, params).contiguous()
+    bwd_bnd = None
+    for sp in range(2):
+        fm = fms[1 - sp]
+        got = ps.pairhmm_bwd_stripe(*args, tot, iy0b, jy0b, bwd_bnd, fm, sp, w)
+        want = twin_timed(lambda: ps.bwd_stripe_plain(
+            *args, tot, iy0b, jy0b, bwd_bnd, fm, sp, w), plain_b)
+        d_st = max(d_st, diff(got, want))
+        bwd_bnd = got[1]
+    ms5_chk = time_cuda(lambda: ps.pairhmm_fwd_stripe(
+        *args, iy0, jy0, bnds[0], 1, w))
+    ms6_chk = time_cuda(lambda: ps.pairhmm_bwd_stripe(
+        *args, tot, iy0b, jy0b, None, fms[1], 0, w))
+    print(f"kernels 5/6 (pairhmm_fwd_stripe, pairhmm_bwd_stripe) vs twins "
+          f"(8 pairs, Lx 512, By 2 x {w}): max |d| {d_st:.3e} "
+          f"{'equal' if d_st == 0 else 'FAIL'}; kernel 5 {ms5_chk:.3f} ms "
+          f"(twin {statistics.median(plain_f):.1f} ms), kernel 6 "
+          f"{ms6_chk:.3f} ms (twin {statistics.median(plain_b):.1f} ms) "
+          f"per stripe", flush=True)
+    if d_st != 0:
+        raise SmokeFailure("a striped kernel differs from its plain version")
+    del fms, bnds
+
+    # the whole striped route (row-0 forms, pass A's chained stripes, the
+    # final-state max, pass B, the top-K merge, EA) against kernels A/B +
+    # sparsify on one pair of the long families' band: 9000 x 8950
+    # residues padded 9216 x 10240, 5 stripes of 2048
+    seqs = family_of_lengths((9000, 8950), AMINO_LETTERS, 9)
+    codes, lens = encode_batch(seqs, ALPHA_AMINO)
+    xb = np.full((1, 9216), 20, np.int32)
+    yb = np.full((1, 10240), 20, np.int32)
+    xb[0, :lens[0]] = codes[0][:lens[0]]
+    yb[0, :lens[1]] = codes[1][:lens[1]]
+    pair = cuda(xb, yb, lens[:1], lens[1:])
+    pack = HMMParams.from_defaults(nucleo=False).to_scores()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, cols, ea_s, nnz_s = ps.striped_posteriors_sparse(*pair, pack, k=32,
+                                                           stripe_w=w)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    post, ea_k = pc.batch_posteriors_cuda(*pair, pack)
+    kv, kc, nnz_k = sparse.sparsify(post, 32)
+    del post
+    got = sparse.densify(vals, cols, 10240)
+    want = sparse.densify(kv, kc, 10240)
+    d = (got - want).abs()
+    flip = ((got == 0) | (want == 0)) & (torch.maximum(got, want) <= 0.0102)
+    d_post = float(d.where(~flip, 0.0).max())
+    d_ea = float((ea_s - ea_k).abs().max())
+    ok = d_post < 2e-3 and d_ea < 2e-3
+    print(f"striped route (5 stripes of {w}) vs kernels A/B at 10240 on a "
+          f"9000 x 8950 pair: posterior {d_post:.3e} (flips ignored, tol "
+          f"2e-3), EA {d_ea:.3e} (tol 2e-3), max nnz {nnz_s} / "
+          f"{int(nnz_k)}, striped wall {wall_s:.2f}s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("the striped route disagrees with kernels A/B")
+    del got, want, d, flip, vals, cols, kv, kc
+
+    # their time at the long pair's shape: 19000 x 18900 nt, padded
+    # 19456 x 20480 (10 stripes); kernel 5 on the last stripe with its M
+    # rows (pass A's last launch), kernel 6 on reversed stripe 0 on it
+    lx1, ly1, px, py = 19000, 18900, 19456, 10 * w
+    x, y, lxt, lyt = cuda(*batch_of([lx1], [ly1], px, py, 4, seed=19))
+    match, insert, params = nt
+    iy0, jy0, iy0b, jy0b = ps.row0_closed_forms(y, lyt, insert, params)
+    args = (x, y, lxt, lyt) + nt
+    bnds, fend = [], None
+    for s in range(10):
+        bnd, fe, fm = ps.pairhmm_fwd_stripe(*args, iy0, jy0,
+                                            bnds[-1] if s else None, s, w)
+        bnds.append(bnd)
+        fend = fe if fend is None else torch.maximum(fend, fe)
+    tot = pc._total_prob(fend, params).contiguous()
+    ms5 = time_cuda(lambda: ps.pairhmm_fwd_stripe(*args, iy0, jy0, bnds[8], 9,
+                                                  w))
+    ms6 = time_cuda(lambda: ps.pairhmm_bwd_stripe(*args, tot, iy0b, jy0b,
+                                                  None, fm, 0, w))
+    cells = stripe_cells([lx1], [ly1], 9, w)
+    # kernel 5: codes, the stripe's row-0 forms and the previous boundary
+    # column in; boundary column, final states and the M cells out
+    bnd5 = bound_ms(4 * (lx1 + w + 2 * w + 5 * lx1 + 5 * lx1 + 5 + cells),
+                    cells * FWD_OPS_PER_CELL)
+    # kernel 6: codes, row-0 forms, the M cells in; the dense posterior
+    # stripe, its boundary column and the MEA out
+    bnd6 = bound_ms(4 * (lx1 + w + 2 * w + cells + px * w + 6 * lx1 + 1),
+                    cells * BWD_POST_OPS_PER_CELL)
+    print(f"kernels 5/6 at the long pair's stripe (Lx {px}, W {w}, "
+          f"{cells:.0f} real cells): kernel 5 {ms5:.3f} ms (bound "
+          f"{bnd5[0]:.4f} ms by {bnd5[1]}), kernel 6 {ms6:.3f} ms (bound "
+          f"{bnd6[0]:.4f} ms by {bnd6[1]}); one block: 1 of 132 SMs",
+          flush=True)
+    del fm, bnds
+    torch.cuda.empty_cache()
+    return [
+        {"name": "pairhmm_fwd_stripe", "route": "cuda",
+         "source": "muscle_tpu_torch/csrc/pairhmm_fwd_stripe.cu",
+         "replaces": "muscle_tpu/ops/pairhmm_striped.py:96",
+         "launches": 0, "max_abs_err": d_st, "ms": ms5,
+         "plain_ms": statistics.median(plain_f), "bound_ms": bnd5[0],
+         "bound_by": bnd5[1], "library_ms": None},
+        {"name": "pairhmm_bwd_stripe", "route": "cuda",
+         "source": "muscle_tpu_torch/csrc/pairhmm_bwd_stripe.cu",
+         "replaces": "muscle_tpu/ops/pairhmm_striped.py:312",
+         "launches": 0, "max_abs_err": d_st, "ms": ms6,
+         "plain_ms": statistics.median(plain_b), "bound_ms": bnd6[0],
+         "bound_by": bnd6[1], "library_ms": None},
     ]
 
 
@@ -428,6 +718,7 @@ def q_score(test, ref) -> float:
 
 # kernels each branch of the main path runs
 PAIR_KERNELS = ("pairhmm_fwd", "pairhmm_bwd_post")
+STRIPE_KERNELS = ("pairhmm_fwd_stripe", "pairhmm_bwd_stripe")
 REFINE_KERNELS = ("densify_reduce", "mea_dirs")
 
 # launches of each kernel over the main path's runs (phase 3)
@@ -435,8 +726,9 @@ MAIN_PATH: dict[str, int] = {}
 
 
 def _kernel_modules():
-    from muscle_tpu_torch.ops import densify_cuda, devjoin_cuda, pairhmm_cuda
-    return (pairhmm_cuda, densify_cuda, devjoin_cuda)
+    from muscle_tpu_torch.ops import (densify_cuda, devjoin_cuda,
+                                      pairhmm_cuda, pairhmm_striped)
+    return (pairhmm_cuda, pairhmm_striped, densify_cuda, devjoin_cuda)
 
 
 def reset_launches():
@@ -509,7 +801,7 @@ def synthetic_family(n=32, lo=400, hi=512, seed=32):
     from muscle_tpu_torch import MultiSequence, Sequence
     rng = np.random.default_rng(seed)
     base = rng.integers(0, 20, size=hi)
-    aas = b"ARNDCQEGHILKMFPSTWYV"
+    aas = AMINO_LETTERS
     seqs = MultiSequence()
     for i in range(n):
         ln = int(rng.integers(lo, hi + 1))
@@ -519,6 +811,141 @@ def synthetic_family(n=32, lo=400, hi=512, seed=32):
         mut[pos] = rng.integers(0, 20, size=nmut)
         seqs.add(Sequence(f"s{i}", bytes(aas[c] for c in mut)))
     return seqs
+
+
+def family_of_lengths(lengths, letters: bytes, seed: int):
+    """Mutated copies of one random sequence over `letters`, of the given
+    lengths in this order (up to a third of the positions redrawn)."""
+    from muscle_tpu_torch import MultiSequence, Sequence
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, len(letters), size=max(lengths))
+    seqs = MultiSequence()
+    for i, ln in enumerate(lengths):
+        mut = base[:ln].copy()
+        pos = rng.integers(0, ln, size=int(rng.integers(0, ln // 3)))
+        mut[pos] = rng.integers(0, len(letters), size=len(pos))
+        seqs.add(Sequence(f"s{i}", bytes(letters[c] for c in mut)))
+    return seqs
+
+
+# the long families: proteins of 8.7-11k residues (polyketide synthases,
+# titin segments), routed 7 in-cap, 5 transposed, 3 striped, one length
+# in (9728, 9856] so kernels A/B run at Ly = 10240; and a pair of
+# ~19 kb nucleotide sequences (a filovirus genome's length), padded
+# 19456 x 20480 onto 10 stripes
+AMINO_LETTERS = b"ARNDCQEGHILKMFPSTWYV"
+LONG_MIXED = (11000, 9800, 8700, 10600, 9300, 10900)
+LONG_PAIR = (19000, 18900)
+# host refine of "long mixed" costs ~0.36 s a join (dense ~1.2e8-cell
+# column posteriors): 100 iterations took its call past 60 s
+LONG_MIXED_REFINE_ITERS = 50
+
+
+def phase_long_families(dev) -> dict:
+    """The long-pair router on the main path: `align` of the two long
+    families at full length."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    from muscle_tpu_torch.pipeline import posteriors as post_mod
+    widths = []
+    launch_fwd = pc.pairhmm_fwd
+
+    def recording_fwd(xb, yb, *args):
+        widths.append(int(yb.shape[1]))
+        return launch_fwd(xb, yb, *args)
+
+    out = {}
+    print(f"family long mixed: refine cut to {LONG_MIXED_REFINE_ITERS} "
+          "iterations (default 100)", flush=True)
+    for name, seqs, kernels, want, iters in (
+            ("long mixed", family_of_lengths(LONG_MIXED,
+                                             AMINO_LETTERS, 6),
+             PAIR_KERNELS + STRIPE_KERNELS + ("densify",),
+             {"in_cap": 7, "transposed": 5, "striped": 3, "scan": 0},
+             LONG_MIXED_REFINE_ITERS),
+            ("long pair", family_of_lengths(LONG_PAIR, b"ACGT", 2),
+             STRIPE_KERNELS,
+             {"in_cap": 0, "transposed": 0, "striped": 1, "scan": 0},
+             100)):
+        torch.cuda.reset_peak_memory_stats()
+        post_mod.reset_routes()
+        widths.clear()
+        pc.pairhmm_fwd = recording_fwd
+        try:
+            msa, wall, stages, got = run_path(name, seqs, dev, kernels,
+                                              refine_iters=iters)
+        finally:
+            pc.pairhmm_fwd = launch_fwd
+        peak = torch.cuda.max_memory_allocated()
+        routes = dict(post_mod.ROUTES)
+        print(f"family {name} (lengths {[len(s) for s in seqs]}): "
+              f"wall={wall:.2f}s width={msa.col_count()} "
+              f"peak_device_mem={peak / 2**30:.3f} GiB "
+              f"stages={json.dumps(stages)} routes={json.dumps(routes)} "
+              f"kernel A widths={sorted(set(widths))} "
+              f"launches={json.dumps(got)}", flush=True)
+        if routes != want:
+            raise SmokeFailure(f"{name}: routes {routes}, want {want}")
+        if name == "long mixed" and 10240 not in widths:
+            raise SmokeFailure(f"{name}: kernels A/B never ran at Ly = 10240")
+        unchecked = sorted(set(widths) - set(AB_CHECK_WIDTHS))
+        if unchecked:
+            raise SmokeFailure(f"{name}: kernels A/B ran at widths "
+                               f"{unchecked} not held against their twins")
+        if name == "long pair" and (got["pairhmm_bwd_stripe"] != 10 or
+                                    got["pairhmm_fwd_stripe"] != 10):
+            raise SmokeFailure(f"{name}: want 10 stripes, one forward pass")
+        out[name] = {"wall_s": wall, "peak_bytes": peak, "stages": stages,
+                     "routes": routes}
+    return out
+
+
+def phase_scan_route(dev, lengths=(512, 480), row_block=256) -> None:
+    """One pair through the checkpoint/recompute scan on the card (a
+    Python loop of ~10^3 launches a DP row: a 1500 x 1400 pair takes
+    ~2 min on an H100, so the pair is smaller), held to kernels A/B on
+    the same pair at the kernel gate."""
+    import torch
+    from muscle_tpu_torch.alphabet import ALPHA_AMINO
+    from muscle_tpu_torch.hmm.params import HMMParams
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    from muscle_tpu_torch.ops import sparse as sp
+    from muscle_tpu_torch.ops.pairhmm_long import long_pair_posterior_sparse
+    from muscle_tpu_torch.pipeline.posteriors import encode_batch, round_up
+    pack = HMMParams.from_defaults(nucleo=False).to_scores()
+    seqs = family_of_lengths(lengths, AMINO_LETTERS, 15)
+    codes, lens = encode_batch(seqs, ALPHA_AMINO)
+    lx, ly = (int(v) for v in lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, cols, ea, _ = long_pair_posterior_sparse(
+        codes[0][:lx], codes[1][:ly], pack, k=32, row_block=row_block,
+        device=dev)
+    wall = time.perf_counter() - t0
+    py = round_up(ly, 128)
+    xb = np.full((1, round_up(lx, 128)), 20, np.int32)
+    yb = np.full((1, py), 20, np.int32)
+    xb[0, :lx] = codes[0][:lx]
+    yb[0, :ly] = codes[1][:ly]
+    post, ea_k = pc.batch_posteriors_cuda(
+        *(torch.from_numpy(a).to(dev) for a in (xb, yb, lens[:1], lens[1:])),
+        pack)
+    kv, kc, _ = sp.sparsify(post, 32)
+    got = sp.densify_np(vals, cols, py)
+    want = sp.densify_np(kv[0, :lx].cpu().numpy(), kc[0, :lx].cpu().numpy(),
+                         py)
+    d = np.abs(got - want)
+    flip = ((got == 0) | (want == 0)) & (np.maximum(got, want) <= 0.0102)
+    d_post = float(np.where(flip, 0.0, d).max())
+    d_ea = abs(ea - float(ea_k[0]))
+    ok = d_post < 2e-3 and d_ea < 2e-3
+    print(f"scan route (pairhmm_long, row blocks of {row_block}) on a "
+          f"{lx} x {ly} "
+          f"pair: wall {wall:.2f}s; vs kernels A/B posterior {d_post:.3e} "
+          f"(flips ignored, tol 2e-3), EA {d_ea:.3e} (tol 2e-3) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("the scan route disagrees with kernels A/B")
 
 
 def phase_synthetic(dev) -> dict:
@@ -583,12 +1010,15 @@ def main() -> int:
           f"native host library loaded: {native.loaded()}", flush=True)
     dev = torch.device("cuda")
 
-    kernels = phase_kernels(dev) + phase_gram_join_kernels(dev)
+    kernels = (phase_kernels(dev) + phase_long_kernels(dev)
+               + phase_gram_join_kernels(dev))
 
     t0 = time.perf_counter()
     phase_families(dev)
     phase_synthetic(dev)
+    phase_long_families(dev)
     print(f"main path: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_scan_route(dev)
     for k in kernels:
         k["launches"] = MAIN_PATH.get(k["name"], 0)
         if k["launches"] <= 0:

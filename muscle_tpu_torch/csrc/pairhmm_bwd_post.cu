@@ -290,6 +290,21 @@ pairhmm_bwd_post_kernel(const int* __restrict__ xb, const int* __restrict__ yb,
   }
 }
 
+template <int S>
+static int launch(const Geometry& geo, int B, cudaStream_t st, const int* xb,
+                  const int* yb, const int* lxb, const int* lyb,
+                  const float* match, const float* insert,
+                  const float* params, const float* tot, int Lx, int Ly,
+                  int kk, int with_mea, const float* fm, float* post,
+                  float* mea) {
+  const cudaError_t e = allow_smem(pairhmm_bwd_post_kernel<S>, geo.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  pairhmm_bwd_post_kernel<S><<<B, geo.W * 32, geo.smem, st>>>(
+      xb, yb, lxb, lyb, match, insert, params, tot, Lx, Ly, kk, with_mea, fm,
+      post, mea);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int pairhmm_bwd_post(const int* xb, const int* yb, const int* lxb,
                                 const int* lyb, const float* match,
                                 const float* insert, const float* params,
@@ -297,31 +312,24 @@ extern "C" int pairhmm_bwd_post(const int* xb, const int* yb, const int* lxb,
                                 int kk, int with_mea, const float* fm,
                                 float* post, float* mea, void* stream) {
   const Geometry geo = geometry(Ly, kk, 11);
-  const dim3 grid(B), block(geo.W * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (geo.S) {
     case 1:
-      pairhmm_bwd_post_kernel<1><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, tot, Lx, Ly, kk, with_mea,
-          fm, post, mea);
-      break;
+      return launch<1>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       tot, Lx, Ly, kk, with_mea, fm, post, mea);
     case 2:
-      pairhmm_bwd_post_kernel<2><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, tot, Lx, Ly, kk, with_mea,
-          fm, post, mea);
-      break;
+      return launch<2>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       tot, Lx, Ly, kk, with_mea, fm, post, mea);
     case 3:
-      pairhmm_bwd_post_kernel<3><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, tot, Lx, Ly, kk, with_mea,
-          fm, post, mea);
-      break;
+      return launch<3>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       tot, Lx, Ly, kk, with_mea, fm, post, mea);
     case 4:
-      pairhmm_bwd_post_kernel<4><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, tot, Lx, Ly, kk, with_mea,
-          fm, post, mea);
-      break;
+      return launch<4>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       tot, Lx, Ly, kk, with_mea, fm, post, mea);
+    case 5:
+      return launch<5>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       tot, Lx, Ly, kk, with_mea, fm, post, mea);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Shared device code of the pair-HMM kernels (pairhmm_fwd.cu,
-// pairhmm_bwd_post.cu): log-space arithmetic and the warp-level lane
+// pairhmm_bwd_post.cu and their striped forms pairhmm_fwd_stripe.cu,
+// pairhmm_bwd_stripe.cu): log-space arithmetic and the warp-level lane
 // machinery.
 //
 // Lane layout. A block owns one pair; its Ly lanes (one DP column each)
@@ -176,7 +177,8 @@ __device__ __forceinline__ void block_cumsum(float v[S][2], float* row,
   }
 }
 
-// Launch geometry shared by both kernels.
+// Launch geometry shared by kernels A and B: S segments per warp, at
+// most 32 warps (S = 5, 160 segments, at Ly = 10240).
 struct Geometry {
   int nseg, S, W;
   size_t smem;
@@ -190,6 +192,16 @@ inline Geometry geometry(int Ly, int kk, int extra_rows_nseg) {
   g.smem = sizeof(float) *
            (size_t)(kk * kk + kk + Ly + extra_rows_nseg * g.nseg);
   return g;
+}
+
+// A kernel takes more than 48 KB of dynamic shared memory only when
+// asked (kernel B's amino tables and rows pass it above Ly ~ 9.9k).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace ph

@@ -198,33 +198,43 @@ pairhmm_fwd_kernel(const int* __restrict__ xb, const int* __restrict__ yb,
   }
 }
 
+template <int S>
+static int launch(const Geometry& geo, int B, cudaStream_t st, const int* xb,
+                  const int* yb, const int* lxb, const int* lyb,
+                  const float* match, const float* insert,
+                  const float* params, int Lx, int Ly, int kk, float* fm,
+                  float* fend) {
+  const cudaError_t e = allow_smem(pairhmm_fwd_kernel<S>, geo.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  pairhmm_fwd_kernel<S><<<B, geo.W * 32, geo.smem, st>>>(
+      xb, yb, lxb, lyb, match, insert, params, Lx, Ly, kk, fm, fend);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int pairhmm_fwd(const int* xb, const int* yb, const int* lxb,
                            const int* lyb, const float* match,
                            const float* insert, const float* params, int B,
                            int Lx, int Ly, int kk, float* fm, float* fend,
                            void* stream) {
   const Geometry geo = geometry(Ly, kk, 8);
-  const dim3 grid(B), block(geo.W * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (geo.S) {
     case 1:
-      pairhmm_fwd_kernel<1><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, Lx, Ly, kk, fm, fend);
-      break;
+      return launch<1>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       Lx, Ly, kk, fm, fend);
     case 2:
-      pairhmm_fwd_kernel<2><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, Lx, Ly, kk, fm, fend);
-      break;
+      return launch<2>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       Lx, Ly, kk, fm, fend);
     case 3:
-      pairhmm_fwd_kernel<3><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, Lx, Ly, kk, fm, fend);
-      break;
+      return launch<3>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       Lx, Ly, kk, fm, fend);
     case 4:
-      pairhmm_fwd_kernel<4><<<grid, block, geo.smem, st>>>(
-          xb, yb, lxb, lyb, match, insert, params, Lx, Ly, kk, fm, fend);
-      break;
+      return launch<4>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       Lx, Ly, kk, fm, fend);
+    case 5:
+      return launch<5>(geo, B, st, xb, yb, lxb, lyb, match, insert, params,
+                       Lx, Ly, kk, fm, fend);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

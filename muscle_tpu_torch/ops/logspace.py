@@ -43,23 +43,26 @@ def _f32(c: float) -> float:
     return float(torch.tensor(c, dtype=torch.float32))
 
 
-def _fma(r, x, c: float):
-    """f32 fused multiply-add r*x + c, rounded once."""
-    return (r.double() * x.double() + _f32(c)).float()
-
-
-def _cubic(c, x):
-    r = _fma(torch.full_like(x, _f32(c[0])), x, c[1])
-    r = _fma(r, x, c[2])
-    return _fma(r, x, c[3])
+_SEGS = tuple(tuple(_f32(c) for c in seg) for seg in (_C0, _C1, _C2, _C3))
+_seg_tables: dict = {}
 
 
 def logexp1(x):
-    """log(1 + e^x) for x in [0, 7.5] via the reference's cubic splines."""
-    return torch.where(x <= 1.0, _cubic(_C0, x),
-                       torch.where(x <= 2.5, _cubic(_C1, x),
-                                   torch.where(x <= 4.5, _cubic(_C2, x),
-                                               _cubic(_C3, x))))
+    """log(1 + e^x) for x in [0, 7.5] via the reference's cubic splines.
+
+    Each element's segment coefficients are looked up first, then one
+    Horner chain runs: the same operations on the same values as
+    evaluating all four cubics and selecting the result."""
+    if x.device not in _seg_tables:
+        _seg_tables[x.device] = torch.tensor(_SEGS, dtype=torch.float64,
+                                             device=x.device)
+    seg = (x > 1.0).long() + (x > 2.5).long() + (x > 4.5).long()
+    c = _seg_tables[x.device][seg]
+    xd = x.double()
+    r = c[..., 0]
+    for i in (1, 2, 3):
+        r = (r * xd + c[..., i]).float().double()
+    return r.float()
 
 
 # Cody-Waite split of ln 2 and the degree-6 minimax polynomial of

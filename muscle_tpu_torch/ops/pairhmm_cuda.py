@@ -37,7 +37,10 @@ NEG_BIG = -1e30  # sentinel more negative than any reachable score sum
 # (16,) params layout shared by the twins and the kernels
 P_TSM, P_TSI, P_TSJ, P_TMM, P_TMI, P_TMJ, P_TII, P_TIM, P_TJJ, P_TJM = range(10)
 
-MAX_LY = 8192     # lane-axis cap of the kernels (Ly % 128 == 0)
+# lane-axis cap of the kernels (Ly % 128 == 0): 160 segments of 64 lanes,
+# five per warp. The long-pair router pads a Y side of up to 9856 to the
+# rung 10240 (pipeline/posteriors.py::_long_rung).
+MAX_LY = 10240
 
 LAUNCHES = {"pairhmm_fwd": 0, "pairhmm_bwd_post": 0}
 
@@ -335,23 +338,29 @@ def kernel_specs():
             for k in _KERNELS]
 
 
+def load_libs(specs, argtypes: dict, into: dict) -> None:
+    """Build the pair-HMM kernel libraries `specs` and load each into
+    `into` by name: its kernel function (arguments argtypes[name],
+    returning a cudaError_t as an int) and `pairhmm_error_string`."""
+    from ..utils.build import ensure_built
+    paths = ensure_built(specs)
+    for spec in specs:
+        lib = ctypes.CDLL(paths[spec.name])
+        fn = getattr(lib, spec.name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes[spec.name]
+        lib.pairhmm_error_string.restype = ctypes.c_char_p
+        lib.pairhmm_error_string.argtypes = [ctypes.c_int]
+        into[spec.name] = lib
+
+
 def _lib(name: str):
     if name not in _libs:
-        from ..utils.build import ensure_built
-        paths = ensure_built(kernel_specs())
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        argtypes = {
-            "pairhmm_fwd": [vp] * 7 + [ci] * 4 + [vp] * 3,
-            "pairhmm_bwd_post": [vp] * 8 + [ci] * 5 + [vp] * 4,
-        }
-        for k in _KERNELS:
-            lib = ctypes.CDLL(paths[k])
-            fn = getattr(lib, k)
-            fn.restype = ci
-            fn.argtypes = argtypes[k]
-            lib.pairhmm_error_string.restype = ctypes.c_char_p
-            lib.pairhmm_error_string.argtypes = [ci]
-            _libs[k] = lib
+        load_libs(kernel_specs(),
+                  {"pairhmm_fwd": [vp] * 7 + [ci] * 4 + [vp] * 3,
+                   "pairhmm_bwd_post": [vp] * 8 + [ci] * 5 + [vp] * 4},
+                  _libs)
     return _libs[name]
 
 

@@ -9,15 +9,16 @@ src/mpcflat.cpp:285-337) and of muscle_tpu.pipeline.mpc. Stage order:
         -> join order -> progressive align (host) -> refine
         -> sort by tree -> re-insert dupes
 
-Ported branches, routed as in the JAX package, for pads up to
-posteriors.LONG_PAIR_THRESHOLD (longer pairs raise NotImplementedError,
-ROADMAP.md item 12):
+Branches, routed as in the JAX package:
 * n * pad <= SMALL_DENSE_NL: one batched pair call and the dense
   consistency (pipeline/posteriors.small_family_store);
-* n * pad > SMALL_DENSE_NL: the length-bucketed pair store and the
-  blocked Gram-scheme consistency (ops/consistency.consistency_sparse),
-  bf16 panels from n = 32 on (consistency_precision_for);
-* n = 2 or consistency_iters = 0: the bucketed store, no consistency.
+* n * pad > SMALL_DENSE_NL: the pair store and the blocked Gram-scheme
+  consistency (ops/consistency.consistency_sparse), bf16 panels from
+  n = 32 on (consistency_precision_for);
+* n = 2 or consistency_iters = 0: the pair store, no consistency.
+The pair store is length-bucketed for pads up to
+posteriors.LONG_PAIR_THRESHOLD and filled pair by pair by the long-pair
+router beyond it (posteriors._long_pairs_sparse).
 Refinement joins run on the host below DEVICE_REFINE_N sequences and on
 the device from there on (pipeline/devjoin.DeviceJoiner).
 """
@@ -129,11 +130,6 @@ class MPC:
                 f"L={pad_to}, K={SPARSE_K}) needs ~{store_gb:.0f} GB "
                 f"device memory (> {budget_gb:.0f} GB budget). Use "
                 f"-super5, or raise MUSCLE_TPU_HBM_BUDGET_GB.")
-        if pad_to > post_mod.LONG_PAIR_THRESHOLD:
-            raise NotImplementedError(
-                f"pairs padded to {pad_to} > {post_mod.LONG_PAIR_THRESHOLD} "
-                "columns need the long-pair path (ROADMAP.md, open item "
-                "12: long pairs)")
         use_dense = (n >= 3 and self.consistency_iters > 0
                      and n * pad_to <= post_mod.SMALL_DENSE_NL)
 

@@ -11,8 +11,12 @@ package makes between its Pallas kernels and its CPU scan.
 Two routes, as in the JAX package:
 * `small_family_store` (n * L <= SMALL_DENSE_NL): ONE batched pair
   call, dense (n*L)^2 consistency, top-K sparsify;
-* `all_pairs_posteriors_sparse` (n = 2, or no consistency): length-
-  bucketed batches sparsified into a fixed-K store.
+* `all_pairs_posteriors_sparse` (larger families, n = 2, or no
+  consistency): length-bucketed batches sparsified into a fixed-K
+  store; beyond LONG_PAIR_THRESHOLD the long-pair router
+  (`_long_pairs_sparse`) fills it pair by pair: kernels A/B, transposed
+  or not, the Y-striped kernels 5/6 (ops/pairhmm_striped.py), or the
+  checkpoint/recompute scan (ops/pairhmm_long.py).
 """
 
 from __future__ import annotations
@@ -129,8 +133,8 @@ def _clamp_chunk_by_len(b: int, lb: int, step: int = 8) -> int:
 
 
 # beyond this padded length the batched kernels' (B, Lx, Ly) lattices
-# stop fitting; the JAX package switches to its long-pair paths there,
-# which this port does not have yet
+# stop fitting; the per-pair long-pair router (_long_pairs_sparse) takes
+# over
 LONG_PAIR_THRESHOLD = 8192
 
 # Dense small-family threshold: the (n_pad*L)^2 block matrix of the
@@ -146,11 +150,11 @@ def all_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray, pack,
     Returns (vals (P+1.., L, K) device tensor, cols, ea (P,) numpy,
     max_nnz); rows beyond P are empty (the last one is the dump slot).
     max_nnz > K signals truncation of rows with more than K entries.
+    Pads beyond LONG_PAIR_THRESHOLD go pair by pair through the long-pair
+    router.
     """
     if codes.shape[1] > LONG_PAIR_THRESHOLD:
-        raise NotImplementedError(
-            f"pairs longer than {LONG_PAIR_THRESHOLD} columns need the "
-            "long-pair path (ROADMAP.md, open item 12: long pairs)")
+        return _long_pairs_sparse(codes, lens, pack, pairs, k, device)
     backend = default_backend(device)
     step = _chunk_step(backend)
     n_pairs = len(pairs)
@@ -184,6 +188,168 @@ def all_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray, pack,
             store_ea[idx] = ea
             max_nnz = max(max_nnz, int(nnz))
     return store_v, store_c, store_ea.cpu().numpy(), max_nnz
+
+
+# ---------------------------------------------------------------------------
+# long pairs (muscle_tpu/pipeline/posteriors.py:369-569)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's Pallas-backend limits, kept: padding decides the
+# segmented scan's grouping and so the numbers. A pair whose Y side
+# rounds to <= _LONG_PALLAS_MAX_LY lanes and whose (x, y) lattice fits
+# _LONG_PALLAS_CELL_BUDGET runs kernels A/B at its rung rectangle; else
+# the same with x and y swapped, the posterior transposed back; else,
+# within _STRIPED_CELL_BUDGET, the Y-striped kernels 5/6 in stripes of
+# _STRIPE_W lanes; else the checkpoint/recompute scan. On the CPU every
+# long pair takes the scan, as the JAX package's CPU backend does.
+_LONG_PALLAS_MAX_LY = 9856
+_LONG_PALLAS_CELL_BUDGET = 160 * 1024 * 1024
+_STRIPE_W = 2048
+_STRIPED_CELL_BUDGET = 640 * 1024 * 1024   # 25k x 25k
+
+# pairs each route took since the last reset_routes()
+ROUTES = {"in_cap": 0, "transposed": 0, "striped": 0, "scan": 0}
+
+
+def reset_routes() -> None:
+    for k in ROUTES:
+        ROUTES[k] = 0
+
+
+def _long_rung(v: int) -> int:
+    """Padding rung of the kernel routes: the ladder below the batch
+    threshold, 512-multiples above it (9728 < v <= 9856 pads to 10240,
+    the kernels' lane cap)."""
+    if v <= LONG_PAIR_THRESHOLD:
+        return _bucket_of(v, LONG_PAIR_THRESHOLD)
+    return round_up(v, 512)
+
+
+def _pad_pairs(codes, lens, batch, px: int, py: int, wild: int, device):
+    """(xb, yb, lx, ly) device tensors of the batch's pairs, right-padded
+    with the wildcard to px / py."""
+    b = len(batch)
+    xb = np.full((b, px), wild, np.int32)
+    yb = np.full((b, py), wild, np.int32)
+    for j, (x, y) in enumerate(batch):
+        xb[j, :lens[x]] = codes[x][:lens[x]]
+        yb[j, :lens[y]] = codes[y][:lens[y]]
+    return tuple(torch.as_tensor(a, device=device) for a in
+                 (xb, yb, lens[[x for x, _ in batch]],
+                  lens[[y for _, y in batch]]))
+
+
+def _long_pairs_pallas_batch(codes, lens, pack, batch, k, device,
+                             transpose_post=False):
+    """Up to 8 long pairs of one rung rectangle through kernels A/B
+    (ops/pairhmm_cuda.py). Only the real pairs launch: the JAX package
+    fills its 8-pair tile with copies, which changes no number. Returns
+    (vals (B, rows, K), cols, ea (B,), max_nnz)."""
+    from ..ops.pairhmm_cuda import batch_posteriors_cuda
+    px = max(_long_rung(int(lens[x])) for x, _ in batch)
+    py = max(_long_rung(int(lens[y])) for _, y in batch)
+    args = _pad_pairs(codes, lens, batch, px, py, pack.match.shape[0] - 1,
+                      device)
+    post, ea = batch_posteriors_cuda(*args, pack)
+    if transpose_post:
+        # computed with x/y swapped to fit the lane cap; the store is
+        # row-major in the ORIGINAL x
+        post = post.transpose(1, 2)
+    vals, cols, nnz = sp.sparsify(post, k)
+    return vals, cols, ea, int(nnz)
+
+
+def _long_pairs_striped_batch(codes, lens, pack, batch, k, device):
+    """Up to 8 pairs with both sides beyond the lane cap through the
+    Y-striped kernels 5/6 (ops/pairhmm_striped.py) — the band the
+    reference serves from its flat kernel at ~21k max
+    (src/fwdflat3.cpp:17-18)."""
+    from ..ops.pairhmm_striped import striped_posteriors_sparse
+    px = max(_long_rung(int(lens[x])) for x, _ in batch)
+    py = max(round_up(int(lens[y]), _STRIPE_W) for _, y in batch)
+    args = _pad_pairs(codes, lens, batch, px, py, pack.match.shape[0] - 1,
+                      device)
+    return striped_posteriors_sparse(*args, pack, k=k, stripe_w=_STRIPE_W)
+
+
+def _long_pairs_sparse(codes, lens, pack, pairs, k, device):
+    """Per-pair long-sequence posterior loop into the sparse store."""
+    from collections import defaultdict
+    from ..ops.pairhmm_long import long_pair_posterior_sparse
+    l = codes.shape[1]
+    n_pairs = len(pairs)
+    sv = torch.zeros((store_rows(n_pairs), l, k), dtype=torch.float32,
+                     device=device)
+    sc = torch.full((store_rows(n_pairs), l, k), -1, dtype=torch.int32,
+                    device=device)
+    ea = np.zeros(n_pairs, np.float32)
+    max_nnz = 0
+    use_kernels = default_backend(device) == "cuda"
+
+    def fits(x, y):
+        py = round_up(int(lens[y]), 128)
+        return (py <= _LONG_PALLAS_MAX_LY and
+                round_up(int(lens[x]), 128) * py <= _LONG_PALLAS_CELL_BUDGET)
+
+    def fits_striped(x, y):
+        return (round_up(int(lens[x]), 128) * round_up(int(lens[y]), _STRIPE_W)
+                <= _STRIPED_CELL_BUDGET)
+
+    # group kernel-eligible pairs by their (px, py) rung rectangle: the
+    # padding decides the numbers, so the groups are JAX's
+    groups: dict[tuple[int, int, bool], list[int]] = defaultdict(list)
+    striped_groups: dict[tuple[int, int], list[int]] = defaultdict(list)
+    scan_idx = []
+    for i, (x, y) in enumerate(pairs):
+        if use_kernels and fits(x, y):
+            groups[(_long_rung(int(lens[x])), _long_rung(int(lens[y])),
+                    False)].append(i)
+        elif use_kernels and fits(y, x):
+            groups[(_long_rung(int(lens[y])), _long_rung(int(lens[x])),
+                    True)].append(i)
+        elif use_kernels and fits_striped(x, y):
+            striped_groups[(_long_rung(int(lens[x])),
+                            round_up(int(lens[y]), _STRIPE_W))].append(i)
+        else:
+            scan_idx.append(i)
+
+    def store(ch, vals, cols, ea_b, nnz):
+        nonlocal max_nnz
+        for j, i in enumerate(ch):
+            lx = int(lens[pairs[i][0]])
+            sv[i, :lx] = vals[j, :lx]
+            sc[i, :lx] = cols[j, :lx]
+            ea[i] = float(ea_b[j])
+        max_nnz = max(max_nnz, nnz)
+
+    for (_, _, swapped), idxs in groups.items():
+        for lo in range(0, len(idxs), 8):
+            ch = idxs[lo:lo + 8]
+            batch = [pairs[t][::-1] if swapped else pairs[t] for t in ch]
+            store(ch, *_long_pairs_pallas_batch(codes, lens, pack, batch, k,
+                                                device,
+                                                transpose_post=swapped))
+            ROUTES["transposed" if swapped else "in_cap"] += len(ch)
+
+    for idxs in striped_groups.values():
+        for lo in range(0, len(idxs), 8):
+            ch = idxs[lo:lo + 8]
+            store(ch, *_long_pairs_striped_batch(
+                codes, lens, pack, [pairs[t] for t in ch], k, device))
+            ROUTES["striped"] += len(ch)
+
+    for i in scan_idx:
+        x, y = pairs[i]
+        vals, cols, ea_p, _tot = long_pair_posterior_sparse(
+            codes[x][:lens[x]], codes[y][:lens[y]], pack, k=k,
+            row_block=2048, device=device)
+        store([i], torch.as_tensor(vals[None]), torch.as_tensor(cols[None]),
+              [ea_p], 0)
+        # nnz beyond K is invisible here (top-K per row): report the
+        # stored max
+        max_nnz = max(max_nnz, int((vals > 0).sum(axis=1).max()))
+        ROUTES["scan"] += 1
+    return sv, sc, ea, max_nnz
 
 
 def _cons_sparsify(post, xi, yi, n_real: int, p_real: int, n_pad: int,

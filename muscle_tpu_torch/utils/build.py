@@ -80,6 +80,8 @@ def ensure_built(specs) -> dict[str, str]:
     for spec, proc, tmp, path in running:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            with open(f"{path}.log", "w") as fh:
+                fh.write(log)
             os.replace(tmp, path)
         else:
             if os.path.exists(tmp):
@@ -92,9 +94,18 @@ def ensure_built(specs) -> dict[str, str]:
 
 # nvcc flags of every kernel library: Hopper's sm_90a, IEEE arithmetic
 # (no fast math, no FMA contraction: kernels and plain versions claim
-# bit equality), a plain C interface loaded with ctypes
+# bit equality), a plain C interface loaded with ctypes; ptxas reports
+# each kernel's registers and spills into the build log
 CUDA_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def build_log(name: str, specs) -> str:
+    """The compiler output kept beside the built library `name`."""
+    spec = next(s for s in specs if s.name == name)
+    with open(f"{spec.path()}.log") as fh:
+        return fh.read()
 
 
 def cuda_spec(name: str) -> LibSpec:
@@ -121,7 +132,8 @@ def load_kernel(spec: LibSpec, argtypes):
 def build_all() -> dict[str, str]:
     """Build the CUDA kernels and the native host library together."""
     from ..native import native_spec
-    from ..ops import densify_cuda, devjoin_cuda, pairhmm_cuda
+    from ..ops import densify_cuda, devjoin_cuda, pairhmm_cuda, pairhmm_striped
     return ensure_built(list(pairhmm_cuda.kernel_specs())
+                        + pairhmm_striped.kernel_specs()
                         + densify_cuda.kernel_specs()
                         + devjoin_cuda.kernel_specs() + [native_spec()])

@@ -283,3 +283,141 @@ def test_device_refine_on_card_matches_host_refine(cuda_device):
         mpc.DEVICE_REFINE_N = saved
     assert {s.label: s.text() for s in host} == \
         {s.label: s.text() for s in dev}
+
+
+# ---------------------------------------------------------------------------
+# long pairs: kernels A/B at the top rung Ly = 10240, and the Y-striped
+# kernels 5/6 (ops/pairhmm_striped.py)
+# ---------------------------------------------------------------------------
+
+def test_stripe_kernel_build_flags(monkeypatch):
+    from muscle_tpu_torch.ops import pairhmm_striped as ps
+    from muscle_tpu_torch.utils import build
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    specs = ps.kernel_specs()
+    assert [s.name for s in specs] == ["pairhmm_fwd_stripe",
+                                       "pairhmm_bwd_stripe"]
+    for spec in specs:
+        assert "arch=compute_90a,code=sm_90a" in spec.flags
+        assert "-fmad=false" in spec.flags
+        assert spec.sources[0].endswith(f"csrc/{spec.name}.cu")
+        assert any(d.endswith("pairhmm_common.cuh") for d in spec.deps)
+
+
+@pytest.mark.cuda
+def test_kernels_match_twins_at_top_rung(cuda_device):
+    xb, yb, lx, ly = _batch(2, 120, 128, 8, False)
+    yb = np.full((2, 10240), 20, np.int32)
+    ly = np.array([10240, 9731], np.int32)
+    rng = np.random.default_rng(9)
+    for i in range(2):
+        yb[i, :ly[i]] = rng.integers(0, 21, size=ly[i])
+    x, y, lxt, lyt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (xb, yb, lx, ly))
+    tabs = pc.tables(HMMParams.from_defaults().to_scores(), cuda_device)
+    fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *tabs)
+    fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *tabs)
+    rows = torch.arange(128, device=cuda_device)[None, :, None] \
+        < lxt[:, None, None]
+    tot = pc._total_prob(fend, tabs[2])
+    post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, *tabs, tot, fm)
+    post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *tabs, tot, fm)
+    torch.cuda.synchronize()
+    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(fend, fend2)
+    assert torch.equal(post, post2) and torch.equal(mea, mea2)
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_past_top_rung(cuda_device):
+    xb, yb, lx, ly = _batch(2, 60, 10368, 0, False)
+    with pytest.raises(ValueError):
+        pc.batch_posteriors_cuda(
+            *(torch.from_numpy(a).to(cuda_device) for a in (xb, yb, lx, ly)),
+            HMMParams.from_defaults().to_scores())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [256, 2048])
+def test_stripe_kernels_match_twins(cuda_device, w):
+    """Every stripe launch of a ragged batch, kernel against twin on the
+    same inputs: boundary columns, final states, M rows, posteriors and
+    MEA equal bit for bit; the whole orchestration launches S + S."""
+    from muscle_tpu_torch.ops import pairhmm_striped as ps
+    rng = np.random.default_rng(w)
+    n_s, bx = 3, 200
+    by = n_s * w
+    lx = np.array([200, 150, 37, 199, 64], np.int32)
+    ly = np.array([by, by - 5, w, w + 1, 2 * w - 3], np.int32)
+    xb = np.full((5, bx), 20, np.int32)
+    yb = np.full((5, by), 20, np.int32)
+    for i in range(5):
+        xb[i, :lx[i]] = rng.integers(0, 20, lx[i])
+        yb[i, :ly[i]] = rng.integers(0, 20, ly[i])
+    pack = HMMParams.from_defaults().to_scores()
+    tabs = pc.tables(pack, cuda_device)
+    args = tuple(torch.from_numpy(a).to(cuda_device)
+                 for a in (xb, yb, lx, ly)) + tabs
+    iy0, jy0, iy0b, jy0b = ps.row0_closed_forms(args[1], args[3], tabs[1],
+                                                tabs[2])
+    bnd, fms, fend = None, [], None
+    for s in range(n_s):
+        got = ps.pairhmm_fwd_stripe(*args, iy0, jy0, bnd, s, w)
+        want = ps.fwd_stripe_plain(*args, iy0, jy0, bnd, s, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        bnd = got[0]
+        fms.append(got[2])
+        fend = got[1] if fend is None else torch.maximum(fend, got[1])
+    tot = pc._total_prob(fend, tabs[2]).contiguous()
+    bwd = None
+    for sp in range(n_s):
+        fm = fms[n_s - 1 - sp]
+        got = ps.pairhmm_bwd_stripe(*args, tot, iy0b, jy0b, bwd, fm, sp, w)
+        want = ps.bwd_stripe_plain(*args, tot, iy0b, jy0b, bwd, fm, sp, w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        bwd = got[1]
+    before = dict(ps.LAUNCHES)
+    ps.striped_posteriors_sparse(*(torch.from_numpy(a).to(cuda_device)
+                                   for a in (xb, yb, lx, ly)), pack,
+                                 stripe_w=w)
+    assert ps.LAUNCHES["pairhmm_fwd_stripe"] == \
+        before["pairhmm_fwd_stripe"] + n_s
+    assert ps.LAUNCHES["pairhmm_bwd_stripe"] == \
+        before["pairhmm_bwd_stripe"] + n_s
+
+
+@pytest.mark.cuda
+def test_long_family_on_card(cuda_device):
+    """align() on the card through the long-pair router, its limits
+    shrunk so that every kernel route runs: a valid alignment."""
+    from muscle_tpu_torch import MultiSequence, Sequence, align
+    from muscle_tpu_torch.pipeline import posteriors as post_mod
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 20, 640)
+    seqs = MultiSequence()
+    for i, n in enumerate((640, 250, 600, 200, 400)):
+        mut = base[:n].copy()
+        pos = rng.integers(0, n, size=n // 5)
+        mut[pos] = rng.integers(0, 20, size=len(pos))
+        seqs.add(Sequence(f"s{i}", "".join("ARNDCQEGHILKMFPSTWYV"[a]
+                                             for a in mut)))
+    saved = {k: getattr(post_mod, k) for k in (
+        "LONG_PAIR_THRESHOLD", "SMALL_DENSE_NL", "_LONG_PALLAS_MAX_LY",
+        "_LONG_PALLAS_CELL_BUDGET", "_STRIPE_W", "_STRIPED_CELL_BUDGET")}
+    post_mod.LONG_PAIR_THRESHOLD = 256
+    post_mod.SMALL_DENSE_NL = 512       # the pair store, not the dense branch
+    post_mod._LONG_PALLAS_MAX_LY = 256
+    post_mod._LONG_PALLAS_CELL_BUDGET = 1024 * 256
+    post_mod._STRIPE_W = 128
+    post_mod._STRIPED_CELL_BUDGET = 640 * 640
+    post_mod.reset_routes()
+    try:
+        msa = align(seqs, refine_iters=4, device=cuda_device)
+    finally:
+        for k, v in saved.items():
+            setattr(post_mod, k, v)
+    assert all(v > 0 for k, v in post_mod.ROUTES.items() if k != "scan")
+    assert {s.label: s.text().replace("-", "") for s in msa} == \
+        {s.label: s.text() for s in seqs}

@@ -4,8 +4,8 @@
   sparsify) against the JAX package's on the same encoded family;
 * align(device="cpu") column-identical to the reference binary's
   goldens (BB11001, nt3) and to muscle_tpu.align on a seeded family;
-* the entry points refuse to run on the CPU unless asked, and pairs
-  beyond the ported lengths name the roadmap item;
+* the entry points refuse to run on the CPU unless asked, and pads
+  beyond the long-pair threshold align as muscle_tpu aligns them;
 * the CLI writes the same alignment as align().
 """
 
@@ -147,13 +147,22 @@ def test_entry_points_refuse_cpu_unless_asked(monkeypatch):
 
 
 def test_branches_not_ported_raise(monkeypatch):
-    """Pairs longer than LONG_PAIR_THRESHOLD (lowered here) name the
-    roadmap item instead of running another path."""
-    monkeypatch.setattr(t_post, "LONG_PAIR_THRESHOLD", 128)
+    """The branch that raised before long pairs were ported, pads beyond
+    LONG_PAIR_THRESHOLD, now aligns as muscle_tpu aligns it. Both
+    packages' threshold is lowered to 128 and their dense branch to
+    n·L <= 512, so the three 200-residue sequences (pad 256) reach the
+    long-pair router: every pair takes the scan route on the CPU."""
+    for mod in (t_post, j_post):
+        monkeypatch.setattr(mod, "LONG_PAIR_THRESHOLD", 128)
+        monkeypatch.setattr(mod, "SMALL_DENSE_NL", 512)
     rng = np.random.default_rng(0)
-    seqs = MultiSequence([
-        Sequence(f"s{i}", "".join("ACDEFGHIKLMNPQRSTVWY"[c]
-                                  for c in rng.integers(0, 20, 200)))
-        for i in range(3)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        align(seqs, device="cpu")
+    text = "".join(
+        f">s{i}\n" + "".join("ACDEFGHIKLMNPQRSTVWY"[c]
+                             for c in rng.integers(0, 20, 200)) + "\n"
+        for i in range(3))
+    t_post.reset_routes()
+    ours = align(MultiSequence.from_fasta(text), device="cpu")
+    ref = muscle_tpu.align(muscle_tpu.MultiSequence.from_fasta(text))
+    assert t_post.ROUTES == {"in_cap": 0, "transposed": 0, "striped": 0,
+                             "scan": 3}
+    assert ours.to_fasta_text() == ref.to_fasta_text()

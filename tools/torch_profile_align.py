@@ -1,15 +1,19 @@
 """Profile one `muscle_tpu_torch.align` call on the GPU with torch.profiler.
 
     python tools/torch_profile_align.py [--n 32 --lo 400 --hi 512]
+                                        [--long mixed|pair]
                                         [--trace build/align_trace.json]
 
 Aligns a synthetic family of chip_smoke.py (n mutated copies of one
 random protein, lengths lo-hi; by default n = 32, lengths 400-512, the
 top of the dense branch; n = 200 takes the blocked Gram branch with
-device refine) once to warm up, then once under the profiler. Prints
-the device kernels by total time, the device busy time (the union of
-kernel intervals), the wall of the profiled call and the device's idle
-share of it. Needs a CUDA device.
+device refine), or with --long one of its long families ("mixed": six
+proteins of 8,700-11,000 residues on kernels A/B and the striped
+kernels, refine cut as chip_smoke.py cuts it; "pair": two ~19 kb
+nucleotide sequences on the striped kernels), once to warm up, then
+once under the profiler. Prints the device kernels by total time, the
+device busy time (the union of kernel intervals), the wall of the
+profiled call and the device's idle share of it. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=32, help="sequences")
     ap.add_argument("--lo", type=int, default=400, help="shortest length")
     ap.add_argument("--hi", type=int, default=512, help="longest length")
+    ap.add_argument("--long", choices=("mixed", "pair"), default=None,
+                    help="one of chip_smoke.py's long families instead")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
     args = ap.parse_args()
@@ -53,18 +59,25 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from chip_smoke import card_line, synthetic_family
+    import chip_smoke as cs
     from muscle_tpu_torch import align
     from torch.profiler import ProfilerActivity, profile
 
-    print(card_line())
-    seqs = synthetic_family(args.n, args.lo, args.hi, seed=args.n)
-    align(seqs, device="cuda")
+    print(cs.card_line())
+    opts = {}
+    if args.long == "mixed":
+        seqs = cs.family_of_lengths(cs.LONG_MIXED, b"ARNDCQEGHILKMFPSTWYV", 6)
+        opts["refine_iters"] = cs.LONG_MIXED_REFINE_ITERS
+    elif args.long == "pair":
+        seqs = cs.family_of_lengths(cs.LONG_PAIR, b"ACGT", 2)
+    else:
+        seqs = cs.synthetic_family(args.n, args.lo, args.hi, seed=args.n)
+    align(seqs, device="cuda", **opts)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        align(seqs, device="cuda")
+        align(seqs, device="cuda", **opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(prof.key_averages().table(sort_by="device_time_total",
