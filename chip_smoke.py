@@ -23,7 +23,10 @@ Phases (each raises on failure, so the run exits non-zero):
    spills; the whole striped route on a 9000 x 8950 pair (5 stripes)
    held to kernels A/B at the kernel gate; and their times at the long
    families' shapes (A/B on one 11000 x 9800 pair at 11264 x 10240, 5/6
-   on one stripe of the 19000 x 18900 nt pair);
+   on one stripe of the 19000 x 18900 nt pair); then densify-reduce's
+   list variant (kernel 7L) on 2,000 pairs sampled from a 128 x 128-row
+   join over a random store (L = 384, k2 = 24, cc = 600), required
+   equal;
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
@@ -49,9 +52,23 @@ Phases (each raises on failure, so the run exits non-zero):
      consistency with one sequence a block, host refine cut to 50
      iterations); "long pair", two ~19 kb nucleotide sequences on the
      striped kernels (10 stripes);
+   - `muscle_tpu_torch.super5(..., device="cuda")` with default
+     settings: on the degapped tests/goldens/rdrp_sub16.super5.afa,
+     required column-identical to that golden by label (Q printed); on
+     synthetic-1000 (super5_set: 1,000 proteins, 4 families of 150 and
+     8 of 50, with duplicates and near-duplicates), required to be a
+     valid alignment with identical duplicate rows that removed
+     duplicates, extended UCLUST members by TransAln, made more than
+     one Super4 cluster and one of 64 or more (kernels 7 and mea_dirs),
+     and ran PProg joins on the device (kernel 7L); every kernel-7L
+     launch held, as it happens, to its plain version on the same inputs
+     (max |d| = 0) and timed there, the checks' time and memory kept
+     out of the walls and the peak; stage walls, peak device memory,
+     the run's counts and launches printed;
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
-5. print the kernels' JSON line (launch counts summed over phase 3),
+5. print the kernels' JSON line (launch counts summed over phase 3;
+   kernel 7L's times and bound at synthetic-1000's largest device join),
    then the card line and the final {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -679,6 +696,111 @@ def phase_gram_join_kernels(dev) -> list[dict]:
     return out
 
 
+def list_kernel_case(args, got=None) -> dict:
+    """Kernel 7L's output `got` on `args` (launched here when not given)
+    against its plain version on the same inputs, and the times of the
+    kernel (CUDA events), its plain version and one torch.index_add of
+    the same slots, with its bound. The launches made here are not
+    counted."""
+    import torch
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    vals, cols, k2, rp, pid, co, bk, dump, cc = args
+    before = djc.LAUNCHES["densify_reduce_list"]
+    if got is None:
+        got = djc.densify_reduce_list(*args)
+    want = djc.densify_reduce_list_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    same = torch.equal(got, want)
+    del got, want
+    ms = time_cuda(lambda: djc.densify_reduce_list(*args))
+    plain_ms = time_cuda(lambda: djc.densify_reduce_list_plain(*args), reps=3)
+    djc.LAUNCHES["densify_reduce_list"] = before
+    # one torch call for the same sums: an out-of-place index_add of every
+    # valid slot of the owners' entries at its flat (owner, l, col) index
+    # onto a zero F template
+    dev = vals.device
+    n_s, l = rp.numel() - 1, vals.shape[1]
+    e0, e1 = int(rp[0]), int(rp[-1])
+    own = torch.repeat_interleave(torch.arange(n_s, device=dev),
+                                  (rp[1:] - rp[:-1]).long())
+    p, t = pid[e0:e1].long(), co[e0:e1].long()
+    c = cols[p, :, :k2].long()
+    col = bk.long()[t[:, None, None], c.clamp(min=0)]
+    ok = (c >= 0) & (col < cc) & (p != dump)[:, None, None]
+    flat = ((own[:, None, None] * l + torch.arange(l, device=dev)[:, None])
+            * cc + col)[ok]
+    vsel = vals[p, :, :k2][ok]
+    f = torch.zeros(n_s * l * cc, device=dev)
+    lib_ms = time_cuda(lambda: torch.index_add(f, 0, flat, vsel))
+    # the valid slots (value, column) and the maps read once, F written
+    # once; one add per valid slot
+    slots = float(vsel.numel())
+    bnd = bound_ms(8 * slots + 4 * (rp.numel() + 2 * (e1 - e0) + bk.numel())
+                   + 4 * n_s * l * cc, slots)
+    del f, flat, vsel, col, c, ok, own
+    tc = min(cc, djc._TILE)
+    return {"same": same, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "lib_ms": lib_ms, "bound": bnd, "slots": int(slots),
+            "shape": f"{n_s} owners, {e1 - e0} entries, {bk.shape[0]} "
+                     f"col-owners, L={l}, k2={k2}, cc={cc}, tile "
+                     f"{max(1, min(l, djc._TILE // tc))} x {tc}"}
+
+
+def print_list_case(what: str, case: dict) -> None:
+    bnd = case["bound"]
+    print(f"densify_reduce_list (kernel 7L) vs plain on {what} "
+          f"({case['shape']}, {case['slots']} valid slots): max |d| "
+          f"{case['err']:.3e} {'equal' if case['same'] else 'FAIL'}; "
+          f"{case['ms']:.3f} ms (plain {case['plain_ms']:.1f} ms, index_add "
+          f"{case['lib_ms']:.3f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})",
+          flush=True)
+
+
+def phase_list_kernel(dev) -> dict:
+    """Kernel 7L (densify-reduce, list variant) against its plain version
+    before the main path, on 2,000 pairs sampled from a 128 x 128-row
+    join as PProg samples them over a random store, L = 384, k2 = 24,
+    cc = 600; it must be equal (max |d| = 0). Phase 3 holds every
+    launch of the main path to the plain version on its own inputs
+    (ListKernelCheck) and takes the kernel's times there."""
+    import torch
+    from muscle_tpu_torch.pipeline.posteriors import store_rows
+    from muscle_tpu_torch.pipeline.pprog import get_pairs
+    from muscle_tpu_torch.utils.rng import MwcRng
+
+    n1 = n2 = 128
+    l, k, k2, cc = 384, 32, 24, 600
+    sampled = get_pairs(n1, n2, 2000, MwcRng(1))
+    p1 = store_rows(len(sampled))
+    dump = p1 - 1
+    vals, cols = synthetic_store(dev, p1, l, k, seed=2000)
+    # sampled is sorted by (i, j): owner i's entries are one run
+    ro = np.array([i for i, _ in sampled])
+    row_ptr = np.zeros(n1 + 1, np.int32)
+    np.cumsum(np.bincount(ro, minlength=n1), out=row_ptr[1:])
+    rng = np.random.default_rng(600)
+    bank = np.stack([np.sort(rng.choice(cc, l, replace=False))
+                     for _ in range(n2)]).astype(np.int32)
+    rp, pid, co, bk = (torch.as_tensor(a, device=dev) for a in (
+        row_ptr, np.arange(len(sampled), dtype=np.int32),
+        np.array([j for _, j in sampled], np.int32), bank))
+    case = list_kernel_case((vals, cols, k2, rp, pid, co, bk, dump, cc))
+    print_list_case(f"{len(sampled)} pairs sampled from a {n1} x {n2}-row "
+                    "join, random store", case)
+    if not case["same"]:
+        raise SmokeFailure("densify_reduce_list disagrees with its plain "
+                           "version")
+    del vals, cols
+    torch.cuda.empty_cache()
+    return {"name": "densify_reduce_list", "route": "cuda",
+            "source": "muscle_tpu_torch/csrc/densify_reduce_list.cu",
+            "replaces": "muscle_tpu/pipeline/devjoin.py:88",
+            "launches": 0, "max_abs_err": case["err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound"][0],
+            "bound_by": case["bound"][1], "library_ms": case["lib_ms"]}
+
+
 def check_alignment(inp, msa, name):
     """Same labels, equal row widths, each row degapped = its input."""
     want = {s.label: s.text() for s in inp}
@@ -720,6 +842,8 @@ def q_score(test, ref) -> float:
 PAIR_KERNELS = ("pairhmm_fwd", "pairhmm_bwd_post")
 STRIPE_KERNELS = ("pairhmm_fwd_stripe", "pairhmm_bwd_stripe")
 REFINE_KERNELS = ("densify_reduce", "mea_dirs")
+LIST_KERNELS = ("densify_reduce_list",)
+DENSIFY = ("densify",)
 
 # launches of each kernel over the main path's runs (phase 3)
 MAIN_PATH: dict[str, int] = {}
@@ -948,6 +1072,56 @@ def phase_scan_route(dev, lengths=(512, 480), row_block=256) -> None:
         raise SmokeFailure("the scan route disagrees with kernels A/B")
 
 
+# the synthetic Super5 set (phase 3): 1,000 proteins as the JAX package's
+# recorded `-super5 rdrp-1000` config has (docs/PARITY.md:388-407), in
+# 4 families of 150 and 8 of 50
+SUPER5_FAMILIES = (150,) * 4 + (50,) * 8
+
+
+def super5_set(seed: int = 1000):
+    """Families as synthetic_family builds one (a random root of 380
+    residues; each member a prefix of 300-380 with 3-12 % of its
+    positions substituted), plus 1-4 indels of 1-5 residues a member,
+    placed before the truncation: members that differ only by
+    substitutions align unambiguously, their EA passes UCLUST's 0.99, so
+    it folds a family into a handful of centroids and no Super4 cluster
+    reaches 64. About 5 % of
+    each family are exact duplicates of another member and about 10 %
+    single-substitution near-duplicates. Rows shuffled."""
+    from muscle_tpu_torch import MultiSequence, Sequence
+    rng = np.random.default_rng(seed)
+    rows = []
+    for f, size in enumerate(SUPER5_FAMILIES):
+        root = rng.integers(0, 20, 380)
+        n_dup, n_near = round(0.05 * size), round(0.10 * size)
+        fam = []
+        for _ in range(size - n_dup - n_near):
+            m = list(root)
+            for _ in range(int(rng.integers(1, 5))):
+                p, w = int(rng.integers(0, len(m))), int(rng.integers(1, 6))
+                if rng.random() < 0.5:
+                    del m[p:p + w]
+                else:
+                    m[p:p] = rng.integers(0, 20, w).tolist()
+            m = np.array(m[:int(rng.integers(300, 381))])
+            pos = rng.choice(len(m), int(rng.uniform(0.03, 0.12) * len(m)),
+                             replace=False)
+            m[pos] = (m[pos] + rng.integers(1, 20, len(pos))) % 20
+            fam.append(m)
+        for _ in range(n_dup):
+            fam.append(fam[int(rng.integers(0, size - n_dup - n_near))])
+        for _ in range(n_near):
+            m = fam[int(rng.integers(0, size - n_dup - n_near))].copy()
+            p = int(rng.integers(0, len(m)))
+            m[p] = (m[p] + int(rng.integers(1, 20))) % 20
+            fam.append(m)
+        rows += [(f"fam{f}_{i}", m) for i, m in enumerate(fam)]
+    order = rng.permutation(len(rows))
+    return MultiSequence([Sequence(rows[i][0], bytes(AMINO_LETTERS[c]
+                                                     for c in rows[i][1]))
+                          for i in order])
+
+
 def phase_synthetic(dev) -> dict:
     """The synthetic families, one per branch of the main path."""
     import torch
@@ -993,6 +1167,143 @@ def phase_synthetic(dev) -> dict:
     return out
 
 
+class ListKernelCheck:
+    """Stands in for kernel 7L's wrapper in the device joins while the
+    Super5 path runs: each launch of the main path (counted as any other)
+    is held, as it happens, against the plain version on the same inputs
+    and timed there (list_kernel_case). The seconds and device memory
+    the checks take are kept out of the run's wall, stage walls and
+    peak."""
+
+    def __init__(self):
+        self.cases: list[dict] = []
+        self.seconds = 0.0
+        self.peak = 0
+
+    def __call__(self, *args):
+        import torch
+        from muscle_tpu_torch.ops import devjoin_cuda as djc
+        out = djc.densify_reduce_list(*args)
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        self.cases.append(list_kernel_case(args, got=out))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def run_super5(name, seqs, dev, kernels):
+    """One super5() call of the main path, as run_path does for align():
+    launch counts set to 0 just before it and read just after; each
+    kernel of `kernels` must have launched, and every kernel-7L launch is
+    held to its plain version (ListKernelCheck; the checks' time is taken
+    out of the wall and of the pprog and super4 stage walls). Returns
+    (msa, wall s, stage walls, launches, the run's counts, peak device
+    bytes, the 7L cases)."""
+    import torch
+    from muscle_tpu_torch import super5
+    from muscle_tpu_torch.pipeline import devjoin
+    from muscle_tpu_torch.pipeline.super5 import LAST_RUN
+    from muscle_tpu_torch.utils import logging as mlog
+    check = ListKernelCheck()
+    launch = devjoin.densify_reduce_list
+    mlog.STAGE_TIMES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    devjoin.densify_reduce_list = check
+    try:
+        t0 = time.perf_counter()
+        msa = super5(seqs, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - check.seconds
+    finally:
+        devjoin.densify_reduce_list = launch
+    got = launches()
+    peak = max(torch.cuda.max_memory_allocated(), check.peak)
+    for k, v in got.items():
+        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
+    missing = [k for k in kernels if got[k] <= 0]
+    if missing:
+        raise SmokeFailure(f"{name}: {missing} not launched")
+    if len(check.cases) != got["densify_reduce_list"]:
+        raise SmokeFailure(f"{name}: {got['densify_reduce_list']} kernel-7L "
+                           f"launches, {len(check.cases)} checked")
+    for i, case in enumerate(check.cases):
+        print_list_case(f"{name}'s device join {i + 1} of "
+                        f"{len(check.cases)}", case)
+    if not all(c["same"] for c in check.cases):
+        raise SmokeFailure(f"{name}: a kernel-7L launch disagrees with its "
+                           "plain version")
+    check_alignment(seqs, msa, name)
+    stages = {k: round(v - (check.seconds if k in ("pprog", "super4") else 0),
+                       4) for k, v in mlog.STAGE_TIMES.items()}
+    if check.cases:
+        print(f"{name}: kernel-7L checks took {check.seconds:.2f}s, taken "
+              "out of the wall and of the pprog and super4 stages",
+              flush=True)
+    return msa, wall, stages, got, dict(LAST_RUN), peak, check.cases
+
+
+RDRP16 = "tests/goldens/rdrp_sub16.super5.afa"
+# stages of the Super5 path, in its order (the per-cluster MPC stages sum
+# into cluster_mpcs)
+SUPER5_STAGES = ("uclust", "eacluster", "cluster_mpcs", "consensus+distmx",
+                 "pprog", "transaln", "super4")
+
+
+def phase_super5(dev) -> dict:
+    """super5() with default settings on rdrp-16 (must equal its golden,
+    by label) and on synthetic-1000 (must take every part of the path)."""
+    from muscle_tpu_torch import MultiSequence
+    out = {}
+    seqs = MultiSequence.from_fasta(os.path.join(ROOT, RDRP16),
+                                    strip_gaps=True)
+    gold = MultiSequence.from_fasta(os.path.join(ROOT, RDRP16))
+    msa, wall, stages, got, run, peak, _ = run_super5("rdrp-16", seqs, dev,
+                                                      PAIR_KERNELS)
+    same = ({s.label: s.text() for s in msa}
+            == {s.label: s.text() for s in gold})
+    q = q_score(msa, gold)
+    print(f"super5 rdrp-16: n={len(seqs)} column-identical={same} Q={q:.4f} "
+          f"wall={wall:.2f}s peak_device_mem={peak / 2**30:.3f} GiB "
+          f"stages={json.dumps({k: stages.get(k) for k in SUPER5_STAGES})} "
+          f"run={json.dumps(run)} launches={json.dumps(got)}", flush=True)
+    if not same:
+        raise SmokeFailure("super5 rdrp-16 is not column-identical to its "
+                           "golden")
+    out["rdrp-16"] = {"wall_s": wall, "q": q, "stages": stages, "run": run}
+
+    seqs = super5_set()
+    msa, wall, stages, got, run, peak, cases = run_super5(
+        "synthetic-1000", seqs, dev,
+        PAIR_KERNELS + DENSIFY + REFINE_KERNELS + LIST_KERNELS)
+    print(f"super5 synthetic-1000: n={len(seqs)} wall={wall:.2f}s "
+          f"width={msa.col_count()} peak_device_mem={peak / 2**30:.3f} GiB "
+          f"stages={json.dumps({k: stages.get(k) for k in SUPER5_STAGES})} "
+          f"all stages={json.dumps(stages)} run={json.dumps(run)} "
+          f"launches={json.dumps(got)}", flush=True)
+    rows = {s.label: s.text() for s in msa}
+    text_of = {}
+    for s in seqs:
+        text_of.setdefault(s.text(), []).append(s.label)
+    for labels in text_of.values():
+        if len({rows[lb] for lb in labels}) != 1:
+            raise SmokeFailure(f"synthetic-1000: duplicates {labels} differ")
+    checks = {"duplicates removed": run["unique"] < run["seqs"],
+              "members extended by TransAln": run["members"] > 0,
+              "more than one Super4 cluster": len(run["clusters"]) > 1,
+              "a cluster of 64 or more": max(run["clusters"]) >= 64,
+              "PProg device joins": run["pprog_joins"]["device"] > 0}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SmokeFailure(f"synthetic-1000 skipped part of the path: {failed}")
+    out["synthetic-1000"] = {"wall_s": wall, "peak_bytes": peak,
+                             "stages": stages, "run": run, "list_cases": cases}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1011,14 +1322,27 @@ def main() -> int:
     dev = torch.device("cuda")
 
     kernels = (phase_kernels(dev) + phase_long_kernels(dev)
-               + phase_gram_join_kernels(dev))
+               + phase_gram_join_kernels(dev) + [phase_list_kernel(dev)])
 
     t0 = time.perf_counter()
     phase_families(dev)
     phase_synthetic(dev)
     phase_long_families(dev)
+    s5 = phase_super5(dev)
     print(f"main path: {time.perf_counter() - t0:.1f}s", flush=True)
     phase_scan_route(dev)
+    # kernel 7L's entry: its times and bound at the main path's largest
+    # device join, the error over every check
+    cases = s5["synthetic-1000"]["list_cases"]
+    big = max(cases, key=lambda c: c["bound"][0])
+    k7l = next(k for k in kernels if k["name"] == "densify_reduce_list")
+    k7l.update(max_abs_err=max([k7l["max_abs_err"]]
+                               + [c["err"] for c in cases]),
+               ms=big["ms"], plain_ms=big["plain_ms"],
+               bound_ms=big["bound"][0], bound_by=big["bound"][1],
+               library_ms=big["lib_ms"])
+    print(f"kernel 7L entry: the largest device join ({big['shape']})",
+          flush=True)
     for k in kernels:
         k["launches"] = MAIN_PATH.get(k["name"], 0)
         if k["launches"] <= 0:

@@ -1,4 +1,4 @@
-"""muscle_tpu_torch — the MUSCLE v5 -align pipeline in PyTorch + CUDA.
+"""muscle_tpu_torch — MUSCLE v5's -align and -super5 in PyTorch + CUDA.
 
 Port of muscle_tpu (JAX) to PyTorch with hand-written CUDA kernels for
 an NVIDIA H100 (muscle_tpu_torch/csrc/). The pair-HMM posteriors and the
@@ -8,6 +8,7 @@ points run on the GPU unless `device="cpu"` is passed.
 
 Top-level API:
     align(seqs, **opts)    -> aligned MultiSequence  (reference: -align)
+    super5(seqs, **opts)   -> aligned MultiSequence  (reference: -super5)
 """
 
 __version__ = "0.1.0"
@@ -18,3 +19,8 @@ from .sequence import Sequence, MultiSequence  # noqa: F401
 def align(*args, **kwargs):
     from .pipeline.mpc import align as _align
     return _align(*args, **kwargs)
+
+
+def super5(*args, **kwargs):
+    from .pipeline.super5 import super5 as _super5
+    return _super5(*args, **kwargs)

@@ -1,10 +1,13 @@
-"""Command-line interface (the -align command), muscle-flag-compatible.
+"""Command-line interface (-align, -super5), muscle-flag-compatible.
 
     python -m muscle_tpu_torch.cli -align seqs.fa -output aln.afa [-device cuda|cpu]
+    python -m muscle_tpu_torch.cli -super5 seqs.fa -output aln.afa [-device cuda|cpu]
 
 Mirrors the reference's single-dash command style (reference:
 src/main.cpp:55-73, src/usage.txt) and muscle_tpu.cli for the options
-below; -align computes one replicate.
+below; each command computes one replicate. `-align -minsuper N`
+switches to Super5 when the input has N or more sequences (reference:
+src/align.cpp:61-70).
 """
 
 from __future__ import annotations
@@ -14,9 +17,11 @@ import sys
 from .sequence import MultiSequence
 
 USAGE = """\
-muscle_tpu_torch — multiple sequence alignment on the GPU (MUSCLE v5 -align)
+muscle_tpu_torch — multiple sequence alignment on the GPU (MUSCLE v5)
 
   -align FILE        Align FASTA (MPC algorithm) -> -output
+  -super5 FILE       Align a large FASTA set (Super5 algorithm) -> -output
+  -minsuper N        With -align: use Super5 when there are >= N sequences
   -output FILE       Output path ('@' expands to <perm>.<perturb seed>)
   -perm none|abc|acb|bca   Guide-tree permutation
   -perturb N         HMM perturbation seed
@@ -29,12 +34,13 @@ muscle_tpu_torch — multiple sequence alignment on the GPU (MUSCLE v5 -align)
 
 _BOOL_OPTS = {"nt", "amino", "quiet", "help", "version"}
 _VALUE_OPTS = {"output", "perm", "perturb", "consiters", "refineiters",
-               "device", "log"}
+               "device", "log", "minsuper"}
+_COMMANDS = ("align", "super5")
 
 
-def parse_args(argv: list[str]) -> tuple[str | None, dict]:
-    """-> (input path of -align or None, {option: value})."""
-    path = None
+def parse_args(argv: list[str]) -> tuple[str | None, str | None, dict]:
+    """-> (command or None, its input path, {option: value})."""
+    cmd = path = None
     opts: dict[str, object] = {}
     i = 0
     while i < len(argv):
@@ -42,10 +48,12 @@ def parse_args(argv: list[str]) -> tuple[str | None, dict]:
         if not a.startswith("-"):
             raise SystemExit(f"unexpected argument {a!r}")
         name = a.lstrip("-")
-        if name == "align":
+        if name in _COMMANDS:
             if i + 1 >= len(argv) or argv[i + 1].startswith("-"):
-                raise SystemExit("-align requires an input file")
-            path = argv[i + 1]
+                raise SystemExit(f"-{name} requires an input file")
+            if cmd is not None:
+                raise SystemExit(f"-{cmd} and -{name} both given")
+            cmd, path = name, argv[i + 1]
             i += 1
         elif name in _BOOL_OPTS:
             opts[name] = True
@@ -57,12 +65,12 @@ def parse_args(argv: list[str]) -> tuple[str | None, dict]:
         else:
             raise SystemExit(f"unknown option -{name}")
         i += 1
-    return path, opts
+    return cmd, path, opts
 
 
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    path, opts = parse_args(argv)
+    cmd, path, opts = parse_args(argv)
     if opts.get("help") or path is None:
         print(USAGE)
         return 0 if opts.get("help") or not argv else 1
@@ -76,6 +84,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from .pipeline.mpc import (DEFAULT_CONSISTENCY_ITERS,
                                DEFAULT_REFINE_ITERS, align)
+    from .pipeline.super5 import super5
     from .utils import logging as mlog
     mlog.configure(log_path=opts.get("log"), quiet=bool(opts.get("quiet")))
     mlog.log("muscle_tpu_torch %s", " ".join(argv))
@@ -86,12 +95,18 @@ def main(argv: list[str] | None = None) -> int:
         pos = out.index("@")
         out = f"{out[:pos]}{perm}.{seed}{out[pos + 1:]}"
     seqs = MultiSequence.from_fasta(path)
-    msa = align(seqs, nucleo=nucleo, perturb_seed=seed, tree_perm=perm,
-                consistency_iters=int(opts.get("consiters",
-                                               DEFAULT_CONSISTENCY_ITERS)),
-                refine_iters=int(opts.get("refineiters",
-                                          DEFAULT_REFINE_ITERS)),
-                device=opts.get("device"))
+    iters = dict(consistency_iters=int(opts.get("consiters",
+                                                DEFAULT_CONSISTENCY_ITERS)),
+                 refine_iters=int(opts.get("refineiters",
+                                           DEFAULT_REFINE_ITERS)))
+    minsuper = int(opts.get("minsuper", 0) or 0)
+    if cmd == "super5" or (minsuper and len(seqs) >= minsuper):
+        # the JAX package's switch (pipeline/ensemble.py)
+        msa = super5(seqs, nucleo=nucleo, perturb_seed=seed, tree_perm=perm,
+                     device=opts.get("device"), **iters)
+    else:
+        msa = align(seqs, nucleo=nucleo, perturb_seed=seed, tree_perm=perm,
+                    device=opts.get("device"), **iters)
     msa.write_fasta(out)
     mlog.finish()
     return 0

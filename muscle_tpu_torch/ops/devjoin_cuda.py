@@ -1,4 +1,4 @@
-"""The device refine joins' kernels: two hand-written CUDA kernels.
+"""The device joins' kernels: three hand-written CUDA kernels.
 
 * `densify_reduce` (csrc/densify_reduce.cu) replaces
   muscle_tpu.pipeline.devjoin._dr_kernel (kernel 7, grid variant): for
@@ -6,12 +6,19 @@
   pairs (s, t) summed over the col-owners t in order, each slot's
   position mapped to t's column. It reads the store through the grid,
   so JAX's gathered (W, n_c, L, k2) slot panels never exist.
+* `densify_reduce_list` (csrc/densify_reduce_list.cu) replaces the
+  same _dr_kernel in its list variant (kernel 7L, per_pair_imap=True),
+  PProg's sampled-pair joins: for every row-owner s, the K-sparse rows
+  of its run of sampled pairs summed in entry order, each slot's
+  position mapped to that pair's own col-owner's column.
 * `mea_dirs` (csrc/mea_dirs.cu) replaces devjoin._mea_dirs, the MEA
   direction DP (an XLA scan in the JAX package) with its 2-bit packing.
 
 Beside each is its plain torch version (`densify_reduce_plain`, a loop
-over t; `mea_dirs_plain`, a loop over rows with torch.cummax). Each F
-cell takes at most one value per t, added in t order, and max is exact,
+over t; `densify_reduce_list_plain`, a loop over the entry rank within
+the owners' runs; `mea_dirs_plain`, a loop over rows with
+torch.cummax). Each F cell takes at most one value per t (per entry),
+added in t (entry) order, and max is exact,
 so kernels and plain versions agree bit for bit. A CPU tensor runs the
 plain version; a CUDA tensor launches the kernel or raises. `LAUNCHES`
 counts the kernel launches.
@@ -23,7 +30,7 @@ import ctypes
 
 import torch
 
-LAUNCHES = {"densify_reduce": 0, "mea_dirs": 0}
+LAUNCHES = {"densify_reduce": 0, "densify_reduce_list": 0, "mea_dirs": 0}
 
 # shared-memory tile of densify_reduce: at most 48 KB of f32
 _TILE = 12288
@@ -50,6 +57,8 @@ def _kernel(name: str):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         argtypes = {"densify_reduce": [vp, vp] + [ci] * 4 + [vp] + [ci] * 2
                     + [vp] + [ci] * 4 + [vp, vp],
+                    "densify_reduce_list": [vp, vp] + [ci] * 4 + [vp, ci]
+                    + [vp] * 3 + [ci] * 5 + [vp, vp],
                     "mea_dirs": [vp] + [ci] * 4 + [vp] * 3}[name]
         spec = next(s for s in kernel_specs() if s.name == name)
         _fns[name] = load_kernel(spec, argtypes)
@@ -117,6 +126,80 @@ def densify_reduce(vals, cols, k2: int, pid, bank, dump: int, cc: int):
     _launch("densify_reduce", vals.data_ptr(), cols.data_ptr(), p1, l, k, k2,
             pid.data_ptr(), n_r, n_c, bank.data_ptr(), dump, cc, tr, tc,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# densify-reduce, sampled-pair list variant
+# ---------------------------------------------------------------------------
+
+def densify_reduce_list_plain(vals, cols, k2: int, row_ptr, pid, co, bank,
+                              dump: int, cc: int):
+    """(P1, L, K) store, owner runs row_ptr (n_s + 1), per-entry store
+    rows pid and col-owners co, (n2, L) pos->col maps of the col-owners
+    -> F (n_s, L, cc) f32: F[s, l, bank[co[e], p]] summed over owner s's
+    entries e in order of vals[pid[e], l, k] at p = cols[pid[e], l, k].
+    Dump or out-of-range entries, empty slots and columns outside
+    [0, cc) add nothing. The q-th entries of all owners go in one step."""
+    n_s = row_ptr.shape[0] - 1
+    p1, l = vals.shape[:2]
+    dev = vals.device
+    f = torch.zeros((n_s, l, cc + 1), dtype=torch.float32, device=dev)
+    start = row_ptr[:-1].long()
+    count = row_ptr[1:].long() - start
+    for q in range(int(count.max()) if n_s else 0):
+        s = torch.nonzero(count > q).flatten()
+        e = start[s] + q
+        p = pid[e].long()
+        t = co[e].long()
+        okp = (p != dump) & (p >= 0) & (p < p1) & (t >= 0) & (t < bank.shape[0])
+        p = torch.where(okp, p, 0)
+        t = torch.where(okp, t, 0)
+        v = vals[p, :, :k2]
+        pos = cols[p, :, :k2]
+        col = bank.long()[t[:, None, None], pos.clamp(0, l - 1).long()]
+        ok = ((pos >= 0) & (pos < l) & (col >= 0) & (col < cc)
+              & okp[:, None, None])
+        f[s] += torch.zeros((len(s), l, cc + 1), device=dev).scatter_(
+            2, torch.where(ok, col, cc), torch.where(ok, v, 0.0))
+    return f[..., :cc].contiguous()
+
+
+def densify_reduce_list(vals, cols, k2: int, row_ptr, pid, co, bank,
+                        dump: int, cc: int):
+    """Kernel 7L on a CUDA store; the plain version on a CPU one."""
+    if vals.device.type == "cpu":
+        return densify_reduce_list_plain(vals, cols, k2, row_ptr, pid, co,
+                                         bank, dump, cc)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    dev = vals.device
+    if (vals.dtype != torch.float32 or cols.dtype != torch.int32
+            or vals.dim() != 3 or cols.shape != vals.shape
+            or not vals.is_contiguous() or not cols.is_contiguous()
+            or cols.device != dev):
+        raise ValueError(f"vals f32 / cols int32: contiguous (P1, L, K) "
+                         f"on {dev}")
+    p1, l, k = vals.shape
+    n_s = row_ptr.shape[0] - 1
+    n_e = pid.shape[0]
+    for name, t, shape in (("row_ptr", row_ptr, (n_s + 1,)),
+                           ("pid", pid, (n_e,)), ("co", co, (n_e,)),
+                           ("bank", bank, (bank.shape[0], l))):
+        if (t.dtype != torch.int32 or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: contiguous int32 {shape} on {dev}")
+    if not 0 < k2 <= k or cc < 1 or n_s < 0:
+        raise ValueError(f"k2={k2} (K={k}), cc={cc}, n_s={n_s}")
+    out = torch.empty((n_s, l, cc), dtype=torch.float32, device=dev)
+    if n_s == 0:
+        return out
+    tc = min(cc, _TILE)
+    tr = max(1, min(l, _TILE // tc))
+    _launch("densify_reduce_list", vals.data_ptr(), cols.data_ptr(), p1, l,
+            k, k2, row_ptr.data_ptr(), n_s, pid.data_ptr(), co.data_ptr(),
+            bank.data_ptr(), bank.shape[0], dump, cc, tr, tc, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

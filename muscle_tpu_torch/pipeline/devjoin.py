@@ -1,6 +1,6 @@
-"""Device-side profile-pair alignment for refinement iterations.
+"""Device-side profile-pair alignment: refinement joins and PProg joins.
 
-Torch port of muscle_tpu.pipeline.devjoin (the grid joiner). The
+Torch port of muscle_tpu.pipeline.devjoin. The
 reference's RefineIter (src/refineflat.cpp:4-31) re-aligns two random
 halves of the MSA 100 times; each iteration's BuildPost
 (src/buildpostflat.cpp:18-106) walks every (row in half 1, row in
@@ -21,6 +21,11 @@ stays on the device and each join is:
      giving 2-bit direction codes packed 16 to an int32 and the row-end
      scores.
 
+PProg's profile-profile joins (Super4/5) run the same two steps on a
+LIST of sampled pairs instead of a grid (`align_sampled_device`): kernel
+7L (ops/devjoin_cuda.densify_reduce_list) sums each sampled msa1 row's
+pairs, each mapped through its own msa2 row's pos->col map.
+
 Only the packed directions and one score leave the device; the
 O(cc1 + cc2) traceback walk stays on the host. The grids are sized to
 the real n1 x n2 rows and cc1, cc2 columns: the DP is a prefix
@@ -37,11 +42,36 @@ import numpy as np
 import torch
 
 from ..ops.consistency import _tf32_off
-from ..ops.devjoin_cuda import densify_reduce, mea_dirs
+from ..ops.devjoin_cuda import densify_reduce, densify_reduce_list, mea_dirs
 from ..sequence import MultiSequence
 
 # bound on the f32 bytes of one wave of F rows plus their one-hot rows
 _WAVE_BYTES = 1 << 30
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _pow2_rung(x: int, lo: int = 16) -> int:
+    """Power-of-two padding rung of the JAX package's joiners (it pads
+    row counts onto few compile shapes). The port sizes its tensors to
+    the real counts; the rung survives in the memory guard below, which
+    must decide as JAX does."""
+    r = lo
+    while r < x:
+        r *= 2
+    return r
+
+
+def _cc_rung(x: int) -> int:
+    """Column-count padding on the bucket ladder (the JAX package's; see
+    _pow2_rung)."""
+    from .posteriors import BUCKET_LADDER
+    for b in BUCKET_LADDER:
+        if b >= x:
+            return b
+    return _round_up(x, 1024)
 
 
 class DeviceJoiner:
@@ -141,3 +171,75 @@ def _walk(packed: np.ndarray, cc1: int, cc2: int) -> str:
                 j -= 1
     path.reverse()
     return "".join(path)
+
+
+# memory guard of the list variant, decided on the JAX package's padded
+# F (n1p, L, ccp) f32: beyond it PProg joins on the host instead
+_LIST_F_BUDGET = 2 << 30
+
+
+def align_sampled_device(store_v, store_c, sampled, msa1, msa2,
+                         max_nnz: int, row_offset: int = 0):
+    """(score, path) for a PProg profile-profile join from a device
+    store of SAMPLED row pairs: store row row_offset + k holds the
+    posterior of (msa1 row sampled[k][0], msa2 row sampled[k][1]) in
+    that orientation (row_offset lets a grouped store serve several
+    joins). Only packed 2-bit directions and one score leave the device.
+
+    Returns None when the JAX package's padded accumulator would pass
+    _LIST_F_BUDGET: that is its routing to the host CSR join, decided
+    here on its padded sizes so that the port routes every join as it
+    does. The port's own F is sized to the sampled rows and the real
+    columns."""
+    cc1 = msa1.col_count()
+    cc2 = msa2.col_count()
+    l = store_v.shape[1]
+    k2 = min(store_v.shape[2], max(8, -(-int(max_nnz) // 8) * 8))
+    ccp = _cc_rung(max(cc1, cc2, 16))
+
+    # row-owners: the sampled msa1 rows, compacted; col-owners likewise
+    rows1 = sorted({i for i, _ in sampled})
+    rows2 = sorted({j for _, j in sampled})
+    if _pow2_rung(len(rows1), 128) * l * ccp * 4 > _LIST_F_BUDGET:
+        return None
+    r1_of = {r: i for i, r in enumerate(rows1)}
+    r2_of = {r: i for i, r in enumerate(rows2)}
+    ro = np.array([r1_of[i] for i, _ in sampled], np.int64)
+    # each owner's entries as one run, in sampled order within the run
+    # (JAX's scatter-add order)
+    order = np.argsort(ro, kind="stable")
+    pid = (row_offset + order).astype(np.int32)
+    co = np.array([r2_of[sampled[k][1]] for k in order], np.int32)
+    row_ptr = np.zeros(len(rows1) + 1, np.int32)
+    np.cumsum(np.bincount(ro, minlength=len(rows1)), out=row_ptr[1:])
+
+    rbank = np.zeros((len(rows1), l), np.int32)
+    for i, r in enumerate(rows1):
+        p = msa1[r].pos_to_col()
+        rbank[i, :len(p)] = p
+    cbank = np.zeros((len(rows2), l), np.int32)
+    for i, r in enumerate(rows2):
+        p = msa2[r].pos_to_col()
+        cbank[i, :len(p)] = p
+
+    dev = store_v.device
+    sv, sc = store_v.contiguous(), store_c.contiguous()
+    dump = sv.shape[0] - 1
+    rp = torch.as_tensor(row_ptr, device=dev)
+    pid_t = torch.as_tensor(pid, device=dev)
+    co_t = torch.as_tensor(co, device=dev)
+    cb = torch.as_tensor(cbank, device=dev)
+    post = torch.zeros((cc1, cc2), dtype=torch.float32, device=dev)
+    w = max(1, _WAVE_BYTES // (4 * l * (cc1 + cc2)))
+    for lo in range(0, len(rows1), w):
+        hi = min(lo + w, len(rows1))
+        f = densify_reduce_list(sv, sc, k2, rp[lo:hi + 1], pid_t, co_t, cb,
+                                dump, cc2)
+        a = torch.nn.functional.one_hot(
+            torch.as_tensor(rbank[lo:hi], device=dev).long(),
+            cc1).to(torch.float32)
+        with _tf32_off():
+            post += a.reshape(-1, cc1).T @ f.reshape(-1, cc2)
+    packed, scores = mea_dirs(post)
+    score = float(scores[cc1 - 1]) if cc1 else 0.0
+    return score, _walk(packed.cpu().numpy(), cc1, cc2)

@@ -152,7 +152,7 @@ def test_new_kernel_build_flags(monkeypatch):
     monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
     specs = densify_cuda.kernel_specs() + devjoin_cuda.kernel_specs()
     assert [s.name for s in specs] == ["densify", "densify_reduce",
-                                       "mea_dirs"]
+                                       "densify_reduce_list", "mea_dirs"]
     for spec in specs:
         assert "arch=compute_90a,code=sm_90a" in spec.flags
         assert "-fmad=false" in spec.flags
@@ -175,6 +175,11 @@ def test_new_kernels_on_cpu_run_plain_versions_and_count_nothing():
     assert f.shape == (2, 16, 20)
     packed, scores = djc.mea_dirs(torch.rand(5, 40))
     assert packed.shape == (5, 3) and scores.shape == (5,)
+    f = djc.densify_reduce_list(v, c, 8, torch.tensor([0, 2, 3], dtype=torch.int32),
+                                torch.tensor([0, 6, 3], dtype=torch.int32),
+                                torch.tensor([1, 0, 2], dtype=torch.int32),
+                                bank, 6, 20)
+    assert f.shape == (2, 16, 20)
     assert (dict(dc.LAUNCHES), dict(djc.LAUNCHES)) == before
 
 
@@ -222,6 +227,89 @@ def test_densify_reduce_kernel_matches_plain(cuda_device, l, cc):
                                     p1 - 1, cc)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,cc", [(384, 600), (128, 13000)],
+                         ids=["one-column-tile", "column-tiles"])
+def test_densify_reduce_list_kernel_matches_plain(cuda_device, l, cc):
+    """Kernel 7L against its plain version, bit for bit: owners with no
+    entry, dump and out-of-range entries, and (at cc = 13000) a
+    boundary between column tiles."""
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    rng = np.random.default_rng(5)
+    k, k2, n_s, n2, p1, n_e = 16, 8, 12, 7, 90, 200
+    vals, cols = _store(rng, p1, l, k)
+    owner = np.sort(rng.integers(0, n_s, n_e))
+    owner[owner == 3] = 4
+    pid = rng.integers(0, p1 - 1, n_e).astype(np.int32)
+    pid[rng.random(n_e) < 0.1] = p1 - 1
+    pid[5] = p1 + 3
+    co = rng.integers(0, n2, n_e).astype(np.int32)
+    row_ptr = np.zeros(n_s + 1, np.int32)
+    np.cumsum(np.bincount(owner, minlength=n_s), out=row_ptr[1:])
+    bank = np.stack([np.sort(rng.choice(cc, l, replace=False))
+                     for _ in range(n2)]).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (vals, cols, row_ptr, pid, co, bank)]
+    before = djc.LAUNCHES["densify_reduce_list"]
+    got = djc.densify_reduce_list(args[0], args[1], k2, *args[2:], p1 - 1, cc)
+    want = djc.densify_reduce_list_plain(args[0], args[1], k2, *args[2:],
+                                         p1 - 1, cc)
+    torch.cuda.synchronize()
+    assert djc.LAUNCHES["densify_reduce_list"] == before + 1
+    assert torch.equal(got, want)
+    assert not got[3].any()
+
+
+def _super5_set(seed=5):
+    """3 families x 8 proteins of 60-90 aa, 2 duplicates and 3
+    single-substitution near-duplicates (tests/test_torch_pprog.py)."""
+    from muscle_tpu_torch import MultiSequence, Sequence
+    aas = "ARNDCQEGHILKMFPSTWYV"
+    rng = np.random.default_rng(seed)
+    rows = []
+    for f in range(3):
+        base = rng.integers(0, 20, size=90)
+        for i in range(8):
+            ln = int(rng.integers(60, 91))
+            mut = base[:ln].copy()
+            pos = rng.integers(0, ln, size=int(rng.integers(ln // 10,
+                                                            ln // 3)))
+            mut[pos] = rng.integers(0, 20, size=len(pos))
+            rows.append((f"f{f}s{i}", "".join(aas[c] for c in mut)))
+    for d in range(2):
+        rows.append((f"dup{d}", rows[3 * d + 1][1]))
+    for d in range(3):
+        s = rows[5 * d + 2][1]
+        p = int(rng.integers(0, len(s)))
+        rows.append((f"near{d}", s[:p] + aas[(aas.index(s[p]) + 1) % 20]
+                     + s[p + 1:]))
+    return MultiSequence([Sequence(lb, t) for lb, t in rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("joins", ["host", "device"])
+def test_super5_on_card_matches_cpu(cuda_device, joins):
+    """super5 of the small synthetic set on the card gives the CPU's
+    alignment, with the default joins and with every PProg and refine
+    join forced to the device (kernel 7L, kernel 7, mea_dirs)."""
+    from muscle_tpu_torch import super5
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    from muscle_tpu_torch.pipeline import mpc, pprog
+    seqs = _super5_set()
+    saved = (pprog.DEVICE_JOIN_N, mpc.DEVICE_REFINE_N)
+    if joins == "device":
+        pprog.DEVICE_JOIN_N, mpc.DEVICE_REFINE_N = 1, 1
+    try:
+        cpu = super5(seqs, refine_iters=2, device="cpu")
+        before = djc.LAUNCHES["densify_reduce_list"]
+        card = super5(seqs, refine_iters=2, device=cuda_device)
+        launched = djc.LAUNCHES["densify_reduce_list"] - before
+    finally:
+        pprog.DEVICE_JOIN_N, mpc.DEVICE_REFINE_N = saved
+    assert card.to_fasta_text() == cpu.to_fasta_text()
+    assert (launched > 0) == (joins == "device")
 
 
 @pytest.mark.cuda

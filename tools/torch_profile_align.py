@@ -2,6 +2,7 @@
 
     python tools/torch_profile_align.py [--n 32 --lo 400 --hi 512]
                                         [--long mixed|pair]
+                                        [--super5 synthetic|rdrp16]
                                         [--trace build/align_trace.json]
 
 Aligns a synthetic family of chip_smoke.py (n mutated copies of one
@@ -11,9 +12,13 @@ device refine), or with --long one of its long families ("mixed": six
 proteins of 8,700-11,000 residues on kernels A/B and the striped
 kernels, refine cut as chip_smoke.py cuts it; "pair": two ~19 kb
 nucleotide sequences on the striped kernels), once to warm up, then
-once under the profiler. Prints the device kernels by total time, the
-device busy time (the union of kernel intervals), the wall of the
-profiled call and the device's idle share of it. Needs a CUDA device.
+once under the profiler. With --super5 it runs `muscle_tpu_torch.super5`
+once on chip_smoke.py's synthetic-1000 set or on the degapped rdrp-16
+golden instead, after building every kernel, tracing the device only
+(the host side of a Super5 run is millions of small operations).
+Prints the device kernels by total time, the device busy time (the
+union of kernel intervals), the wall of the profiled call and the
+device's idle share of it. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ def main() -> int:
     ap.add_argument("--hi", type=int, default=512, help="longest length")
     ap.add_argument("--long", choices=("mixed", "pair"), default=None,
                     help="one of chip_smoke.py's long families instead")
+    ap.add_argument("--super5", choices=("synthetic", "rdrp16"),
+                    default=None, help="profile super5() on one of "
+                    "chip_smoke.py's Super5 sets instead")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
     args = ap.parse_args()
@@ -65,25 +73,37 @@ def main() -> int:
 
     print(cs.card_line())
     opts = {}
-    if args.long == "mixed":
+    run = align
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if args.super5:
+        from muscle_tpu_torch import MultiSequence, super5
+        from muscle_tpu_torch.utils.build import build_all
+        build_all()
+        run = super5
+        activities = [ProfilerActivity.CUDA]
+        seqs = (cs.super5_set() if args.super5 == "synthetic" else
+                MultiSequence.from_fasta(os.path.join(ROOT, cs.RDRP16),
+                                         strip_gaps=True))
+    elif args.long == "mixed":
         seqs = cs.family_of_lengths(cs.LONG_MIXED, b"ARNDCQEGHILKMFPSTWYV", 6)
         opts["refine_iters"] = cs.LONG_MIXED_REFINE_ITERS
     elif args.long == "pair":
         seqs = cs.family_of_lengths(cs.LONG_PAIR, b"ACGT", 2)
     else:
         seqs = cs.synthetic_family(args.n, args.lo, args.hi, seed=args.n)
-    align(seqs, device="cuda", **opts)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    if not args.super5:
         align(seqs, device="cuda", **opts)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run(seqs, device="cuda", **opts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=30))
     busy = busy_us(prof.events()) / 1e6
-    print(f"profiled align wall {wall:.4f} s, device busy {busy:.4f} s, "
+    print(f"profiled {run.__name__} wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s, "
           f"idle share {1 - busy / wall:.4f}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
