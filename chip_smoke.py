@@ -26,7 +26,16 @@ Phases (each raises on failure, so the run exits non-zero):
    on one stripe of the 19000 x 18900 nt pair); then densify-reduce's
    list variant (kernel 7L) on 2,000 pairs sampled from a 128 x 128-row
    join over a random store (L = 384, k2 = 24, cc = 600), required
-   equal;
+   equal; then the Muscle-3D kernels (ops/pairhmm_emis_cuda.py), each
+   required equal to its plain version: 1E and 2E at mega-128's bucket
+   (256 pairs at 384), and on a letter lattice equal to kernels A/B; 1E,
+   3 and 4 on mega-long's chunk (8 x 12288², S = 6: 1E's first 128 rows
+   of each pair against the plain version on those rows, 3's rows u <
+   128 against the plain version on each pair's last 128 rows of x and
+   its rows u >= lx against zero, 4 on the whole posterior); their ptxas
+   registers and spills
+   and their times at those shapes; the fused route against the legacy
+   route on 8 mega pairs at 2048, at the kernel gate;
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
@@ -65,10 +74,23 @@ Phases (each raises on failure, so the run exits non-zero):
      (max |d| = 0) and timed there, the checks' time and memory kept
      out of the walls and the peak; stage walls, peak device memory,
      the run's counts and launches printed;
+   - `align(seqs, mega=...)` on three synthetic 8-feature `.mega` sets
+     built from a seed by tests/mega_synth.py, written and parsed
+     through the port (mega_set):
+     mega-8 (dense, kernels 1E/2E; required column-identical to the
+     port's CPU alignment of the same file), mega-128 (sparse store,
+     bf16 Gram, device refine), mega-long (4 chains of 8,300-9,800
+     residues, pad 12288: the legacy route, kernels 1E/3/4, refine cut to
+     MEGA_LONG_REFINE_ITERS; each launch of 1E, 3 and 4 held, as it
+     happens, to the plain versions on its own inputs as in phase 2, the
+     checks' time and memory kept out of the wall and the peak), each
+     route counted and required, Q against the construction's true
+     alignment printed;
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
 5. print the kernels' JSON line (launch counts summed over phase 3;
-   kernel 7L's times and bound at synthetic-1000's largest device join),
+   kernel 7L's times and bound at synthetic-1000's largest device join;
+   each max |d| over phase 2 and the launches held in phase 3),
    then the card line and the final {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -76,6 +98,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -103,6 +126,10 @@ PEAK_F32_OPS_PER_S = 67e12
 # the MEA row (add, 2 max = 3): 146.
 FWD_OPS_PER_CELL = 130
 BWD_POST_OPS_PER_CELL = 146
+# the legacy backward alone (kernel 3): 138; the MEA row scan (kernel 4):
+# an add, the max with the old cell, the clamp at 0 and the running max
+BWD_OPS_PER_CELL = 138
+MEA_OPS_PER_CELL = 4
 
 FAMILIES = ([(f"BB1100{k}", f"tests/goldens/BB1100{k}.seq.afa", True,
               f"tests/goldens/BB1100{k}.seq.afa") for k in (1, 2, 4, 5, 6, 7, 9)]
@@ -257,9 +284,11 @@ def ptxas_lines(names) -> list[str]:
     """Registers and spills of each kernel instantiation of the libraries
     `names`, from the ptxas report kept in their build logs."""
     import re
-    from muscle_tpu_torch.ops import pairhmm_cuda, pairhmm_striped
+    from muscle_tpu_torch.ops import (pairhmm_cuda, pairhmm_emis_cuda,
+                                      pairhmm_striped)
     from muscle_tpu_torch.utils.build import build_log
-    specs = pairhmm_cuda.kernel_specs() + pairhmm_striped.kernel_specs()
+    specs = (pairhmm_cuda.kernel_specs() + pairhmm_striped.kernel_specs()
+             + pairhmm_emis_cuda.kernel_specs())
     out = []
     for name in names:
         cur, spill = None, ""
@@ -267,9 +296,13 @@ def ptxas_lines(names) -> list[str]:
             m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
             if m:
                 cur = m.group(2)[:int(m.group(1))]
-                t = re.match(r"ILi(\d+)E", m.group(2)[int(m.group(1)):])
+                rest = m.group(2)[int(m.group(1)):]
+                t = re.match(r"ILi(\d+)E", rest)
                 if t:
-                    cur += f"<S={t.group(1)}>"
+                    arg = "S" if cur.startswith("pairhmm") else "UNITS"
+                    src = (", lattice" if "LatticeEmission" in rest else
+                           ", letters" if "CodeEmission" in rest else "")
+                    cur += f"<{arg}={t.group(1)}{src}>"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
@@ -851,8 +884,10 @@ MAIN_PATH: dict[str, int] = {}
 
 def _kernel_modules():
     from muscle_tpu_torch.ops import (densify_cuda, devjoin_cuda,
-                                      pairhmm_cuda, pairhmm_striped)
-    return (pairhmm_cuda, pairhmm_striped, densify_cuda, devjoin_cuda)
+                                      pairhmm_cuda, pairhmm_emis_cuda,
+                                      pairhmm_striped)
+    return (pairhmm_cuda, pairhmm_striped, densify_cuda, devjoin_cuda,
+            pairhmm_emis_cuda)
 
 
 def reset_launches():
@@ -1304,6 +1339,488 @@ def phase_super5(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Muscle-3D: `-align` on `.mega` structure profiles
+# ---------------------------------------------------------------------------
+
+# the mega families of phase 3 (n, shortest, longest chain, seed): mega-8
+# (dense branch, host refine, kernels 1E/2E), mega-128 (the sparse store,
+# bf16 Gram consistency, device refine), mega-long (the legacy route,
+# kernels 1E/3/4, at pad 12288; f32 Gram consistency, host refine)
+MEGA_8 = (8, 250, 450, 8)
+MEGA_128 = (128, 300, 380, 128)
+MEGA_LONG = (4, 8300, 9800, 4)
+# their pads (the bucket ladder's), and the width at which the fused and
+# the legacy routes are held against each other
+MEGA_128_PAD, MEGA_LONG_PAD, ROUTES_PAD = 384, 12288, 2048
+# host refine of mega-long, cut as "long mixed"'s: a join of ~9,000-column
+# profiles costs ~0.35 s on the host
+MEGA_LONG_REFINE_ITERS = 20
+
+
+def mega_set(n, lo, hi, seed):
+    """A `.mega` set built from a seed by tests/mega_synth.py (8 features,
+    the reference files' width; chains mutated copies of a random root:
+    1-4 indels of 1-5 positions, a truncation to lo..hi, 12 % of each
+    feature's letters substituted), parsed, then written and parsed again
+    through the port's write_mega / parse_mega (under build/chip_smoke/).
+    Returns (MegaProfileSet, each chain's root positions (-1 where
+    inserted): the true alignment)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from mega_synth import chains, mega_text
+    from muscle_tpu_torch.io.mega import parse_mega, write_mega
+    base = os.path.join(ROOT, "build", "chip_smoke", f"mega-{n}-{seed}")
+    os.makedirs(os.path.dirname(base), exist_ok=True)
+    with open(base + ".txt.mega", "w") as f:
+        f.write(mega_text(n, lo, hi, seed))
+    write_mega(parse_mega(base + ".txt.mega"), base + ".mega")
+    return parse_mega(base + ".mega"), chains(n, lo, hi, seed)[1]
+
+
+def mega_seqs(ms):
+    from muscle_tpu_torch import MultiSequence, Sequence
+    return MultiSequence([Sequence(lb, s) for lb, s in zip(ms.labels, ms.seqs)])
+
+
+def q_true(msa, labels, origins) -> float:
+    """Q against the construction's true alignment: the fraction of the
+    residue pairs that share a root position which the alignment puts in
+    one column."""
+    col = {}
+    for s in msa:
+        t = np.frombuffer(s.text().encode(), np.uint8)
+        col[s.label] = np.flatnonzero(t != ord("-"))
+    hit = total = 0
+    for a in range(len(labels)):
+        for b in range(a + 1, len(labels)):
+            oa, ob = origins[a], origins[b]
+            common, ia, ib = np.intersect1d(oa[oa >= 0], ob[ob >= 0],
+                                            return_indices=True)
+            ia = np.flatnonzero(oa >= 0)[ia]
+            ib = np.flatnonzero(ob >= 0)[ib]
+            hit += int((col[labels[a]][ia] == col[labels[b]][ib]).sum())
+            total += len(common)
+    return hit / max(total, 1)
+
+
+def mega_batch(ms, pairs, width, dev, x_rows=None):
+    """Emission lattice (B, x_rows or width, width), insert scores and
+    lengths of `pairs` of `ms`, on the card (ops/emissions.py)."""
+    import torch
+    from muscle_tpu_torch.ops import emissions as em
+    prof = torch.as_tensor(em.pad_profiles(ms.profiles, width), device=dev)
+    lens = np.array([p.shape[0] for p in ms.profiles], np.int32)
+    xi = torch.as_tensor([p[0] for p in pairs], device=dev)
+    yi = torch.as_tensor([p[1] for p in pairs], device=dev)
+    rows = x_rows or width
+    w, lp, lpm = em.mega_feature_arrays(ms, dev)
+    px, py = prof[xi, :rows], prof[yi]
+    lx = np.minimum(lens[[p[0] for p in pairs]], rows).astype(np.int32)
+    ly = lens[[p[1] for p in pairs]]
+    return (em.mega_emission_matrix(px, py, w, lpm).contiguous(),
+            em.mega_insert_scores(px, w, lp).contiguous(),
+            em.mega_insert_scores(py, w, lp).contiguous(),
+            torch.as_tensor(lx, device=dev), torch.as_tensor(ly, device=dev))
+
+
+def gate(post_ref, ea_ref, post, ea):
+    """The kernel gate (tests/test_pallas_fused.py:62-69): (posterior
+    max |d| ignoring cells that flip at the 0.01 threshold, EA max |d|)."""
+    import torch
+    d = (post - post_ref).abs()
+    flip = ((post == 0) | (post_ref == 0)) & \
+        (torch.maximum(post, post_ref) <= 0.0102)
+    return float(d.where(~flip, 0.0).max()), float((ea - ea_ref).abs().max())
+
+
+# rows of each full-shape launch of kernels 1E and 3 held to the plain
+# versions: the plain versions' Python row loop takes ~40 ms a row at
+# Ly 12288, minutes for a whole pair
+HELD_ROWS = 128
+
+
+def head_rows(args, r):
+    """The inputs cut to the first r rows of x (lx = r): forward rows
+    i < r read x positions 0..i only."""
+    import torch
+    e, ins_x, ins_y, lx, ly, params = args
+    return (e[:, :r].contiguous(), ins_x[:, :r].contiguous(), ins_y,
+            torch.full_like(lx, r), ly, params)
+
+
+def tail_rows(args, r):
+    """The inputs cut to the last r real rows of x of each pair (lx = r):
+    kernel 3's rows u < r read x positions lx-r..lx-1 only (row u reads
+    lx-u)."""
+    import torch
+    e, ins_x, ins_y, lx, ly, params = args
+    if int(lx.min()) < r:
+        raise SmokeFailure(f"tail_rows: a pair has fewer than {r} rows")
+    ar = torch.arange(e.shape[0], device=e.device)[:, None]
+    idx = lx.long()[:, None] - r + torch.arange(r, device=e.device)[None, :]
+    return (e[ar, idx].contiguous(), ins_x[ar, idx].contiguous(), ins_y,
+            torch.full_like(lx, r), ly, params)
+
+
+def hold_fwd(args, fm, r=HELD_ROWS):
+    """A launch of kernel 1E on `args` held to the plain version: max |d|
+    of its rows < r against fwd_emis_plain on the first r rows, and the
+    plain version's ms."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    head = head_rows(args, r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, _ = pe.fwd_emis_plain(*head)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return float((fm[:, :r] - want).abs().max()), ms
+
+
+def hold_bwd(args, rb, r=HELD_ROWS):
+    """A launch of kernel 3 on `args` held to the plain version: max |d|
+    of its rows u < r against bwd_plain on each pair's last r rows, and
+    of its rows u >= lx against 0; the plain version's ms."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    tail = tail_rows(args, r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pe.bwd_plain(*tail)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    d = float((rb[:, :r] - want).abs().max())
+    for k, lx in enumerate(args[3].tolist()):
+        d = max(d, float(rb[k, lx:].abs().max()) if lx < rb.shape[1] else 0.0)
+    return d, ms
+
+
+class LegacyKernelCheck:
+    """Stands in for kernels 1E, 3 and 4's wrappers in the legacy route
+    while mega-long runs: each launch of the main path (counted as any
+    other) is held, as it happens, to the plain versions on its own
+    inputs (hold_fwd, hold_bwd, and mea_scores_plain on the whole
+    posterior). The seconds and device memory the checks take are kept
+    out of the run's wall, its posteriors stage and its peak."""
+
+    NAMES = ("pairhmm_fwd_emis", "pairhmm_bwd", "mea_scores")
+
+    def __init__(self):
+        self.errs = {k: [] for k in self.NAMES}
+        self.seconds = 0.0
+        self.peak = 0
+        self.saved = {}
+
+    def _held(self, name, check):
+        import torch
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        self.errs[name].append(check())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.seconds += time.perf_counter() - t0
+
+    def fwd(self, *args):
+        fm, fend = self.saved["pairhmm_fwd_emis"](*args)
+        self._held("pairhmm_fwd_emis", lambda: hold_fwd(args, fm)[0])
+        return fm, fend
+
+    def bwd(self, *args):
+        rb = self.saved["pairhmm_bwd"](*args)
+        self._held("pairhmm_bwd", lambda: hold_bwd(args, rb)[0])
+        return rb
+
+    def mea(self, post, lxb):
+        from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+        got = self.saved["mea_scores"](post, lxb)
+        self._held("mea_scores", lambda: float(
+            (got - pe.mea_scores_plain(post)).abs().max()))
+        return got
+
+    def __enter__(self):
+        from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+        self.saved = {k: getattr(pe, k) for k in self.NAMES}
+        pe.pairhmm_fwd_emis, pe.pairhmm_bwd, pe.mea_scores = \
+            self.fwd, self.bwd, self.mea
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+        for k, fn in self.saved.items():
+            setattr(pe, k, fn)
+
+
+def phase_mega_kernels(dev, sets) -> list[dict]:
+    """Kernels 1E, 2E, 3 and 4 against their plain versions (equal
+    required): 1E and 2E at mega-128's bucket shape (256 pairs at 384),
+    and fed a letter lattice against kernels A and B; 3 and 4 at
+    mega-long's (8 pairs at 12288, the main path's chunk; the full-shape
+    launches of 1E and 3 held on HELD_ROWS rows of each pair, hold_fwd and
+    hold_bwd); the fused route
+    against the legacy route on 8 mega pairs at 2048. Times (CUDA
+    events), bounds and ptxas's registers and spills."""
+    import torch
+    from muscle_tpu_torch.hmm.params import HMMParams
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+
+    for line in ptxas_lines(["pairhmm_fwd_emis", "pairhmm_bwd_post_emis",
+                             "pairhmm_bwd", "mea_scores"]):
+        print(f"ptxas: {line}", flush=True)
+    pack = HMMParams.from_defaults(nucleo=False).to_scores()
+    params = pc.params_vec(pack, dev)
+    out = {}
+
+    def cells_of(lx, ly):
+        return float((lx.long() * ly.long()).sum())
+
+    def valid_rows(t, lx):
+        rows = torch.arange(t.shape[1], device=dev)[None, :, None]
+        return t.where(rows < lx[:, None, None], 0.0)
+
+    # 1E and 2E at mega-128's bucket shape: its first 256 pairs at 384
+    ms128 = sets["mega-128"][0]
+    n128 = len(ms128.labels)
+    pairs = [(x, y) for x in range(n128) for y in range(x + 1, n128)][:256]
+    e, ins_x, ins_y, lx, ly = mega_batch(ms128, pairs, MEGA_128_PAD, dev)
+    args = (e, ins_x, ins_y, lx, ly, params)
+    fm, fend = pe.pairhmm_fwd_emis(*args)
+    fm2, fend2 = pe.fwd_emis_plain(*args)
+    d1 = max(float((valid_rows(fm, lx) - valid_rows(fm2, lx)).abs().max()),
+             float((fend - fend2).abs().max()))
+    tot = pc._total_prob(fend, params)
+    post, mea = pe.pairhmm_bwd_post_emis(*args, tot, fm)
+    post2, mea2 = pe.bwd_post_emis_plain(*args, tot, fm)
+    torch.cuda.synchronize()
+    d2 = max(float((post - post2).abs().max()), float((mea - mea2).abs().max()))
+    print(f"kernel 1E pairhmm_fwd_emis vs plain at mega-128's bucket (256 "
+          f"pairs, 384 x 384): max |d| {d1:.3e} "
+          f"{'equal' if d1 == 0 else 'FAIL'}; kernel 2E pairhmm_bwd_post_emis "
+          f"vs plain: max |d| {d2:.3e} {'equal' if d2 == 0 else 'FAIL'}",
+          flush=True)
+    if d1 or d2:
+        raise SmokeFailure("kernel 1E or 2E differs from its plain version")
+    ms1 = time_cuda(lambda: pe.pairhmm_fwd_emis(*args))
+    ms2 = time_cuda(lambda: pe.pairhmm_bwd_post_emis(*args, tot, fm))
+    plain1 = time_cuda(lambda: pe.fwd_emis_plain(*args), reps=3)
+    plain2 = time_cuda(lambda: pe.bwd_post_emis_plain(*args, tot, fm), reps=3)
+    cells = cells_of(lx, ly)
+    b = len(pairs)
+    # 1E: the lattice's real cells, insert scores, lengths and params in;
+    # the M lattice's real cells and the final states out. 2E: the
+    # lattice's and the M lattice's real cells, insert scores, lengths,
+    # totals in; the dense posterior and the MEA scores out
+    ins_bytes = 4 * (float(lx.sum()) + float(ly.sum()) + 2 * b + 16)
+    bnd1 = bound_ms(ins_bytes + 8 * cells + 20 * b, cells * FWD_OPS_PER_CELL)
+    bnd2 = bound_ms(ins_bytes + 8 * cells + 4 * b + 4 * e.numel() + 4 * b,
+                    cells * BWD_POST_OPS_PER_CELL)
+    print(f"kernel 1E {ms1:.3f} ms (plain {plain1:.1f} ms, bound "
+          f"{bnd1[0]:.4f} ms by {bnd1[1]}); kernel 2E {ms2:.3f} ms (plain "
+          f"{plain2:.1f} ms, bound {bnd2[0]:.4f} ms by {bnd2[1]}); {b} pairs, "
+          f"{cells:.0f} real cells", flush=True)
+    out["pairhmm_fwd_emis"] = (d1, ms1, plain1, bnd1,
+                               "muscle_tpu_torch/csrc/pairhmm_fwd_emis.cu",
+                               "muscle_tpu/ops/pairhmm_pallas.py:304")
+    out["pairhmm_bwd_post_emis"] = (
+        d2, ms2, plain2, bnd2, "muscle_tpu_torch/csrc/pairhmm_bwd_post_emis.cu",
+        "muscle_tpu/ops/pairhmm_pallas.py:565")
+    del e, ins_x, ins_y, args, fm, fm2, post, post2
+
+    # fed the letter lattice match[x_i, y_j]: 1E = kernel A, 2E = kernel B
+    xb, yb, lxn, lyn = ragged_batch(256, MEGA_128_PAD // 3, MEGA_128_PAD,
+                                    MEGA_128_PAD, seed=384)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(dev) for a in (xb, yb, lxn, lyn))
+    match, insert, _ = pc.tables(pack, dev)
+    fma, fenda = pc.pairhmm_fwd(x, y, lxt, lyt, match, insert, params)
+    tota = pc._total_prob(fenda, params)
+    posta, meaa = pc.pairhmm_bwd_post(x, y, lxt, lyt, match, insert, params,
+                                      tota, fma)
+    el = match[x.long()[:, :, None], y.long()[:, None, :]].contiguous()
+    largs = (el, insert[x.long()].contiguous(), insert[y.long()].contiguous(),
+             lxt, lyt, params)
+    fme, fende = pe.pairhmm_fwd_emis(*largs)
+    poste, meae = pe.pairhmm_bwd_post_emis(*largs, tota, fma)
+    torch.cuda.synchronize()
+    same = (torch.equal(valid_rows(fma, lxt), valid_rows(fme, lxt))
+            and torch.equal(fenda, fende) and torch.equal(posta, poste)
+            and torch.equal(meaa, meae))
+    print(f"kernels 1E/2E on the letter lattice match[x_i, y_j] (256 amino "
+          f"pairs, 384 x 384) vs kernels A/B: "
+          f"{'equal' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise SmokeFailure("kernels 1E/2E differ from kernels A/B on a "
+                           "letter lattice")
+    del el, largs, fma, fme, posta, poste
+
+    # 3 and 4 at mega-long's shape: its 6 pairs and 2 copies of the first
+    # (the main path's chunk), 8 x 12288 x 12288
+    msl = sets["mega-long"][0]
+    nl = len(msl.labels)
+    pairs = [(x, y) for x in range(nl) for y in range(x + 1, nl)]
+    pairs += [pairs[0]] * (8 - len(pairs))
+    largs = mega_batch(msl, pairs, MEGA_LONG_PAD, dev) + (params,)
+    lx, ly = largs[3], largs[4]
+    cells = cells_of(lx, ly)
+    # the full-shape launches held to the plain versions (hold_fwd,
+    # hold_bwd: the first / last HELD_ROWS rows of each pair), kernel 4's
+    # on the whole posterior
+    fm, fend = pe.pairhmm_fwd_emis(*largs)
+    d1s, _ = hold_fwd(largs, fm)
+    out["pairhmm_fwd_emis"] = (max(d1, d1s),) + out["pairhmm_fwd_emis"][1:]
+    rb = pe.pairhmm_bwd(*largs)
+    d3, plain3 = hold_bwd(largs, rb)
+    print(f"kernels 1E and 3 (pairhmm_bwd) vs plain on mega-long's pairs at "
+          f"8 x 12288 x 12288 (S = 6), lx {int(lx.min())}-{int(lx.max())}: "
+          f"1E's first {HELD_ROWS} rows max |d| {d1s:.3e}; 3's rows u < "
+          f"{HELD_ROWS} (each pair's last {HELD_ROWS} rows of x) and rows "
+          f"u >= lx (zero) max |d| {d3:.3e} "
+          f"{'equal' if d1s == d3 == 0 else 'FAIL'}", flush=True)
+    if d1s or d3:
+        raise SmokeFailure("kernel 1E or 3 differs from its plain version "
+                           "at Ly = 12288")
+    ms1l = time_cuda(lambda: pe.pairhmm_fwd_emis(*largs), reps=3)
+    ms3 = time_cuda(lambda: pe.pairhmm_bwd(*largs), reps=3)
+    post = pe.finish_posteriors(fm, rb, fend, lx, ly, params)
+    del rb
+    got = pe.mea_scores(post, lx)
+    want = pe.mea_scores_plain(post)
+    torch.cuda.synchronize()
+    d4 = float((got - want).abs().max())
+    ms4 = time_cuda(lambda: pe.mea_scores(post, lx))
+    plain4 = time_cuda(lambda: pe.mea_scores_plain(post), reps=3)
+    ins_bytes = 4 * (float(lx.sum()) + float(ly.sum()) + 2 * 8 + 16)
+    bnd3 = bound_ms(ins_bytes + 8 * cells, cells * BWD_OPS_PER_CELL)
+    bnd4 = bound_ms(4 * cells + 4 * 8 + 4 * 8, cells * MEA_OPS_PER_CELL)
+    bnd1l = bound_ms(ins_bytes + 8 * cells + 20 * 8, cells * FWD_OPS_PER_CELL)
+    print(f"kernel 4 (mea_scores) vs plain on mega-long's posteriors (8 x "
+          f"12288 x 12288): max |d| {d4:.3e} {'equal' if d4 == 0 else 'FAIL'}",
+          flush=True)
+    print(f"at mega-long's shape ({cells:.0f} real cells): kernel 1E "
+          f"{ms1l:.3f} ms (bound {bnd1l[0]:.4f} ms by {bnd1l[1]}), kernel 3 "
+          f"{ms3:.3f} ms (plain {plain3:.1f} ms on {HELD_ROWS} rows, bound "
+          f"{bnd3[0]:.4f} ms by {bnd3[1]}), kernel 4 {ms4:.3f} ms (plain "
+          f"{plain4:.1f} ms, bound {bnd4[0]:.4f} ms by {bnd4[1]})", flush=True)
+    if d4:
+        raise SmokeFailure("kernel 4 differs from its plain version")
+    out["pairhmm_bwd"] = (d3, ms3, plain3, bnd3,
+                          "muscle_tpu_torch/csrc/pairhmm_bwd.cu",
+                          "muscle_tpu/ops/pairhmm_pallas.py:443")
+    out["mea_scores"] = (d4, ms4, plain4, bnd4,
+                         "muscle_tpu_torch/csrc/mea_scores.cu",
+                         "muscle_tpu/ops/pairhmm_pallas.py:875")
+    del largs, fm, post
+    torch.cuda.empty_cache()
+
+    # the two routes against each other: 8 mega-128 pairs at 2048 lanes
+    e, ins_x, ins_y, lx, ly = mega_batch(ms128, pairs_of(n128, 8), ROUTES_PAD,
+                                         dev)
+    args = (e, ins_x, ins_y, lx, ly, params)
+    post_f, ea_f = pe.emissions_path_fused(*args)
+    post_l, ea_l = pe.emissions_path_legacy(*args)
+    d_post, d_ea = gate(post_f, ea_f, post_l, ea_l)
+    ok = d_post < 2e-3 and d_ea < 2e-3
+    print(f"fused route (1E, 2E) vs legacy route (1E, 3, finish_posteriors, "
+          f"4) on 8 mega pairs at 2048: posterior {d_post:.3e} (flips "
+          f"ignored, tol 2e-3), EA {d_ea:.3e} (tol 2e-3) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SmokeFailure("the fused and legacy routes disagree")
+    del e, args, post_f, post_l
+    torch.cuda.empty_cache()
+    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+            for name, (err, ms, plain, bnd, src, rep) in out.items()]
+
+
+def pairs_of(n, count):
+    return [(x, y) for x in range(n) for y in range(x + 1, n)][:count]
+
+
+MEGA_KERNELS = ("pairhmm_fwd_emis", "pairhmm_bwd_post_emis")
+LEGACY_KERNELS = ("pairhmm_fwd_emis", "pairhmm_bwd", "mea_scores")
+
+
+def hold_legacy_launches(name, check, got) -> None:
+    """Raise unless every launch of kernels 1E, 3 and 4 in the run was
+    held (LegacyKernelCheck) and equal to the plain versions."""
+    for k, errs in check.errs.items():
+        print(f"{name}: kernel {k} launch(es) held to the plain version on "
+              f"their own inputs: max |d| {errs}", flush=True)
+        if len(errs) != got[k]:
+            raise SmokeFailure(f"{name}: {got[k]} {k} launches, {len(errs)} "
+                               "held")
+        if any(errs):
+            raise SmokeFailure(f"{name}: a {k} launch differs from its plain "
+                               "version")
+    print(f"{name}: the checks took {check.seconds:.2f}s, taken out of the "
+          "wall and of the posteriors stage", flush=True)
+
+
+def phase_mega(dev, sets) -> dict:
+    """`align(seqs, mega=...)` of the three mega families on the card:
+    mega-8 (dense, host refine; its alignment must equal the port's own
+    CPU alignment of the same file), mega-128 (sparse store, bf16 Gram
+    consistency, device refine), mega-long (the legacy route, f32 Gram
+    consistency, host refine cut to MEGA_LONG_REFINE_ITERS; each of its
+    kernel 1E, 3 and 4 launches held to the plain versions on its own
+    inputs, LegacyKernelCheck). Each must be a valid alignment through the
+    kernels of its branch; Q against the construction's truth printed."""
+    import torch
+    from muscle_tpu_torch import align
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    from muscle_tpu_torch.pipeline.mpc import PAIR_BATCH
+    out = {}
+    n128 = MEGA_128[0]
+    chunks = -(-(n128 * (n128 - 1) // 2) // PAIR_BATCH)
+    for name, kernels, routes, iters in (
+            ("mega-8", MEGA_KERNELS, {"fused": 1, "legacy": 0}, 100),
+            ("mega-128", MEGA_KERNELS + DENSIFY + REFINE_KERNELS,
+             {"fused": chunks, "legacy": 0}, 100),
+            ("mega-long", LEGACY_KERNELS + DENSIFY,
+             {"fused": 0, "legacy": 1}, MEGA_LONG_REFINE_ITERS)):
+        ms, origins = sets[name]
+        seqs = mega_seqs(ms)
+        torch.cuda.reset_peak_memory_stats()
+        pe.reset_routes()
+        check = LegacyKernelCheck() if name == "mega-long" else None
+        with check or contextlib.nullcontext():
+            msa, wall, stages, got = run_path(name, seqs, dev, kernels,
+                                              mega=ms, refine_iters=iters)
+        peak = torch.cuda.max_memory_allocated()
+        if check:
+            hold_legacy_launches(name, check, got)
+            wall -= check.seconds
+            stages["posteriors"] = round(stages["posteriors"] - check.seconds,
+                                         4)
+            peak = max(peak, check.peak)
+            out["legacy_errs"] = check.errs
+        q = q_true(msa, ms.labels, origins)
+        got_routes = dict(pe.ROUTES)
+        print(f"{name}: n={len(seqs)} lengths "
+              f"{min(len(s) for s in seqs)}-{max(len(s) for s in seqs)} "
+              f"wall={wall:.2f}s width={msa.col_count()} Q(truth)={q:.4f} "
+              f"peak_device_mem={peak / 2**30:.3f} GiB "
+              f"stages={json.dumps(stages)} routes={json.dumps(got_routes)} "
+              f"refine_iters={iters} launches={json.dumps(got)}", flush=True)
+        if got_routes != routes:
+            raise SmokeFailure(f"{name}: routes {got_routes}, want {routes}")
+        if name == "mega-8":
+            t0 = time.perf_counter()
+            cpu = align(seqs, mega=ms, device="cpu")
+            same = cpu.to_fasta_text() == msa.to_fasta_text()
+            print(f"mega-8 on the CPU (plain versions, the scan): "
+                  f"{time.perf_counter() - t0:.2f}s, column-identical to the "
+                  f"card's: {same}", flush=True)
+            if not same:
+                raise SmokeFailure("mega-8: the card's alignment differs from "
+                                   "the CPU's")
+        out[name] = {"wall_s": wall, "peak_bytes": peak, "stages": stages,
+                     "q": q, "routes": got_routes}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1320,15 +1837,22 @@ def main() -> int:
     print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f}s; "
           f"native host library loaded: {native.loaded()}", flush=True)
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    sets = {name: mega_set(*spec) for name, spec in (
+        ("mega-8", MEGA_8), ("mega-128", MEGA_128), ("mega-long", MEGA_LONG))}
+    print(f"mega sets built, written and parsed: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     kernels = (phase_kernels(dev) + phase_long_kernels(dev)
-               + phase_gram_join_kernels(dev) + [phase_list_kernel(dev)])
+               + phase_gram_join_kernels(dev) + [phase_list_kernel(dev)]
+               + phase_mega_kernels(dev, sets))
 
     t0 = time.perf_counter()
     phase_families(dev)
     phase_synthetic(dev)
     phase_long_families(dev)
     s5 = phase_super5(dev)
+    legacy_errs = phase_mega(dev, sets)["legacy_errs"]
     print(f"main path: {time.perf_counter() - t0:.1f}s", flush=True)
     phase_scan_route(dev)
     # kernel 7L's entry: its times and bound at the main path's largest
@@ -1343,6 +1867,9 @@ def main() -> int:
                library_ms=big["lib_ms"])
     print(f"kernel 7L entry: the largest device join ({big['shape']})",
           flush=True)
+    for k in kernels:
+        k["max_abs_err"] = max([k["max_abs_err"]]
+                               + legacy_errs.get(k["name"], []))
     for k in kernels:
         k["launches"] = MAIN_PATH.get(k["name"], 0)
         if k["launches"] <= 0:

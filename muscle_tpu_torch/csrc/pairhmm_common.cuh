@@ -1,7 +1,8 @@
-// Shared device code of the pair-HMM kernels (pairhmm_fwd.cu,
-// pairhmm_bwd_post.cu and their striped forms pairhmm_fwd_stripe.cu,
-// pairhmm_bwd_stripe.cu): log-space arithmetic and the warp-level lane
-// machinery.
+// Shared device code of the pair-HMM kernels (kernels A and B with their
+// emission-lattice forms 1E and 2E, pairhmm_fwd*.cu and
+// pairhmm_bwd_post*.cu; the legacy backward pairhmm_bwd.cu; the striped
+// forms pairhmm_fwd_stripe.cu, pairhmm_bwd_stripe.cu): log-space
+// arithmetic, the warp-level lane machinery and the emission sources.
 //
 // Lane layout. A block owns one pair; its Ly lanes (one DP column each)
 // are cut into 64-lane segments, and warp w owns segments w, w + W, ...
@@ -177,20 +178,103 @@ __device__ __forceinline__ void block_cumsum(float v[S][2], float* row,
   }
 }
 
+// Emission sources. Kernels A and B read their emissions from a source
+// that the block sets up once: each lane keeps a tag (the y letter, for
+// letters), `row(i)` selects DP row i (x position i, 0-based) and sets
+// its x insert score `insx`, `emit2(j, t, u)` gives the emissions of
+// columns j and j + 1 of that row (tags t and u; j even), and
+// `insy(j, t)` the y insert score of column j. Both sources give the
+// same numbers for the same scores: fed the letter lattice
+// match[x_i, y_j] with insert[x_i], insert[y_j], the lattice source
+// reproduces the letter source bit for bit.
+
+// Letters: codes and the (K+1)^2 match / (K+1) insert tables, copied into
+// shared memory (kernels A and B).
+struct CodeEmission {
+  struct Args {
+    const int* xb;
+    const int* yb;
+    const float* match;
+    const float* insert;
+    int kk;
+  };
+  const int* xrow;
+  const int* yrow;
+  const float* s_match;
+  const float* s_ins;
+  const float* mrow;
+  int kk;
+  float insx;
+
+  __host__ __device__ static int table_floats(const Args& a) {
+    return a.kk * a.kk + a.kk;
+  }
+  __device__ CodeEmission(const Args& a, int b, int Lx, int Ly, float* smem)
+      : xrow(a.xb + (size_t)b * Lx), yrow(a.yb + (size_t)b * Ly),
+        s_match(smem), s_ins(smem + a.kk * a.kk), mrow(smem), kk(a.kk),
+        insx(0.0f) {
+    for (int k = threadIdx.x; k < kk * kk; k += blockDim.x)
+      smem[k] = a.match[k];
+    for (int k = threadIdx.x; k < kk; k += blockDim.x)
+      smem[kk * kk + k] = a.insert[k];
+  }
+  __device__ int tag(int j) const { return yrow[j]; }
+  __device__ float insy(int, int t) const { return s_ins[t]; }
+  __device__ void row(int i) {
+    const int xc = xrow[i];
+    insx = s_ins[xc];
+    mrow = s_match + xc * kk;
+  }
+  __device__ float2 emit2(int, int t, int u) const {
+    return make_float2(mrow[t], mrow[u]);
+  }
+};
+
+// A precomputed (B, Lx, Ly) f32 emission lattice with (B, Lx) x and
+// (B, Ly) y insert scores (kernels 1E and 2E, Muscle-3D): one coalesced
+// row of the pair's lattice per DP row, nothing in shared memory.
+struct LatticeEmission {
+  struct Args {
+    const float* e;
+    const float* ins_x;
+    const float* ins_y;
+  };
+  const float* e_b;
+  const float* insx_b;
+  const float* insy_b;
+  const float* erow;
+  int Ly;
+  float insx;
+
+  __host__ __device__ static int table_floats(const Args&) { return 0; }
+  __device__ LatticeEmission(const Args& a, int b, int Lx, int Ly_, float*)
+      : e_b(a.e + (size_t)b * Lx * Ly_), insx_b(a.ins_x + (size_t)b * Lx),
+        insy_b(a.ins_y + (size_t)b * Ly_), erow(e_b), Ly(Ly_), insx(0.0f) {}
+  __device__ int tag(int) const { return 0; }
+  __device__ float insy(int j, int) const { return insy_b[j]; }
+  __device__ void row(int i) {
+    insx = insx_b[i];
+    erow = e_b + (size_t)i * Ly;
+  }
+  __device__ float2 emit2(int j, int, int) const {
+    return *reinterpret_cast<const float2*>(erow + j);
+  }
+};
+
 // Launch geometry shared by kernels A and B: S segments per warp, at
-// most 32 warps (S = 5, 160 segments, at Ly = 10240).
+// most 32 warps (S = 5, 160 segments, at Ly = 10240; S = 6 at 12288).
 struct Geometry {
   int nseg, S, W;
   size_t smem;
 };
 
-inline Geometry geometry(int Ly, int kk, int extra_rows_nseg) {
+inline Geometry geometry(int Ly, int table_floats, int extra_rows_nseg) {
   Geometry g;
   g.nseg = Ly / 64;
   g.S = (g.nseg + 31) / 32;
   g.W = (g.nseg + g.S - 1) / g.S;
   g.smem = sizeof(float) *
-           (size_t)(kk * kk + kk + Ly + extra_rows_nseg * g.nseg);
+           (size_t)(table_floats + Ly + extra_rows_nseg * g.nseg);
   return g;
 }
 

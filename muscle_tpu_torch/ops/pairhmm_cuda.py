@@ -182,14 +182,21 @@ def fwd_plain(xb, yb, lxb, lyb, match, insert, params):
     """Twin of kernel A. Returns (fm (B, Lx, Ly) forward M rows 1..Lx
     over columns 1..Ly, fend (B, 5) states [M, IX, IY, JX, JY] at
     (lx, ly)). reference: src/fwdflat3.cpp:12-153."""
-    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
     xb = xb.long()
     yb = yb.long()
-    b, lx_pad = xb.shape
-    width = yb.shape[1]
-    dev = xb.device
+    return fwd_rows(lambda i: (match[xb[:, i:i + 1], yb],
+                               insert[xb[:, i]][:, None]),
+                    insert[yb], lxb, lyb, params, xb.shape[1])
+
+
+def fwd_rows(row, insy, lxb, lyb, params, lx_pad):
+    """The forward recurrence of kernels A and 1E over lx_pad DP rows:
+    row(i) gives row i's emissions (B, Ly) and x insert scores (B, 1),
+    insy (B, Ly) the y insert scores. Returns (fm, fend) as fwd_plain."""
+    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
+    b, width = insy.shape
+    dev = insy.device
     lane = torch.arange(width, device=dev)[None, :]
-    insy = insert[yb]
     lz = torch.full((b, width), LOG_ZERO, dtype=torch.float32, device=dev)
     # row 0 boundary (reference: src/fwdflat3.cpp:35-93)
     m, ix, jx = lz, lz, lz
@@ -201,8 +208,7 @@ def fwd_plain(xb, yb, lxb, lyb, match, insert, params):
     fend = torch.full((b, 5), LOG_ZERO, dtype=torch.float32, device=dev)
     ar = torch.arange(b, device=dev)
     for i in range(lx_pad):
-        e_row = match[xb[:, i:i + 1], yb]
-        insx = insert[xb[:, i]][:, None]
+        e_row, insx = row(i)
         # M row: fold the five predecessors, shift the fold once
         comb = _log_add5(m + tMM, ix + tIM, jx + tJM, iy + tIM, jy + tJM)
         m_new = _shift_fill(comb, _log_add(ix0 + tIM, jx0 + tJM)) + e_row
@@ -251,18 +257,28 @@ def bwd_post_plain(xb, yb, lxb, lyb, match, insert, params, tot, fm,
     reference: src/bwdflat3.cpp:10-190, src/calcposteriorflat.cpp:4-27,
     src/calcalnscoreflat.cpp:4-32.
     """
-    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
     xb = xb.long()
-    yb = yb.long()
-    b, n_rows = xb.shape
-    width = yb.shape[1]
-    dev = xb.device
+    yfl = yb.long().flip(1)
+    return bwd_post_rows(lambda xi: (match[xb[:, xi:xi + 1], yfl],
+                                     insert[xb[:, xi]][:, None]),
+                         insert[yfl], lxb, lyb, params, tot, fm, with_mea)
+
+
+def bwd_post_rows(row, insy_raw, lxb, lyb, params, tot, fm,
+                  with_mea: bool = True):
+    """The backward + posterior + MEA recurrence of kernels B and 2E:
+    row(xi) gives the emissions of x position xi in lane order (lane q
+    is column Ly-1-q), (B, Ly), and its x insert scores (B, 1); insy_raw
+    (B, Ly) the y insert scores in lane order. Returns (post, mea) as
+    bwd_post_plain."""
+    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
+    b, n_rows = fm.shape[:2]
+    width = insy_raw.shape[1]
+    dev = insy_raw.device
     lxv = lxb.float()[:, None]
     u0 = float(n_rows) - lxv                     # last pinned row
     lane = torch.arange(width, device=dev)[None, :].float()
     padmask = lane < (float(width) - lyb.float()[:, None])
-    yfl = yb.flip(1)
-    insy_raw = insert[yfl]
     insy = torch.where(padmask, LOG_ZERO, insy_raw)
     tot = tot[:, None]
 
@@ -283,9 +299,8 @@ def bwd_post_plain(xb, yb, lxb, lyb, match, insert, params, tot, fm,
 
     for u in range(n_rows):
         if u > 0:
-            xi = n_rows - u
-            e_row = torch.where(padmask, LOG_ZERO, match[xb[:, xi:xi + 1], yfl])
-            insx = insert[xb[:, xi]][:, None]
+            e_row, insx = row(n_rows - u)
+            e_row = torch.where(padmask, LOG_ZERO, e_row)
             next_m = _shift_fill(m, m0) + e_row
             next_ix = ix + insx
             next_jx = jx + insx
@@ -330,18 +345,23 @@ _KERNELS = ("pairhmm_fwd", "pairhmm_bwd_post")
 _libs: dict = {}
 
 
-def kernel_specs():
+def kernel_specs(names=_KERNELS):
+    """Build specs of the pair-HMM kernel libraries `names`: each from
+    csrc/<name>.cu, keyed on the shared headers too (kernels A/1E share
+    pairhmm_fwd.cuh, B/2E pairhmm_bwd_post.cuh)."""
     from ..utils.build import CUDA_FLAGS, LibSpec, nvcc, package_path
-    dep = package_path("csrc", "pairhmm_common.cuh")
+    deps = tuple(package_path("csrc", h) for h in (
+        "pairhmm_common.cuh", "pairhmm_fwd.cuh", "pairhmm_bwd_post.cuh"))
     return [LibSpec(name=k, compiler=nvcc(), flags=CUDA_FLAGS,
-                    sources=(package_path("csrc", f"{k}.cu"),), deps=(dep,))
-            for k in _KERNELS]
+                    sources=(package_path("csrc", f"{k}.cu"),), deps=deps)
+            for k in names]
 
 
 def load_libs(specs, argtypes: dict, into: dict) -> None:
     """Build the pair-HMM kernel libraries `specs` and load each into
     `into` by name: its kernel function (arguments argtypes[name],
-    returning a cudaError_t as an int) and `pairhmm_error_string`."""
+    returning a cudaError_t as an int) and `pairhmm_error_string`
+    (pairhmm_common.cuh)."""
     from ..utils.build import ensure_built
     paths = ensure_built(specs)
     for spec in specs:

@@ -18,7 +18,11 @@ Branches, routed as in the JAX package:
 * n = 2 or consistency_iters = 0: the pair store, no consistency.
 The pair store is length-bucketed for pads up to
 posteriors.LONG_PAIR_THRESHOLD and filled pair by pair by the long-pair
-router beyond it (posteriors._long_pairs_sparse).
+router beyond it (posteriors._long_pairs_sparse). With `mega` (a
+Muscle-3D MegaProfileSet) the emissions come from the chains' feature
+profiles, matched by label (reference: MPCFlat_mega,
+src/mpcflat_mega.cpp): the same branches, every pad through the bucketed
+store, and no store-budget guard, as in the JAX package.
 Refinement joins run on the host below DEVICE_REFINE_N sequences and on
 the device from there on (pipeline/devjoin.DeviceJoiner).
 """
@@ -33,6 +37,7 @@ import torch
 from ..alphabet import ALPHA_AMINO, ALPHA_NUCLEO, guess_is_nucleo
 from ..hmm.params import HMMParams
 from ..ops.consistency import consistency_sparse
+from ..ops.emissions import pad_profiles
 from ..sequence import MultiSequence, Sequence
 from ..tree.joinorder import guide_tree_join_order
 from ..tree.tree import Tree
@@ -69,11 +74,13 @@ class MPC:
                  consistency_iters: int = DEFAULT_CONSISTENCY_ITERS,
                  refine_iters: int = DEFAULT_REFINE_ITERS,
                  tree_perm: str | None = None,
-                 device=None):
+                 device=None,
+                 mega=None):
         self.consistency_iters = consistency_iters
         self.refine_iters = refine_iters
         self.tree_perm = tree_perm
         self.device = resolve_device(device)
+        self.mega = mega          # MegaProfileSet for Muscle-3D emissions
         self.guide_tree: Tree | None = None
         self.dist_mx: np.ndarray | None = None
 
@@ -120,11 +127,13 @@ class MPC:
         mlog.log("MPC: %d unique seqs, %d pairs, pad %d, device %s", n,
                  len(pairs), pad_to, self.device)
         # single-device capacity guard of the blocked branch, kept as the
-        # JAX package has it: the (P+1, L, K) sparse store is 8 B/slot
+        # JAX package has it (letters only): the (P+1, L, K) sparse store
+        # is 8 B/slot
         p_total = len(pairs)
         store_gb = (p_total + 1) * pad_to * SPARSE_K * 8 / 1e9
         budget_gb = float(os.environ.get("MUSCLE_TPU_HBM_BUDGET_GB", 12.0))
-        if store_gb > budget_gb and n * pad_to > post_mod.SMALL_DENSE_NL:
+        if (self.mega is None and store_gb > budget_gb
+                and n * pad_to > post_mod.SMALL_DENSE_NL):
             raise MemoryError(
                 f"MPC sparse store for {n} seqs ({p_total} pairs, "
                 f"L={pad_to}, K={SPARSE_K}) needs ~{store_gb:.0f} GB "
@@ -133,14 +142,26 @@ class MPC:
         use_dense = (n >= 3 and self.consistency_iters > 0
                      and n * pad_to <= post_mod.SMALL_DENSE_NL)
 
-        codes, lens = post_mod.encode_batch(unique, alpha, pad_to=pad_to)
+        if self.mega is not None:
+            # Muscle-3D: feature profiles matched by label
+            prof_by_label = dict(zip(self.mega.labels, self.mega.profiles))
+            profs = [prof_by_label[s.label] for s in unique]
+            lens = np.array([p.shape[0] for p in profs], dtype=np.int32)
+            codes = pad_profiles(profs, pad_to)
+        else:
+            codes, lens = post_mod.encode_batch(unique, alpha, pad_to=pad_to)
         with mlog.stage("posteriors+consistency" if use_dense
                         else "posteriors"):
             if use_dense:
                 store_v, store_c, ea, max_nnz = \
                     post_mod.small_family_store(
                         codes, lens, pack, pairs, n, SPARSE_K,
-                        self.consistency_iters, self.device)
+                        self.consistency_iters, self.device, mega=self.mega)
+            elif self.mega is not None:
+                store_v, store_c, ea, max_nnz = \
+                    post_mod.all_pairs_posteriors_mega_sparse(
+                        codes, lens, self.mega, pack, pairs, self.device,
+                        batch_size=PAIR_BATCH, k=SPARSE_K)
             else:
                 store_v, store_c, ea, max_nnz = \
                     post_mod.all_pairs_posteriors_sparse(
@@ -224,14 +245,19 @@ def align(seqs: MultiSequence, *,
           tree_perm: str | None = None,
           consistency_iters: int = DEFAULT_CONSISTENCY_ITERS,
           refine_iters: int = DEFAULT_REFINE_ITERS,
-          device=None) -> MultiSequence:
+          device=None,
+          mega=None) -> MultiSequence:
     """Align a set of unaligned sequences (reference: -align, src/align.cpp).
 
+    With `mega` (io/mega.MegaProfileSet: Muscle-3D structure profiles,
+    its chains labelled as `seqs`) the emissions come from the profiles.
     Runs on the GPU unless `device="cpu"` is given; raises when no GPU
     is present and no device was asked for.
     """
     device = resolve_device(device)
-    if nucleo is None:
+    if mega is not None:
+        nucleo = False            # structure profiles are protein chains
+    elif nucleo is None:
         nucleo = guess_is_nucleo(seqs, MwcRng(1))
     alpha = ALPHA_NUCLEO if nucleo else ALPHA_AMINO
 
@@ -241,5 +267,5 @@ def align(seqs: MultiSequence, *,
 
     mpc = MPC(consistency_iters=consistency_iters,
               refine_iters=refine_iters, tree_perm=tree_perm,
-              device=device)
+              device=device, mega=mega)
     return mpc.run(seqs, hp, alpha)

@@ -15,10 +15,19 @@ Routes, as in the JAX package:
   call, dense (n*L)^2 consistency, top-K sparsify;
 * `all_pairs_posteriors_sparse` (larger families, n = 2, or no
   consistency): length-bucketed batches sparsified into a fixed-K
-  store; beyond LONG_PAIR_THRESHOLD the long-pair router
-  (`_long_pairs_sparse`) fills it pair by pair: kernels A/B, transposed
-  or not, the Y-striped kernels 5/6 (ops/pairhmm_striped.py), or the
-  checkpoint/recompute scan (ops/pairhmm_long.py).
+  store (`_sparse_store_loop`); beyond LONG_PAIR_THRESHOLD the
+  long-pair router (`_long_pairs_sparse`) fills it pair by pair: kernels
+  A/B, transposed or not, the Y-striped kernels 5/6
+  (ops/pairhmm_striped.py), or the checkpoint/recompute scan
+  (ops/pairhmm_long.py);
+* Muscle-3D (`.mega` feature profiles): `small_family_store(mega=)`
+  and `all_pairs_posteriors_mega_sparse`, whose batches
+  (`_make_mega_chunk_fn`) take their emissions from the profiles
+  (ops/emissions.py): on a CUDA device kernels 1E/2E, or 1E/3/4 beyond
+  the fused route's lane cap (ops/pairhmm_emis_cuda.py), on the CPU the
+  scan's `batch_posteriors_emissions`. Every pad takes the same bucketed
+  store; the mega branch never enters the long-pair router, as in the
+  JAX package.
 """
 
 from __future__ import annotations
@@ -201,6 +210,43 @@ def all_pairs_posteriors(codes: np.ndarray, lens: np.ndarray, pack,
     return np.concatenate(posts), np.concatenate(eas)
 
 
+def _sparse_store_loop(fn, chunk_args_fn, pairs, lens, b0: int, k: int,
+                       l_full: int, step: int, device):
+    """The bucketed store loop: the pairs are length-bucketed by
+    `_bucketize`, each bucket run in chunks (the last one filled with
+    copies of its first pair) and sparsified into a (P+1.., L, K) store
+    whose rows beyond P are empty (the last one is the dump slot).
+
+    fn is the batch function, chunk_args_fn(xi, yi, lb) its inputs for
+    the pairs xi, yi at bucket length lb. Returns (vals, cols device tensors, ea (P,)
+    numpy, max_nnz)."""
+    n_pairs = len(pairs)
+    store_v = torch.zeros((store_rows(n_pairs), l_full, k),
+                          dtype=torch.float32, device=device)
+    store_c = torch.full((store_rows(n_pairs), l_full, k), -1,
+                         dtype=torch.int32, device=device)
+    store_ea = torch.zeros((n_pairs,), dtype=torch.float32, device=device)
+    max_nnz = 0
+    buckets = _bucketize(pairs, lens, l_full) or \
+        [(l_full, list(range(n_pairs)))]
+    for lb, idxs in buckets:
+        b = _clamp_chunk_by_len(b0, lb, step)
+        for lo in range(0, len(idxs), b):
+            ch = idxs[lo:lo + b]
+            full = ch + [ch[0]] * (b - len(ch))
+            xi = torch.as_tensor([pairs[t][0] for t in full], device=device)
+            yi = torch.as_tensor([pairs[t][1] for t in full], device=device)
+            post, ea = fn(*chunk_args_fn(xi, yi, lb))
+            vals, cols, nnz = sp.sparsify(post, k)
+            del post
+            idx = torch.as_tensor(full, device=device)
+            store_v[idx, :lb] = vals
+            store_c[idx, :lb] = cols
+            store_ea[idx] = ea
+            max_nnz = max(max_nnz, int(nnz))
+    return store_v, store_c, store_ea.cpu().numpy(), max_nnz
+
+
 def all_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray, pack,
                                 pairs: list[tuple[int, int]], device,
                                 batch_size: int = 32, k: int = 32):
@@ -219,39 +265,14 @@ def all_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray, pack,
     """
     if codes.shape[1] > LONG_PAIR_THRESHOLD:
         return _long_pairs_sparse(codes, lens, pack, pairs, k, device)
-    backend = default_backend(device)
-    step = _chunk_step(backend)
-    n_pairs = len(pairs)
-    l_full = codes.shape[1]
-    b0 = _rung(min(batch_size, n_pairs), step)
+    step = _chunk_step(default_backend(device))
     cj = torch.as_tensor(codes, device=device)
     lj = torch.as_tensor(lens, device=device)
-    fn = _make_batch_fn(pack, True, device)
-
-    store_v = torch.zeros((store_rows(n_pairs), l_full, k),
-                          dtype=torch.float32, device=device)
-    store_c = torch.full((store_rows(n_pairs), l_full, k), -1,
-                         dtype=torch.int32, device=device)
-    store_ea = torch.zeros((n_pairs,), dtype=torch.float32, device=device)
-    max_nnz = 0
-    buckets = _bucketize(pairs, lens, l_full) or \
-        [(l_full, list(range(n_pairs)))]
-    for lb, idxs in buckets:
-        b = _clamp_chunk_by_len(b0, lb, step)
-        for lo in range(0, len(idxs), b):
-            ch = idxs[lo:lo + b]
-            full = ch + [ch[0]] * (b - len(ch))
-            xi = torch.as_tensor([pairs[t][0] for t in full], device=device)
-            yi = torch.as_tensor([pairs[t][1] for t in full], device=device)
-            post, ea = fn(cj[xi, :lb], cj[yi, :lb], lj[xi], lj[yi])
-            vals, cols, nnz = sp.sparsify(post, k)
-            del post
-            idx = torch.as_tensor(full, device=device)
-            store_v[idx, :lb] = vals
-            store_c[idx, :lb] = cols
-            store_ea[idx] = ea
-            max_nnz = max(max_nnz, int(nnz))
-    return store_v, store_c, store_ea.cpu().numpy(), max_nnz
+    return _sparse_store_loop(
+        _make_batch_fn(pack, True, device),
+        lambda xi, yi, lb: (cj[xi, :lb], cj[yi, :lb], lj[xi], lj[yi]),
+        pairs, lens, _rung(min(batch_size, len(pairs)), step), k,
+        codes.shape[1], step, device)
 
 
 # ---------------------------------------------------------------------------
@@ -441,9 +462,11 @@ def _cons_sparsify(post, xi, yi, n_real: int, p_real: int, n_pad: int,
 
 
 def small_family_store(codes, lens, pack, pairs, n: int, k: int, iters: int,
-                       device):
+                       device, mega=None):
     """ONE batched pair call + dense consistency + sparsify for small
-    families (n * L <= SMALL_DENSE_NL).
+    families (n * L <= SMALL_DENSE_NL). With `mega` (a MegaProfileSet),
+    `codes` are the (N, L, F) padded feature profiles and the emissions
+    come from them (Muscle-3D).
 
     Returns (vals (P2, L, K) device, cols, ea (P,) np, max_nnz) in the
     sparse-store contract (rows beyond P empty; last row a zero dump
@@ -454,7 +477,10 @@ def small_family_store(codes, lens, pack, pairs, n: int, k: int, iters: int,
     full = list(pairs) + [pairs[0]] * (b - n_pairs)
     xi = torch.as_tensor([p[0] for p in full], device=device)
     yi = torch.as_tensor([p[1] for p in full], device=device)
-    fn = _make_batch_fn(pack, True, device)
+    if mega is not None:
+        fn = _make_mega_chunk_fn(mega, pack, device)
+    else:
+        fn = _make_batch_fn(pack, True, device)
     cj = torch.as_tensor(codes, device=device)
     lj = torch.as_tensor(lens, device=device)
     post, ea = fn(cj[xi], cj[yi], lj[xi], lj[yi])
@@ -465,6 +491,74 @@ def small_family_store(codes, lens, pack, pairs, n: int, k: int, iters: int,
         sv = torch.nn.functional.pad(sv, (0, 0, 0, 0, 0, 8))
         sc = torch.nn.functional.pad(sc, (0, 0, 0, 0, 0, 8), value=-1)
     return sv, sc, ea.cpu().numpy()[:n_pairs], int(nnz)
+
+
+# ---------------------------------------------------------------------------
+# Muscle-3D (muscle_tpu/pipeline/posteriors.py:891-1016)
+# ---------------------------------------------------------------------------
+
+def _reverse_profiles(p, lens):
+    """Per-pair reversal of right-padded (B, L, F) profiles along L:
+    out[b, j] = p[b, (lens[b]-1-j) mod L] (the JAX package's roll of the
+    flipped profile)."""
+    n = p.shape[1]
+    j = torch.arange(n, device=p.device)
+    idx = torch.remainder(lens.long()[:, None] - 1 - j[None, :], n)
+    return p[torch.arange(p.shape[0], device=p.device)[:, None], idx]
+
+
+def _make_mega_chunk_fn(mega, pack, device):
+    """(px, py, lx, ly) -> (post, ea) for mega profiles on `device`: the
+    emission lattice and insert scores from the profiles
+    (ops/emissions.py), transitions from `pack` (reference: MPCFlat_mega
+    overriding only the emissions, src/mpcflat.h:63-66,
+    src/fwdflat_mega.cpp). On a CUDA device the kernels of
+    ops/pairhmm_emis_cuda.py, which read e through reversed indices
+    where the legacy route needs it; on the CPU the scan, which takes the
+    lattice of the reversed profiles as the JAX package builds it. (The
+    JAX package memoizes this function against XLA recompiles; eager
+    torch has none.)"""
+    from ..ops.emissions import (mega_emission_matrix, mega_feature_arrays,
+                                 mega_insert_scores)
+    weights, log_probs, log_prob_mx = mega_feature_arrays(mega, device)
+    if default_backend(device) == "cuda":
+        from ..ops.pairhmm_emis_cuda import batch_posteriors_emissions_cuda
+
+        def chunk(px, py, lx, ly):
+            return batch_posteriors_emissions_cuda(
+                mega_emission_matrix(px, py, weights, log_prob_mx),
+                mega_insert_scores(px, weights, log_probs),
+                mega_insert_scores(py, weights, log_probs), lx, ly, pack)
+        return chunk
+    start, tv = pairhmm.score_args(pack, device)[2:]
+
+    def chunk(px, py, lx, ly):
+        pxr, pyr = _reverse_profiles(px, lx), _reverse_profiles(py, ly)
+        return pairhmm.batch_posteriors_emissions(
+            mega_emission_matrix(px, py, weights, log_prob_mx),
+            mega_emission_matrix(pxr, pyr, weights, log_prob_mx),
+            mega_insert_scores(px, weights, log_probs),
+            mega_insert_scores(py, weights, log_probs),
+            mega_insert_scores(pxr, weights, log_probs),
+            mega_insert_scores(pyr, weights, log_probs), lx, ly, start, tv)
+    return chunk
+
+
+def all_pairs_posteriors_mega_sparse(profiles: np.ndarray, lens: np.ndarray,
+                                     mega, pack,
+                                     pairs: list[tuple[int, int]], device,
+                                     batch_size: int = 16, k: int = 32):
+    """Muscle-3D variant of all_pairs_posteriors_sparse: profiles
+    (N, L, F) uint8 padded feature letters, bucketed and chunked as the
+    letter path's store (for every pad: no long-pair router)."""
+    step = _chunk_step(default_backend(device))
+    pj = torch.as_tensor(profiles, device=device)
+    lj = torch.as_tensor(lens, device=device)
+    return _sparse_store_loop(
+        _make_mega_chunk_fn(mega, pack, device),
+        lambda xi, yi, lb: (pj[xi, :lb], pj[yi, :lb], lj[xi], lj[yi]),
+        pairs, lens, _rung(min(batch_size, len(pairs)), step), k,
+        profiles.shape[1], step, device)
 
 
 def store_to_csr(store_v, store_c):

@@ -509,3 +509,132 @@ def test_long_family_on_card(cuda_device):
     assert all(v > 0 for k, v in post_mod.ROUTES.items() if k != "scan")
     assert {s.label: s.text().replace("-", "") for s in msa} == \
         {s.label: s.text() for s in seqs}
+
+
+# ---------------------------------------------------------------------------
+# the Muscle-3D kernels 1E, 2E, 3 and 4 (ops/pairhmm_emis_cuda.py)
+# ---------------------------------------------------------------------------
+
+def _mega_lattice(b, lx_max, width, seed, device="cpu"):
+    """Emission lattice (B, lx_max, width) and insert scores of b pairs of
+    a synthetic 8-feature .mega set (tests/mega_synth.py): chains of
+    width - 150 .. width - 20 residues, x cut to its first lx_max."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mega_synth import mega_text
+    from muscle_tpu_torch.io.mega import parse_mega
+    from muscle_tpu_torch.ops import emissions as em
+    ms = parse_mega(mega_text(b + 1, width - 150, width - 20, seed))
+    prof = torch.as_tensor(em.pad_profiles(ms.profiles, width), device=device)
+    lens = np.array([p.shape[0] for p in ms.profiles], np.int32)
+    w, lp, lpm = em.mega_feature_arrays(ms, device)
+    px, py = prof[:b, :lx_max], prof[1:]
+    lx = np.minimum(lens[:b], lx_max - np.arange(b)).astype(np.int32)
+    e = em.mega_emission_matrix(px, py, w, lpm)
+    return (e, em.mega_insert_scores(px, w, lp), em.mega_insert_scores(py, w, lp),
+            torch.as_tensor(lx, device=device),
+            torch.as_tensor(lens[1:], device=device))
+
+
+def test_emis_kernel_build_flags(monkeypatch):
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    from muscle_tpu_torch.utils import build
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    specs = pe.kernel_specs()
+    assert [s.name for s in specs] == ["pairhmm_fwd_emis",
+                                       "pairhmm_bwd_post_emis",
+                                       "pairhmm_bwd", "mea_scores"]
+    for spec in specs:
+        assert "arch=compute_90a,code=sm_90a" in spec.flags
+        assert "-fmad=false" in spec.flags
+        assert spec.sources[0].endswith(f"csrc/{spec.name}.cu")
+    for spec in specs[:3]:
+        assert any(d.endswith("pairhmm_common.cuh") for d in spec.deps)
+    # kernels A and B are built from the headers they share with 1E, 2E
+    assert all(any(d.endswith(h) for d in s.deps) for s in pc.kernel_specs()
+               for h in ("pairhmm_fwd.cuh", "pairhmm_bwd_post.cuh"))
+
+
+def test_emis_cpu_tensors_run_plain_versions_and_count_nothing():
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    e, ins_x, ins_y, lx, ly = _mega_lattice(2, 128, 128, 3)
+    pack = HMMParams.from_defaults().to_scores()
+    before = dict(pe.LAUNCHES)
+    post, ea = pe.batch_posteriors_emissions_cuda(e, ins_x, ins_y, lx, ly,
+                                                  pack)
+    assert pe.LAUNCHES == before
+    assert post.shape == (2, 128, 128) and bool((ea > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lx_max,width", [(384, 384), (256, 2048),
+                                          (192, 12288)],
+                         ids=["S1", "S1-2048", "S6-12288"])
+def test_emis_kernels_match_plain(cuda_device, lx_max, width):
+    """Kernels 1E, 2E (up to FUSED_MAX_LY), 3 and 4 against their plain
+    versions on the card, equal bit for bit (1E on the rows it writes)."""
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    e, ins_x, ins_y, lx, ly = _mega_lattice(4, lx_max, width, 4,
+                                            cuda_device)
+    params = pc.params_vec(HMMParams.from_defaults().to_scores(),
+                           cuda_device)
+    lx, ly = lx.int(), ly.int()
+    fm, fend = pe.pairhmm_fwd_emis(e, ins_x, ins_y, lx, ly, params)
+    fm2, fend2 = pe.fwd_emis_plain(e, ins_x, ins_y, lx, ly, params)
+    rows = torch.arange(lx_max, device=cuda_device)[None, :, None] \
+        < lx[:, None, None]
+    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(fend, fend2)
+    tot = pc._total_prob(fend, params)
+    if width <= pe.FUSED_MAX_LY:
+        post, mea = pe.pairhmm_bwd_post_emis(e, ins_x, ins_y, lx, ly, params,
+                                             tot, fm)
+        post2, mea2 = pe.bwd_post_emis_plain(e, ins_x, ins_y, lx, ly,
+                                             params, tot, fm)
+        assert torch.equal(post, post2) and torch.equal(mea, mea2)
+    rb = pe.pairhmm_bwd(e, ins_x, ins_y, lx, ly, params)
+    assert torch.equal(rb, pe.bwd_plain(e, ins_x, ins_y, lx, ly, params))
+    post = pe.finish_posteriors(fm, rb, fend, lx, ly, params)
+    assert torch.equal(pe.mea_scores(post, lx), pe.mea_scores_plain(post))
+
+
+@pytest.mark.cuda
+def test_lattice_kernels_equal_letter_kernels(cuda_device):
+    """Fed the letter lattice match[x_i, y_j], kernels 1E and 2E give
+    kernels A and B's bits."""
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    xb, yb, lx, ly = _batch(16, 300, 384, 5, False)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (xb, yb, lx, ly))
+    match, insert, params = pc.tables(HMMParams.from_defaults().to_scores(),
+                                      cuda_device)
+    fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, match, insert, params)
+    tot = pc._total_prob(fend, params)
+    post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, match, insert, params,
+                                    tot, fm)
+    e = match[x.long()[:, :, None], y.long()[:, None, :]].contiguous()
+    ins_x = insert[x.long()].contiguous()
+    ins_y = insert[y.long()].contiguous()
+    fm2, fend2 = pe.pairhmm_fwd_emis(e, ins_x, ins_y, lxt, lyt, params)
+    rows = torch.arange(384, device=cuda_device)[None, :, None] \
+        < lxt[:, None, None]
+    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(fend, fend2)
+    post2, mea2 = pe.pairhmm_bwd_post_emis(e, ins_x, ins_y, lxt, lyt, params,
+                                           tot, fm)
+    assert torch.equal(post, post2) and torch.equal(mea, mea2)
+
+
+@pytest.mark.cuda
+def test_mega_align_on_card_matches_cpu(cuda_device):
+    """align(mega=) on the card (kernels 1E/2E) gives the CPU's text."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mega_synth import mega_text
+    from muscle_tpu_torch import MultiSequence, Sequence, align
+    from muscle_tpu_torch.io.mega import parse_mega
+    ms = parse_mega(mega_text(6, 200, 260, 8))
+    seqs = MultiSequence([Sequence(lb, s) for lb, s in zip(ms.labels, ms.seqs)])
+    card = align(seqs, mega=ms, device=cuda_device)
+    cpu = align(seqs, mega=ms, device="cpu")
+    assert card.to_fasta_text() == cpu.to_fasta_text()

@@ -155,3 +155,47 @@ def test_align_takes_pads_beyond_the_threshold():
     assert t_post.ROUTES["scan"] == 1
     assert {s.label: s.text().replace("-", "") for s in msa} == \
         {s.label: s.text() for s in seqs}
+
+
+def test_router_takes_every_route_with_x_after_y(packs, monkeypatch):
+    """Pairs with x > y, as Super5's PairAligner hands them to the router
+    (PProg, UCLUST), with the limits shrunk so that every route is taken
+    (in this orientation the family's pairs of two long sides are
+    256 x 192 twice, striped, and 256 x 256, scanned): the store holds
+    each pair with x's positions as rows, as muscle_tpu's router gives it
+    on the same pairs (its CPU route, the scan; run on one pair of each
+    route, since it compiles its scan for every pair shape)."""
+    jp, tp = packs
+    lens = np.array([150, 120, 250, 100, 200], np.int32)
+    codes = _family_codes(lens, 256, 3)
+    n = len(lens)
+    pairs = [(y, x) for x in range(n) for y in range(x + 1, n)]
+    monkeypatch.setattr(t_post, "LONG_PAIR_THRESHOLD", 128)
+    monkeypatch.setattr(t_post, "default_backend", lambda device: "cuda")
+    monkeypatch.setattr(t_post, "_LONG_PALLAS_MAX_LY", 128)
+    monkeypatch.setattr(t_post, "_LONG_PALLAS_CELL_BUDGET", 256 * 128)
+    monkeypatch.setattr(t_post, "_STRIPE_W", 64)
+    monkeypatch.setattr(t_post, "_STRIPED_CELL_BUDGET", 256 * 192)
+    cpu = torch.device("cpu")
+    t_post.reset_routes()
+    sv, sc, ea, _ = t_post._long_pairs_sparse(codes, lens, tp, pairs, 32, cpu)
+    assert t_post.ROUTES == {"in_cap": 4, "transposed": 3, "striped": 2,
+                             "scan": 1}
+    assert not sv[len(pairs):].any() and (sc[len(pairs):] == -1).all()
+    sv, sc = sv.numpy(), sc.numpy()
+    for i, (x, _) in enumerate(pairs):
+        assert (sc[i, lens[x]:] == -1).all() and (sc[i, :lens[x], 0] >= 0).any()
+    # one pair of each route: in-cap, transposed, striped, scan
+    each = [(3, 1), (1, 0), (2, 0), (4, 2)]
+    for route, pair in zip(("in_cap", "transposed", "striped", "scan"), each):
+        t_post.reset_routes()
+        t_post._long_pairs_sparse(codes, lens, tp, [pair], 32, cpu)
+        assert t_post.ROUTES[route] == 1, (pair, t_post.ROUTES)
+    monkeypatch.setattr(j_post, "LONG_PAIR_THRESHOLD", 128)
+    jv, jc, jea, _ = j_post._long_pairs_sparse(codes, lens, jp, each, 32)
+    rows = [pairs.index(p) for p in each]
+    jv, jc = np.asarray(jv)[:4], np.asarray(jc)[:4]
+    assert (sc[rows] == jc).mean() > 0.99
+    ok = (jc >= 0) & (sc[rows] >= 0)
+    assert float(np.abs(np.where(ok, jv - sv[rows], 0.0)).max()) < 2e-2
+    assert float(np.abs(jea - ea[rows]).max()) < 2e-3

@@ -3,6 +3,7 @@
     python tools/torch_profile_align.py [--n 32 --lo 400 --hi 512]
                                         [--long mixed|pair]
                                         [--super5 synthetic|rdrp16]
+                                        [--mega 8|128|long]
                                         [--trace build/align_trace.json]
 
 Aligns a synthetic family of chip_smoke.py (n mutated copies of one
@@ -15,7 +16,9 @@ nucleotide sequences on the striped kernels), once to warm up, then
 once under the profiler. With --super5 it runs `muscle_tpu_torch.super5`
 once on chip_smoke.py's synthetic-1000 set or on the degapped rdrp-16
 golden instead, after building every kernel, tracing the device only
-(the host side of a Super5 run is millions of small operations).
+(the host side of a Super5 run is millions of small operations). With
+--mega it aligns one of chip_smoke.py's Muscle-3D `.mega` sets ("8",
+"128" or "long", refine cut for "long" as chip_smoke.py cuts it).
 Prints the device kernels by total time, the device busy time (the
 union of kernel intervals), the wall of the profiled call and the
 device's idle share of it. Needs a CUDA device.
@@ -59,6 +62,8 @@ def main() -> int:
     ap.add_argument("--super5", choices=("synthetic", "rdrp16"),
                     default=None, help="profile super5() on one of "
                     "chip_smoke.py's Super5 sets instead")
+    ap.add_argument("--mega", choices=("8", "128", "long"), default=None,
+                    help="one of chip_smoke.py's .mega sets instead")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
     args = ap.parse_args()
@@ -84,6 +89,13 @@ def main() -> int:
         seqs = (cs.super5_set() if args.super5 == "synthetic" else
                 MultiSequence.from_fasta(os.path.join(ROOT, cs.RDRP16),
                                          strip_gaps=True))
+    elif args.mega:
+        spec = {"8": cs.MEGA_8, "128": cs.MEGA_128,
+                "long": cs.MEGA_LONG}[args.mega]
+        opts["mega"], _ = cs.mega_set(*spec)
+        seqs = cs.mega_seqs(opts["mega"])
+        if args.mega == "long":
+            opts["refine_iters"] = cs.MEGA_LONG_REFINE_ITERS
     elif args.long == "mixed":
         seqs = cs.family_of_lengths(cs.LONG_MIXED, b"ARNDCQEGHILKMFPSTWYV", 6)
         opts["refine_iters"] = cs.LONG_MIXED_REFINE_ITERS
