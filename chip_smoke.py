@@ -35,7 +35,15 @@ Phases (each raises on failure, so the run exits non-zero):
    its rows u >= lx against zero, 4 on the whole posterior); their ptxas
    registers and spills
    and their times at those shapes; the fused route against the legacy
-   route on 8 mega pairs at 2048, at the kernel gate;
+   route on 8 mega pairs at 2048, at the kernel gate; then the
+   ensembles' kernels (phase_ensemble_kernels): 1M and 2M (per-pair
+   tables) at B = 512, L = 512 with the packs of 4 perturbation seeds
+   mixed lane by lane, each against its plain version and each lane
+   against kernels A/B on its pack, 1E/2E with per-pair params on the
+   per-pair lattice against 1M/2M, 3K (the letter path's legacy
+   backward) against its plain version, all required equal, and the
+   legacy letter route (1M, 3K, finish_posteriors, 4) against the fused
+   one at the kernel gate; their ptxas lines, times and bounds;
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
@@ -58,7 +66,7 @@ Phases (each raises on failure, so the run exits non-zero):
      each required to take its routes: "long mixed", six proteins of
      8,700-11,000 residues (7 pairs on kernels A/B, one at Ly = 10240,
      5 transposed, 3 on the striped kernels; pad 12288, blocked f32 Gram
-     consistency with one sequence a block, host refine cut to 50
+     consistency with one sequence a block, host refine cut to 20
      iterations); "long pair", two ~19 kb nucleotide sequences on the
      striped kernels (10 stripes);
    - `muscle_tpu_torch.super5(..., device="cuda")` with default
@@ -86,6 +94,21 @@ Phases (each raises on failure, so the run exits non-zero):
      checks' time and memory kept out of the wall and the peak), each
      route counted and required, Q against the construction's true
      alignment printed;
+   - the ensembles through `pipeline.ensemble.run_align_command`, the
+     function the CLI calls (phase_ensembles): ensemble-48 (a synthetic
+     protein family of n = 48, L 300-384, pad 384, under -stratified: 16
+     replicates, 4 seeds in one pair stage of 4,512 lanes, Gram
+     consistency and host refine per replicate; its none.0 must equal
+     align() of the same family), diversified-BB11002 (the degapped
+     golden under -diversified: 100 replicates, 100 HMMs in one stream;
+     none.0's identity to the golden and Q printed), every launch of
+     kernels 1M and 2M held, as it happens, lane by lane to kernels A/B
+     on each pack's lanes (MultiKernelCheck; the checks' launches, time
+     and memory kept out), every replicate required to be an alignment
+     of its input, -maxcc, -disperse and -efastats of each EFA printed;
+     legacy-BB11001 (align() under the legacy letter route, fused=False:
+     kernels A, 3K and 4; each 3K launch held to its plain version;
+     whether its text equals the fused route's printed);
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
 5. print the kernels' JSON line (launch counts summed over phase 3;
@@ -996,8 +1019,9 @@ AMINO_LETTERS = b"ARNDCQEGHILKMFPSTWYV"
 LONG_MIXED = (11000, 9800, 8700, 10600, 9300, 10900)
 LONG_PAIR = (19000, 18900)
 # host refine of "long mixed" costs ~0.36 s a join (dense ~1.2e8-cell
-# column posteriors): 100 iterations took its call past 60 s
-LONG_MIXED_REFINE_ITERS = 50
+# column posteriors): 100 iterations took its call past 60 s; 20 keep
+# the whole script near 600 s beside the ensemble phases
+LONG_MIXED_REFINE_ITERS = 20
 
 
 def phase_long_families(dev) -> dict:
@@ -1821,6 +1845,525 @@ def phase_mega(dev, sets) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# ensembles: kernels 1M / 2M (per-pair tables) and 3K (the letter path's
+# legacy backward)
+# ---------------------------------------------------------------------------
+
+ENSEMBLE_SEEDS = (0, 1, 2, 3)
+
+
+def ensemble_tables(dev, reps):
+    """Per-lane tables (match, insert, start, tv) from the packs of
+    ENSEMBLE_SEEDS (seed 0 unperturbed), lane i taking pack reps[i]; and
+    the packs."""
+    from muscle_tpu_torch.hmm.params import HMMParams
+    from muscle_tpu_torch.ops import pairhmm as ph
+    packs = []
+    for seed in ENSEMBLE_SEEDS:
+        hp = HMMParams.from_defaults(nucleo=False)
+        if seed:
+            hp.perturb(seed)
+        packs.append(hp.to_scores())
+    return packs, ph.score_args_multi(packs, reps, dev)
+
+
+def lane_groups(match, insert, params):
+    """The lanes of each pack: [lane indices] of the lanes whose match,
+    insert and params rows are all equal."""
+    import torch
+    key = torch.cat([params, insert, match.flatten(1)], dim=1)
+    rows, inv = torch.unique(key, dim=0, return_inverse=True)
+    return [torch.nonzero(inv == g).flatten() for g in range(rows.shape[0])]
+
+
+def hold_multi_fwd(args, fm, fend):
+    """Max |d| of a kernel-1M launch's output (fm on rows < lx, fend)
+    against kernel A on each pack's lanes with that pack's tables."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    x, y, lx, ly, m, i, p = args
+    d = 0.0
+    for lanes in lane_groups(m, i, p):
+        k = int(lanes[0])
+        sub = tuple(t[lanes].contiguous() for t in (x, y, lx, ly))
+        fm1, fend1 = pc.pairhmm_fwd(*sub, m[k].contiguous(),
+                                    i[k].contiguous(), p[k].contiguous())
+        rows = torch.arange(fm.shape[1], device=fm.device)[None, :, None] \
+            < sub[2][:, None, None]
+        d = max(d, float((fm[lanes] - fm1).where(rows, 0.0).abs().max()),
+                float((fend[lanes] - fend1).abs().max()))
+    return d
+
+
+def hold_multi_bwd(args, tot, fm, post, mea):
+    """Max |d| of a kernel-2M launch (post, mea) against kernel B on each
+    pack's lanes with that pack's tables, the same totals and lattice."""
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    x, y, lx, ly, m, i, p = args
+    d = 0.0
+    for lanes in lane_groups(m, i, p):
+        k = int(lanes[0])
+        sub = tuple(t[lanes].contiguous() for t in (x, y, lx, ly))
+        post1, mea1 = pc.pairhmm_bwd_post(
+            *sub, m[k].contiguous(), i[k].contiguous(), p[k].contiguous(),
+            tot[lanes].contiguous(), fm[lanes].contiguous())
+        d = max(d, float((post[lanes] - post1).abs().max()),
+                float((mea[lanes] - mea1).abs().max()))
+    return d
+
+
+def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
+    """Kernels 1M and 2M at B = 512, L = 512 with the 4 packs of
+    ENSEMBLE_SEEDS mixed lane by lane, each against its plain version and
+    each lane against kernels A/B on its pack (max |d| = 0 required);
+    kernels 1E/2E with per-pair params on the per-pair lattice against
+    1M/2M (= 0); kernel 3K at the same shape against its plain version
+    (= 0), and the whole legacy letter route (A, 3K, finish_posteriors,
+    4) against the fused route (A, B) at the kernel gate. Times (CUDA
+    events), bounds, plain versions' times and ptxas's lines."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+
+    for line in ptxas_lines(["pairhmm_fwd", "pairhmm_bwd_post",
+                             "pairhmm_bwd_codes"]):
+        print(f"ptxas: {line}", flush=True)
+    xb, yb, lx, ly = ragged_batch(b, width // 3, width, width, seed=20261017)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(dev) for a in (xb, yb, lx, ly))
+    reps = [k % len(ENSEMBLE_SEEDS) for k in range(b)]
+    packs, (m, i, s, t) = ensemble_tables(dev, reps)
+    m, i = m.contiguous(), i.contiguous()
+    p = pc.params_rows(s, t)
+    args = (x, y, lxt, lyt, m, i, p)
+    cells = float(np.sum(lx.astype(np.int64) * ly.astype(np.int64)))
+    kk = i.shape[1]
+    rows = torch.arange(width, device=dev)[None, :, None] < lxt[:, None, None]
+
+    fm, fend = pc.pairhmm_fwd(*args)
+    fm2, fend2 = pc.fwd_plain(*args)
+    d1 = max(float((fm - fm2).where(rows, 0.0).abs().max()),
+             float((fend - fend2).abs().max()))
+    tot = pc._total_prob(fend, p)
+    post, mea = pc.pairhmm_bwd_post(*args, tot, fm)
+    post2, mea2 = pc.bwd_post_plain(*args, tot, fm)
+    torch.cuda.synchronize()
+    d2 = max(float((post - post2).abs().max()), float((mea - mea2).abs().max()))
+    lane1, lane2 = hold_multi_fwd(args, fm, fend), \
+        hold_multi_bwd(args, tot, fm, post, mea)
+    print(f"kernel 1M pairhmm_fwd_multi vs plain ({b} pairs, {width} x "
+          f"{width}, packs of seeds {list(ENSEMBLE_SEEDS)} lane by lane): max "
+          f"|d| {d1:.3e}; each pack's lanes vs kernel A on that pack: "
+          f"{lane1:.3e}; kernel 2M pairhmm_bwd_post_multi vs plain: "
+          f"{d2:.3e}; vs kernel B: {lane2:.3e} "
+          f"{'equal' if d1 == d2 == lane1 == lane2 == 0 else 'FAIL'}",
+          flush=True)
+    if d1 or d2 or lane1 or lane2:
+        raise SmokeFailure("kernel 1M or 2M differs from its plain version "
+                           "or from kernels A/B")
+    del fm2, post2
+
+    # 1E / 2E with per-pair params on the per-pair lattice m[b, x_i, y_j]
+    ar = torch.arange(b, device=dev)[:, None, None]
+    el = m[ar, x.long()[:, :, None], y.long()[:, None, :]].contiguous()
+    ins_x = torch.gather(i, 1, x.long()).contiguous()
+    ins_y = torch.gather(i, 1, y.long()).contiguous()
+    fme, fende = pe.pairhmm_fwd_emis(el, ins_x, ins_y, lxt, lyt, p)
+    poste, meae = pe.pairhmm_bwd_post_emis(el, ins_x, ins_y, lxt, lyt, p, tot,
+                                           fm)
+    torch.cuda.synchronize()
+    de = max(float((fme - fm).where(rows, 0.0).abs().max()),
+             float((fende - fend).abs().max()),
+             float((poste - post).abs().max()), float((meae - mea).abs().max()))
+    print(f"kernels 1E/2E with per-pair params on the per-pair lattice vs "
+          f"1M/2M: max |d| {de:.3e} {'equal' if de == 0 else 'FAIL'}",
+          flush=True)
+    if de:
+        raise SmokeFailure("kernels 1E/2E with per-pair params differ from "
+                           "1M/2M")
+    del el, ins_x, ins_y, fme, poste
+
+    rb = pc.pairhmm_bwd_codes(*args)
+    rb2 = pc.bwd_codes_plain(*args)
+    torch.cuda.synchronize()
+    d3 = float((rb - rb2).abs().max())
+    print(f"kernel 3K pairhmm_bwd_codes vs plain (per-pair tables, {b} pairs, "
+          f"{width} x {width}): max |d| {d3:.3e} "
+          f"{'equal' if d3 == 0 else 'FAIL'}", flush=True)
+    if d3:
+        raise SmokeFailure("kernel 3K differs from its plain version")
+    del rb2
+
+    # the legacy letter route against the fused one, on these lanes
+    post_l, ea_l = pc.batch_posteriors_cuda_multi(x, y, lxt, lyt, m, i, s, t,
+                                                  fused=False)
+    ea_f = mea / torch.minimum(lxt, lyt).float()
+    d_post, d_ea = gate(post, ea_f, post_l, ea_l)
+    ok = d_post < 2e-3 and d_ea < 2e-3
+    print(f"legacy letter route (1M, 3K, finish_posteriors, 4) vs fused (1M, "
+          f"2M) at {b} x {width}: posterior {d_post:.3e} (flips ignored, tol "
+          f"2e-3), EA {d_ea:.3e} (tol 2e-3) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SmokeFailure("the legacy letter route disagrees with the fused "
+                           "route")
+    del post_l
+
+    ms1 = time_cuda(lambda: pc.pairhmm_fwd(*args))
+    ms2 = time_cuda(lambda: pc.pairhmm_bwd_post(*args, tot, fm))
+    ms3 = time_cuda(lambda: pc.pairhmm_bwd_codes(*args))
+    plain1 = time_cuda(lambda: pc.fwd_plain(*args), reps=1)
+    plain2 = time_cuda(lambda: pc.bwd_post_plain(*args, tot, fm), reps=1)
+    plain3 = time_cuda(lambda: pc.bwd_codes_plain(*args), reps=1)
+    # bytes this run's pairs need: the real codes, both lengths and each
+    # pair's tables and params in; 1M writes the M lattice's real cells
+    # and the final states; 2M reads those cells and the totals and
+    # writes the dense posterior and the MEA scores; 3K writes RB_M's
+    # real cells (the combine reads no other)
+    inputs = 4 * (float(lx.sum()) + float(ly.sum()) + 2 * b
+                  + b * (kk * kk + kk + 16))
+    bnd1 = bound_ms(inputs + 4 * cells + 4 * 5 * b, cells * FWD_OPS_PER_CELL)
+    bnd2 = bound_ms(inputs + 4 * b + 4 * cells + 4 * b * width * width
+                    + 4 * b, cells * BWD_POST_OPS_PER_CELL)
+    bnd3 = bound_ms(inputs + 4 * cells, cells * BWD_OPS_PER_CELL)
+    print(f"kernel 1M {ms1:.3f} ms (plain {plain1:.1f} ms, bound "
+          f"{bnd1[0]:.4f} ms by {bnd1[1]}); kernel 2M {ms2:.3f} ms (plain "
+          f"{plain2:.1f} ms, bound {bnd2[0]:.4f} ms by {bnd2[1]}); kernel 3K "
+          f"{ms3:.3f} ms (plain {plain3:.1f} ms, bound {bnd3[0]:.4f} ms by "
+          f"{bnd3[1]}); {b} pairs, {cells:.0f} real cells", flush=True)
+    del fm, post, rb
+    torch.cuda.empty_cache()
+    rep = "muscle_tpu/ops/pairhmm_pallas.py"
+    return [{"name": name, "route": "cuda",
+             "source": f"muscle_tpu_torch/csrc/{src}", "replaces": f"{rep}:{ln}",
+             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+            for name, src, ln, err, ms, plain, bnd in (
+                ("pairhmm_fwd_multi", "pairhmm_fwd.cu", 304, max(d1, lane1),
+                 ms1, plain1, bnd1),
+                ("pairhmm_bwd_post_multi", "pairhmm_bwd_post.cu", 565,
+                 max(d2, lane2), ms2, plain2, bnd2),
+                ("pairhmm_bwd_codes", "pairhmm_bwd_codes.cu", 443, d3, ms3,
+                 plain3, bnd3))]
+
+
+MULTI_KERNELS = ("pairhmm_fwd_multi", "pairhmm_bwd_post_multi")
+
+
+def hold_plain(name, args, out):
+    """Max |d| of a kernel-1M or 2M launch's output against its plain
+    version on all of its lanes, the same per-pair tables and inputs (fm
+    on rows < lx, as kernel 1M leaves the rest unwritten)."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    if name == "pairhmm_fwd_multi":
+        fm, fend = out
+        fm2, fend2 = pc.fwd_plain(*args)
+        rows = torch.arange(fm.shape[1], device=fm.device)[None, :, None] \
+            < args[2][:, None, None]
+        return max(float((fm - fm2).where(rows, 0.0).abs().max()),
+                   float((fend - fend2).abs().max()))
+    post, mea = out
+    post2, mea2 = pc.bwd_post_plain(*args)
+    return max(float((post - post2).abs().max()),
+               float((mea - mea2).abs().max()))
+
+
+class MultiKernelCheck:
+    """Stands in for the letter-path wrappers while an ensemble runs:
+    each launch of kernels 1M and 2M (per-pair tables) is held, as it
+    happens, lane by lane against kernels A and B on each pack's lanes
+    with that pack's tables and the same inputs (hold_multi_fwd,
+    hold_multi_bwd), and the first launch of each, on all its lanes,
+    against its plain version (hold_plain); the launches the checks make
+    are taken back out of the counts, and the seconds and device memory
+    they take out of the run's wall, stage walls and peak."""
+
+    NAMES = ("pairhmm_fwd", "pairhmm_bwd_post")
+
+    def __init__(self):
+        self.errs = {k: [] for k in MULTI_KERNELS}
+        self.plain_errs = {k: [] for k in MULTI_KERNELS}
+        self.plain_shapes = {}
+        self.seconds = 0.0
+        self.peak = 0
+        self.saved = {}
+
+    def _held(self, into, check):
+        import torch
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        counts = dict(pc.LAUNCHES)
+        into.append(check())
+        pc.LAUNCHES.update(counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.seconds += time.perf_counter() - t0
+
+    def _hold(self, name, lanes, args, out):
+        self._held(self.errs[name], lanes)
+        if not self.plain_errs[name]:
+            self.plain_shapes[name] = tuple(args[4].shape[:1]) \
+                + tuple(args[0].shape[1:]) + tuple(args[1].shape[1:])
+            self._held(self.plain_errs[name],
+                       lambda: hold_plain(name, args, out))
+
+    def fwd(self, *args):
+        fm, fend = self.saved["pairhmm_fwd"](*args)
+        if args[4].dim() == 3:
+            self._hold("pairhmm_fwd_multi",
+                       lambda: hold_multi_fwd(args, fm, fend), args,
+                       (fm, fend))
+        return fm, fend
+
+    def bwd_post(self, *args, **kwargs):
+        post, mea = self.saved["pairhmm_bwd_post"](*args, **kwargs)
+        if args[4].dim() == 3:
+            self._hold("pairhmm_bwd_post_multi",
+                       lambda: hold_multi_bwd(args[:7], args[7], args[8],
+                                              post, mea),
+                       args[:9], (post, mea))
+        return post, mea
+
+    def __enter__(self):
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        self.saved = {k: getattr(pc, k) for k in self.NAMES}
+        pc.pairhmm_fwd, pc.pairhmm_bwd_post = self.fwd, self.bwd_post
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        for k, fn in self.saved.items():
+            setattr(pc, k, fn)
+
+
+class LetterLegacyCheck:
+    """Stands in for kernel 3K's wrapper while the legacy letter route
+    runs: each launch held, as it happens, to its plain version on the
+    same inputs; the checks' time kept out of the wall."""
+
+    def __init__(self):
+        self.errs: list[float] = []
+        self.seconds = 0.0
+        self.saved = None
+
+    def __call__(self, *args):
+        import torch
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        rb = self.saved(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.errs.append(float((rb - pc.bwd_codes_plain(*args)).abs().max()))
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return rb
+
+    def __enter__(self):
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        self.saved = pc.pairhmm_bwd_codes
+        pc.pairhmm_bwd_codes = self
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        pc.pairhmm_bwd_codes = self.saved
+
+
+def efa_blocks(path):
+    """[(name, FASTA text)] of an EFA, in its order."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("<"):
+                out.append([line[1:].strip(), ""])
+            else:
+                out[-1][1] += line
+    return [tuple(b) for b in out]
+
+
+def run_ensemble(name, seqs, dev, opts, workdir):
+    """One run_align_command("align", ...) of an ensemble, the function
+    the CLI calls: the launch counts set to 0 just before it and read
+    just after; kernels 1M and 2M must have launched, every launch of
+    them is held to the single-pack kernels and the first of each to its
+    plain version (MultiKernelCheck); every replicate must be an
+    alignment of the input. Returns (EFA path, blocks, wall s, stage
+    walls, peak device bytes, launches, the check)."""
+    import torch
+    from muscle_tpu_torch.pipeline.ensemble import run_align_command
+    from muscle_tpu_torch.utils import logging as mlog
+    inp = os.path.join(workdir, f"{name}.fa")
+    seqs.write_fasta(inp)
+    efa = os.path.join(workdir, f"{name}.efa")
+    mlog.STAGE_TIMES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with MultiKernelCheck() as check:
+        t0 = time.perf_counter()
+        run_align_command("align", inp, efa, {**opts, "device": str(dev)})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - check.seconds
+    got = launches()
+    peak = max(torch.cuda.max_memory_allocated(), check.peak)
+    for k, v in got.items():
+        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
+    missing = [k for k in MULTI_KERNELS if got[k] <= 0]
+    if missing:
+        raise SmokeFailure(f"{name}: {missing} not launched")
+    for k, errs in check.errs.items():
+        print(f"{name}: {len(errs)} kernel {k} launch(es) held lane by lane "
+              f"to the single-pack kernels: max |d| {max(errs or [0.0]):.3e}",
+              flush=True)
+        if len(errs) != got[k]:
+            raise SmokeFailure(f"{name}: {got[k]} {k} launches, {len(errs)} "
+                               "held")
+        if any(errs):
+            raise SmokeFailure(f"{name}: a {k} launch differs from the "
+                               "single-pack kernels")
+        plain = check.plain_errs[k]
+        print(f"{name}: kernel {k}'s first launch ({check.plain_shapes.get(k)}"
+              f" lanes x Lx x Ly) held on all its lanes to its plain version: "
+              f"max |d| {max(plain or [0.0]):.3e}", flush=True)
+        if len(plain) != 1 or any(plain):
+            raise SmokeFailure(f"{name}: kernel {k}'s first launch unheld or "
+                               "different from its plain version")
+    blocks = efa_blocks(efa)
+    from muscle_tpu_torch import MultiSequence
+    for rep, text in blocks:
+        check_alignment(seqs, MultiSequence.from_fasta_text(text),
+                        f"{name} replicate {rep}")
+    stages = {}
+    for k, v in mlog.STAGE_TIMES.items():
+        if k.startswith("ensemble posteriors"):
+            v -= check.seconds
+        stages[k] = round(v, 4)
+    return efa, blocks, wall, stages, peak, got, check
+
+
+def print_efa_tools(name, efa):
+    """-maxcc, -disperse and -efastats of an ensemble's EFA (the port's
+    CLI handlers)."""
+    import io
+    from muscle_tpu_torch.cli import main as cli_main
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for cmd in ("maxcc", "disperse", "efastats"):
+            if cli_main([f"-{cmd}", efa, "-quiet"]) != 0:
+                raise SmokeFailure(f"{name}: -{cmd} failed")
+    lines = buf.getvalue().splitlines()
+    for line in lines[:2]:
+        print(f"{name}: {line}", flush=True)
+    print(f"{name}: -efastats {lines[2]}; {len(lines) - 3} replicate lines "
+          f"(EFA tools {time.perf_counter() - t0:.2f}s)", flush=True)
+
+
+# ensemble-48: a Pfam-seed-sized protein family, padded to 384 so that
+# n * pad = 18,432 > SMALL_DENSE_NL and the serial MPC takes the same
+# Gram-consistency, host-refine branch as the batched loop
+ENSEMBLE_48 = (48, 300, 384, 48)
+
+
+def phase_ensembles(dev) -> dict:
+    """The ensembles through run_align_command (the CLI's function):
+    ensemble-48 (-stratified: seeds 0-3 x none/abc/acb/bca, default
+    consiters and refineiters; its none.0 must equal align() of the same
+    family), diversified-BB11002 (-diversified: 100 replicates, seed 0
+    unperturbed, on the degapped golden; none.0's identity to the golden
+    and Q printed), each with every kernel-1M/2M launch held lane by lane
+    and the first of each held to its plain version (MultiKernelCheck);
+    then legacy-BB11001 (align() under the legacy
+    letter route, fused=False: kernels A, 3K, 4, each 3K launch held to
+    its plain version)."""
+    import tempfile
+    import torch
+    from muscle_tpu_torch import MultiSequence
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    out = {}
+    # inputs and EFAs go under the checkout's gitignored build/
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir:
+        n, lo, hi, seed = ENSEMBLE_48
+        seqs = synthetic_family(n, lo, hi, seed=seed)
+        name = "ensemble-48"
+        efa, blocks, wall, stages, peak, got, check = run_ensemble(
+            name, seqs, dev, {"stratified": True}, workdir)
+        print(f"{name}: n={n} L {min(len(s) for s in seqs)}-"
+              f"{max(len(s) for s in seqs)} -stratified: {len(blocks)} "
+              f"replicates wall={wall:.2f}s (checks {check.seconds:.2f}s "
+              f"out) peak_device_mem={peak / 2**30:.3f} GiB "
+              f"stages={json.dumps(stages)} launches={json.dumps(got)}",
+              flush=True)
+        if [b[0] for b in blocks] != [f"{p}.{s}" for s in range(4)
+                                      for p in ("none", "abc", "acb", "bca")]:
+            raise SmokeFailure(f"{name}: replicates {[b[0] for b in blocks]}")
+        msa, swall, sstages, _ = run_path(f"{name} align", seqs, dev,
+                                          PAIR_KERNELS + DENSIFY)
+        same = msa.to_fasta_text() == blocks[0][1]
+        print(f"{name}: align() of the same family wall={swall:.2f}s "
+              f"stages={json.dumps(sstages)}; replicate none.0 equal to it: "
+              f"{same}", flush=True)
+        if not same:
+            raise SmokeFailure(f"{name}: replicate none.0 differs from align()")
+        print_efa_tools(name, efa)
+        out[name] = {"wall_s": wall, "stages": stages, "peak_bytes": peak,
+                     "align_wall_s": swall, "errs": check.errs,
+                     "plain_errs": check.plain_errs}
+
+        gold = MultiSequence.from_fasta(
+            os.path.join(ROOT, "tests/goldens/BB11002.seq.afa"))
+        seqs = MultiSequence.from_fasta(
+            os.path.join(ROOT, "tests/goldens/BB11002.seq.afa"),
+            strip_gaps=True)
+        name = "diversified-BB11002"
+        efa, blocks, wall, stages, peak, got, check = run_ensemble(
+            name, seqs, dev, {"diversified": True}, workdir)
+        none0 = MultiSequence.from_fasta_text(blocks[0][1])
+        ident = ({s.label: s.text() for s in none0}
+                 == {s.label: s.text() for s in gold})
+        print(f"{name}: n={len(seqs)} -diversified: {len(blocks)} replicates "
+              f"wall={wall:.2f}s (checks {check.seconds:.2f}s out) "
+              f"peak_device_mem={peak / 2**30:.3f} GiB "
+              f"stages={json.dumps(stages)} launches={json.dumps(got)}; "
+              f"none.0 column-identical to the golden: {ident}, "
+              f"Q={q_score(none0, gold):.4f}", flush=True)
+        if len(blocks) != 100 or blocks[0][0] != "none.0":
+            raise SmokeFailure(f"{name}: {len(blocks)} replicates")
+        print_efa_tools(name, efa)
+        out[name] = {"wall_s": wall, "stages": stages, "peak_bytes": peak,
+                     "errs": check.errs, "plain_errs": check.plain_errs}
+
+    name = "legacy-BB11001"
+    seqs = MultiSequence.from_fasta(
+        os.path.join(ROOT, FAMILIES[0][1]), strip_gaps=True)
+    saved = pc.FUSED
+    pc.FUSED = False
+    try:
+        with LetterLegacyCheck() as check:
+            msa, wall, stages, got = run_path(
+                name, seqs, dev, ("pairhmm_fwd", "pairhmm_bwd_codes",
+                                  "mea_scores"))
+    finally:
+        pc.FUSED = saved
+    wall -= check.seconds
+    fused, _, _, _ = run_path(f"{name} fused", seqs, dev, PAIR_KERNELS)
+    same = msa.to_fasta_text() == fused.to_fasta_text()
+    gold = MultiSequence.from_fasta(os.path.join(ROOT, FAMILIES[0][3]))
+    print(f"{name}: the legacy letter route (fused=False): wall={wall:.2f}s "
+          f"launches={json.dumps(got)}; {len(check.errs)} kernel-3K "
+          f"launch(es) held to the plain version: max |d| "
+          f"{max(check.errs or [0.0]):.3e}; text equal to the fused route's: "
+          f"{same}; Q vs golden {q_score(msa, gold):.4f}", flush=True)
+    if len(check.errs) != got["pairhmm_bwd_codes"] or any(check.errs):
+        raise SmokeFailure(f"{name}: a kernel-3K launch unheld or different "
+                           "from its plain version")
+    out[name] = {"wall_s": wall, "errs": check.errs}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1845,7 +2388,7 @@ def main() -> int:
 
     kernels = (phase_kernels(dev) + phase_long_kernels(dev)
                + phase_gram_join_kernels(dev) + [phase_list_kernel(dev)]
-               + phase_mega_kernels(dev, sets))
+               + phase_mega_kernels(dev, sets) + phase_ensemble_kernels(dev))
 
     t0 = time.perf_counter()
     phase_families(dev)
@@ -1853,6 +2396,7 @@ def main() -> int:
     phase_long_families(dev)
     s5 = phase_super5(dev)
     legacy_errs = phase_mega(dev, sets)["legacy_errs"]
+    ens = phase_ensembles(dev)
     print(f"main path: {time.perf_counter() - t0:.1f}s", flush=True)
     phase_scan_route(dev)
     # kernel 7L's entry: its times and bound at the main path's largest
@@ -1867,9 +2411,14 @@ def main() -> int:
                library_ms=big["lib_ms"])
     print(f"kernel 7L entry: the largest device join ({big['shape']})",
           flush=True)
+    held = dict(legacy_errs)
+    for k in MULTI_KERNELS:
+        held[k] = [e for run in ("ensemble-48", "diversified-BB11002")
+                   for errs in (ens[run]["errs"], ens[run]["plain_errs"])
+                   for e in errs[k]]
+    held["pairhmm_bwd_codes"] = ens["legacy-BB11001"]["errs"]
     for k in kernels:
-        k["max_abs_err"] = max([k["max_abs_err"]]
-                               + legacy_errs.get(k["name"], []))
+        k["max_abs_err"] = max([k["max_abs_err"]] + held.get(k["name"], []))
     for k in kernels:
         k["launches"] = MAIN_PATH.get(k["name"], 0)
         if k["launches"] <= 0:

@@ -1,4 +1,5 @@
-"""muscle_tpu_torch — MUSCLE v5's -align and -super5 in PyTorch + CUDA.
+"""muscle_tpu_torch — MUSCLE v5's -align (ensembles included) and -super5
+in PyTorch + CUDA.
 
 Port of muscle_tpu (JAX) to PyTorch with hand-written CUDA kernels for
 an NVIDIA H100 (muscle_tpu_torch/csrc/). The pair-HMM posteriors and the
@@ -9,6 +10,8 @@ points run on the GPU unless `device="cpu"` is passed.
 Top-level API:
     align(seqs, **opts)    -> aligned MultiSequence  (reference: -align)
     super5(seqs, **opts)   -> aligned MultiSequence  (reference: -super5)
+Ensembles and the EFA tools: pipeline/ensemble.py (run_align_command,
+Ensemble) and the CLI (cli.py).
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,24 @@
 // Kernel B: pair-HMM backward + posterior + MEA from letters (the kernel
 // is in pairhmm_bwd_post.cuh; kernel 2E, its emission-lattice form, in
-// pairhmm_bwd_post_emis.cu).
+// pairhmm_bwd_post_emis.cu), and kernel 2M, the same kernel with per-pair
+// score tables.
 //
 // Replaces muscle_tpu/ops/pairhmm_pallas.py::_bwd_post_kernel (kk=K,
-// launched by _bwd_post_pallas). Ly <= 10240 (S <= 5).
+// launched by _bwd_post_pallas; kernel 2M: the per-pair-table form that
+// batch_posteriors_pallas_multi runs). Ly <= 10240 (S <= 5).
 #include "pairhmm_bwd_post.cuh"
 
+// per_pair as in pairhmm_fwd.cu: 0 for one table set shared by every
+// pair (kernel B), 1 for one a pair (kernel 2M).
 extern "C" int pairhmm_bwd_post(const int* xb, const int* yb, const int* lxb,
                                 const int* lyb, const float* match,
                                 const float* insert, const float* params,
-                                const float* tot, int B, int Lx, int Ly,
-                                int kk, int with_mea, const float* fm,
+                                int per_pair, const float* tot, int B, int Lx,
+                                int Ly, int kk, int with_mea, const float* fm,
                                 float* post, float* mea, void* stream) {
-  const CodeEmission::Args args{xb, yb, match, insert, kk};
+  const CodeEmission::Args args{xb, yb, match, insert, kk,
+                                per_pair ? kk * kk : 0, per_pair ? kk : 0};
   return dispatch_bwd_post<CodeEmission, 5>(
-      B, static_cast<cudaStream_t>(stream), args, lxb, lyb, params, tot, Lx,
-      Ly, with_mea, fm, post, mea);
+      B, static_cast<cudaStream_t>(stream), args, lxb, lyb, params,
+      per_pair ? 16 : 0, tot, Lx, Ly, with_mea, fm, post, mea);
 }

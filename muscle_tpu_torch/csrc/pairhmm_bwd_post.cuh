@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(1024)
 pairhmm_bwd_post_kernel(const typename Src::Args args,
                         const int* __restrict__ lxb,
                         const int* __restrict__ lyb,
-                        const float* __restrict__ params,
+                        const float* __restrict__ params, int pstride,
                         const float* __restrict__ tot, int Lx, int Ly,
                         int with_mea, const float* __restrict__ fm,
                         float* __restrict__ post, float* __restrict__ mea_out) {
@@ -65,10 +65,11 @@ pairhmm_bwd_post_kernel(const typename Src::Args args,
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   Src src(args, b, Lx, Ly, smem);
-  const float tSM = params[TSM], tSI = params[TSI], tSJ = params[TSJ];
-  const float tMM = params[TMM], tMI = params[TMI], tMJ = params[TMJ];
-  const float tII = params[TII], tIM = params[TIM], tJJ = params[TJJ];
-  const float tJM = params[TJM];
+  const float* pp = pair_params(params, pstride, b);
+  const float tSM = pp[TSM], tSI = pp[TSI], tSJ = pp[TSJ];
+  const float tMM = pp[TMM], tMI = pp[TMI], tMJ = pp[TMJ];
+  const float tII = pp[TII], tIM = pp[TIM], tJJ = pp[TJJ];
+  const float tJM = pp[TJM];
   const float totb = tot[b];
   const int lx = lxb[b], ly = lyb[b];
   const int q0 = Ly - ly;
@@ -298,13 +299,13 @@ pairhmm_bwd_post_kernel(const typename Src::Args args,
 template <int S, class Src>
 static int launch_bwd_post(const Geometry& geo, int B, cudaStream_t st,
                            const typename Src::Args& args, const int* lxb,
-                           const int* lyb, const float* params,
+                           const int* lyb, const float* params, int pstride,
                            const float* tot, int Lx, int Ly, int with_mea,
                            const float* fm, float* post, float* mea) {
   const cudaError_t e = allow_smem(pairhmm_bwd_post_kernel<S, Src>, geo.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   pairhmm_bwd_post_kernel<S, Src><<<B, geo.W * 32, geo.smem, st>>>(
-      args, lxb, lyb, params, tot, Lx, Ly, with_mea, fm, post, mea);
+      args, lxb, lyb, params, pstride, tot, Lx, Ly, with_mea, fm, post, mea);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,30 +313,30 @@ static int launch_bwd_post(const Geometry& geo, int B, cudaStream_t st,
 template <class Src, int MAX_S>
 static int dispatch_bwd_post(int B, cudaStream_t st,
                              const typename Src::Args& args, const int* lxb,
-                             const int* lyb, const float* params,
+                             const int* lyb, const float* params, int pstride,
                              const float* tot, int Lx, int Ly, int with_mea,
                              const float* fm, float* post, float* mea) {
   const Geometry geo = geometry(Ly, Src::table_floats(args), 11);
   switch (geo.S) {
     case 1:
-      return launch_bwd_post<1, Src>(geo, B, st, args, lxb, lyb, params, tot,
+      return launch_bwd_post<1, Src>(geo, B, st, args, lxb, lyb, params, pstride, tot,
                                      Lx, Ly, with_mea, fm, post, mea);
     case 2:
-      return launch_bwd_post<2, Src>(geo, B, st, args, lxb, lyb, params, tot,
+      return launch_bwd_post<2, Src>(geo, B, st, args, lxb, lyb, params, pstride, tot,
                                      Lx, Ly, with_mea, fm, post, mea);
     case 3:
-      return launch_bwd_post<3, Src>(geo, B, st, args, lxb, lyb, params, tot,
+      return launch_bwd_post<3, Src>(geo, B, st, args, lxb, lyb, params, pstride, tot,
                                      Lx, Ly, with_mea, fm, post, mea);
     case 4:
-      return launch_bwd_post<4, Src>(geo, B, st, args, lxb, lyb, params, tot,
+      return launch_bwd_post<4, Src>(geo, B, st, args, lxb, lyb, params, pstride, tot,
                                      Lx, Ly, with_mea, fm, post, mea);
     case 5:
-      return launch_bwd_post<5, Src>(geo, B, st, args, lxb, lyb, params, tot,
+      return launch_bwd_post<5, Src>(geo, B, st, args, lxb, lyb, params, pstride, tot,
                                      Lx, Ly, with_mea, fm, post, mea);
     case 6:
       if constexpr (MAX_S >= 6)
         return launch_bwd_post<6, Src>(geo, B, st, args, lxb, lyb, params,
-                                       tot, Lx, Ly, with_mea, fm, post, mea);
+                                       pstride, tot, Lx, Ly, with_mea, fm, post, mea);
       [[fallthrough]];
     default:
       return static_cast<int>(cudaErrorInvalidValue);

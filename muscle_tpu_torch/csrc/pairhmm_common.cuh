@@ -32,6 +32,15 @@ constexpr float MIN_SPARSE_SCORE = -4.605170185988091f;  // log(0.01)
 // params layout (ops/pairhmm_cuda.py P_*)
 enum { TSM, TSI, TSJ, TMM, TMI, TMJ, TII, TIM, TJJ, TJM };
 
+// The params row of pair b: one (16,) vector shared by every pair
+// (stride 0) or (B, 16) rows, one a pair (stride 16: the per-pair tables
+// of the ensembles' replicate batching, muscle_tpu's
+// _params_rows_multi). The kernels' prologue reads its ten scores.
+__device__ __forceinline__ const float* pair_params(const float* params,
+                                                    int stride, int b) {
+  return params + (size_t)b * stride;
+}
+
 __device__ __forceinline__ float madd(float a, float x, float c) {
   return __fadd_rn(__fmul_rn(a, x), c);
 }
@@ -182,14 +191,18 @@ __device__ __forceinline__ void block_cumsum(float v[S][2], float* row,
 // that the block sets up once: each lane keeps a tag (the y letter, for
 // letters), `row(i)` selects DP row i (x position i, 0-based) and sets
 // its x insert score `insx`, `emit2(j, t, u)` gives the emissions of
-// columns j and j + 1 of that row (tags t and u; j even), and
-// `insy(j, t)` the y insert score of column j. Both sources give the
+// columns j and j + 1 of that row (tags t and u; j even), `emit1(j, t)`
+// that of column j alone (the legacy backward, which reads columns in
+// reverse), and `insy(j, t)` the y insert score of column j. Both sources give the
 // same numbers for the same scores: fed the letter lattice
 // match[x_i, y_j] with insert[x_i], insert[y_j], the lattice source
 // reproduces the letter source bit for bit.
 
 // Letters: codes and the (K+1)^2 match / (K+1) insert tables, copied into
-// shared memory (kernels A and B).
+// shared memory (kernels A and B, and 3K). The tables are shared by every
+// pair (strides 0) or stacked one a pair (match_stride (K+1)^2,
+// ins_stride K+1: kernels 1M and 2M); the block of pair b copies its own,
+// so the shared memory a block takes is the same.
 struct CodeEmission {
   struct Args {
     const int* xb;
@@ -197,6 +210,8 @@ struct CodeEmission {
     const float* match;
     const float* insert;
     int kk;
+    int match_stride;
+    int ins_stride;
   };
   const int* xrow;
   const int* yrow;
@@ -213,10 +228,12 @@ struct CodeEmission {
       : xrow(a.xb + (size_t)b * Lx), yrow(a.yb + (size_t)b * Ly),
         s_match(smem), s_ins(smem + a.kk * a.kk), mrow(smem), kk(a.kk),
         insx(0.0f) {
+    const float* match = a.match + (size_t)b * a.match_stride;
+    const float* insert = a.insert + (size_t)b * a.ins_stride;
     for (int k = threadIdx.x; k < kk * kk; k += blockDim.x)
-      smem[k] = a.match[k];
+      smem[k] = match[k];
     for (int k = threadIdx.x; k < kk; k += blockDim.x)
-      smem[kk * kk + k] = a.insert[k];
+      smem[kk * kk + k] = insert[k];
   }
   __device__ int tag(int j) const { return yrow[j]; }
   __device__ float insy(int, int t) const { return s_ins[t]; }
@@ -228,6 +245,7 @@ struct CodeEmission {
   __device__ float2 emit2(int, int t, int u) const {
     return make_float2(mrow[t], mrow[u]);
   }
+  __device__ float emit1(int, int t) const { return mrow[t]; }
 };
 
 // A precomputed (B, Lx, Ly) f32 emission lattice with (B, Lx) x and
@@ -259,6 +277,7 @@ struct LatticeEmission {
   __device__ float2 emit2(int j, int, int) const {
     return *reinterpret_cast<const float2*>(erow + j);
   }
+  __device__ float emit1(int j, int) const { return erow[j]; }
 };
 
 // Launch geometry shared by kernels A and B: S segments per warp, at

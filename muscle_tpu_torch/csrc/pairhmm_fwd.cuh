@@ -43,8 +43,8 @@ template <int S, class Src>
 __global__ void __launch_bounds__(1024)
 pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
                    const int* __restrict__ lyb,
-                   const float* __restrict__ params, int Lx, int Ly,
-                   float* __restrict__ fm, float* __restrict__ fend) {
+                   const float* __restrict__ params, int pstride, int Lx,
+                   int Ly, float* __restrict__ fm, float* __restrict__ fend) {
   extern __shared__ float smem[];
   const int nseg = Ly >> 6;
   const int W = blockDim.x >> 5;
@@ -57,10 +57,11 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
   const int b = blockIdx.x;
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;
   Src src(args, b, Lx, Ly, smem);
-  const float tSM = params[TSM], tSI = params[TSI], tSJ = params[TSJ];
-  const float tMM = params[TMM], tMI = params[TMI], tMJ = params[TMJ];
-  const float tII = params[TII], tIM = params[TIM], tJJ = params[TJJ];
-  const float tJM = params[TJM];
+  const float* pp = pair_params(params, pstride, b);
+  const float tSM = pp[TSM], tSI = pp[TSI], tSJ = pp[TSJ];
+  const float tMM = pp[TMM], tMI = pp[TMI], tMJ = pp[TMJ];
+  const float tII = pp[TII], tIM = pp[TIM], tJJ = pp[TJJ];
+  const float tJM = pp[TJM];
   const int lx = lxb[b], ly = lyb[b];
   float* fm_b = fm + (size_t)b * Lx * Ly;
   __syncthreads();
@@ -202,12 +203,12 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
 template <int S, class Src>
 static int launch_fwd(const Geometry& geo, int B, cudaStream_t st,
                       const typename Src::Args& args, const int* lxb,
-                      const int* lyb, const float* params, int Lx, int Ly,
-                      float* fm, float* fend) {
+                      const int* lyb, const float* params, int pstride,
+                      int Lx, int Ly, float* fm, float* fend) {
   const cudaError_t e = allow_smem(pairhmm_fwd_kernel<S, Src>, geo.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   pairhmm_fwd_kernel<S, Src><<<B, geo.W * 32, geo.smem, st>>>(
-      args, lxb, lyb, params, Lx, Ly, fm, fend);
+      args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -215,22 +216,22 @@ static int launch_fwd(const Geometry& geo, int B, cudaStream_t st,
 template <class Src, int MAX_S>
 static int dispatch_fwd(int B, cudaStream_t st, const typename Src::Args& args,
                         const int* lxb, const int* lyb, const float* params,
-                        int Lx, int Ly, float* fm, float* fend) {
+                        int pstride, int Lx, int Ly, float* fm, float* fend) {
   const Geometry geo = geometry(Ly, Src::table_floats(args), 8);
   switch (geo.S) {
     case 1:
-      return launch_fwd<1, Src>(geo, B, st, args, lxb, lyb, params, Lx, Ly, fm, fend);
+      return launch_fwd<1, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
     case 2:
-      return launch_fwd<2, Src>(geo, B, st, args, lxb, lyb, params, Lx, Ly, fm, fend);
+      return launch_fwd<2, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
     case 3:
-      return launch_fwd<3, Src>(geo, B, st, args, lxb, lyb, params, Lx, Ly, fm, fend);
+      return launch_fwd<3, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
     case 4:
-      return launch_fwd<4, Src>(geo, B, st, args, lxb, lyb, params, Lx, Ly, fm, fend);
+      return launch_fwd<4, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
     case 5:
-      return launch_fwd<5, Src>(geo, B, st, args, lxb, lyb, params, Lx, Ly, fm, fend);
+      return launch_fwd<5, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
     case 6:
       if constexpr (MAX_S >= 6)
-        return launch_fwd<6, Src>(geo, B, st, args, lxb, lyb, params, Lx, Ly, fm, fend);
+        return launch_fwd<6, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
       [[fallthrough]];
     default:
       return static_cast<int>(cudaErrorInvalidValue);

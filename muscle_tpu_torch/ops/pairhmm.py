@@ -115,6 +115,12 @@ def _cumsum_xla(x, base: int = 16):
     return out[..., :n]
 
 
+def _col(t, k):
+    """Score k of a shared vector (a scalar) or of per-pair rows (B, n)
+    (a (B, 1) column that broadcasts over a DP row like the scalar)."""
+    return t[k] if t.dim() == 1 else t[:, k:k + 1]
+
+
 def _lz(b, n, device):
     return torch.full((b, n), LOG_ZERO, dtype=torch.float32, device=device)
 
@@ -123,8 +129,8 @@ def fwd_boundary_row(ins_y, start, tv):
     """Forward row 0 (i = 0) boundary for a batch: src/fwdflat3.cpp:35-93.
     ins_y (B, By) -> 5 rows of (B, By+1)."""
     b, by = ins_y.shape
-    tII, tJJ = tv[3], tv[5]
-    tSI, tSJ = start[1], start[3]
+    tII, tJJ = _col(tv, 3), _col(tv, 5)
+    tSI, tSJ = _col(start, 1), _col(start, 3)
     lz = _lz(b, by + 1, ins_y.device)
     ext_i = torch.cat([tSI + ins_y[:, :1], tII + ins_y[:, 1:]], dim=1)
     ext_j = torch.cat([tSJ + ins_y[:, :1], tJJ + ins_y[:, 1:]], dim=1)
@@ -142,8 +148,8 @@ def _scan2(a1, c1, a2, c2):
 
 def _fwd_step(prev, i, emit_row, insx, ins_y, start, tv):
     """Forward row i (1-based) from row i-1; emit_row (B, By), insx (B, 1)."""
-    tMM, tMI, tMJ, tII, tIM, tJJ, tJM = (tv[k] for k in range(7))
-    tSM, tSI, tSJ = start[0], start[1], start[3]
+    tMM, tMI, tMJ, tII, tIM, tJJ, tJM = (_col(tv, k) for k in range(7))
+    tSM, tSI, tSJ = _col(start, 0), _col(start, 1), _col(start, 3)
     m_p, ix_p, iy_p, jx_p, jy_p = prev
     b = emit_row.shape[0]
 
@@ -152,7 +158,7 @@ def _fwd_step(prev, i, emit_row, insx, ins_y, start, tv):
                      jy_p[:, :-1] + tJM) + emit_row
     if i == 1:
         # start transition: M(1,1) = tSM + emit (src/fwdflat3.cpp:110-111)
-        m_new[:, 0] = tSM + emit_row[:, 0]
+        m_new[:, :1] = tSM + emit_row[:, :1]
     ix_new = log_add(ix_p[:, 1:] + tII, m_p[:, 1:] + tMI) + insx
     jx_new = log_add(jx_p[:, 1:] + tJJ, m_p[:, 1:] + tMJ) + insx
     if i == 1:
@@ -174,24 +180,24 @@ def _fwd_step(prev, i, emit_row, insx, ins_y, start, tv):
 def bwd_boundary_row(ins_y, start, tv):
     """Backward (reversed-scan) row u = 0 (i = LX) boundary for a batch."""
     b, by = ins_y.shape
-    tII, tJJ = tv[3], tv[5]
-    tSM, tSI, tSJ = start[0], start[1], start[3]
-    tMI, tMJ = tv[1], tv[2]
+    tII, tJJ = _col(tv, 3), _col(tv, 5)
+    tSM, tSI, tSJ = _col(start, 0), _col(start, 1), _col(start, 3)
+    tMI, tMJ = _col(tv, 1), _col(tv, 2)
     zero = torch.zeros((b, 1), dtype=torch.float32, device=ins_y.device)
     iy0 = tSI + torch.cat([zero, _cumsum_xla(ins_y + tII)], dim=1)
     jy0 = tSJ + torch.cat([zero, _cumsum_xla(ins_y + tJJ)], dim=1)
     m0_tail = log_add(tMI + iy0[:, :-1] + ins_y, tMJ + jy0[:, :-1] + ins_y)
     m0 = torch.cat([zero + tSM, m0_tail], dim=1)
     ix0 = _lz(b, by + 1, ins_y.device)
-    ix0[:, 0] = tSI
+    ix0[:, :1] = tSI
     jx0 = _lz(b, by + 1, ins_y.device)
-    jx0[:, 0] = tSJ
+    jx0[:, :1] = tSJ
     return (m0, ix0, iy0, jx0, jy0)
 
 
 def _bwd_step(prev, emit_row, insx, ins_y, tv):
     """Backward (reversed-scan) row u from row u-1."""
-    tMM, tMI, tMJ, tII, tIM, tJJ, tJM = (tv[k] for k in range(7))
+    tMM, tMI, tMJ, tII, tIM, tJJ, tJM = (_col(tv, k) for k in range(7))
     m_p, ix_p, iy_p, jx_p, jy_p = prev
     b = emit_row.shape[0]
 
@@ -283,8 +289,11 @@ def batch_posteriors_emissions(e, e_rev, ins_x, ins_y, ins_xr, ins_yr,
 
     e (B, Bx, By) emissions, e_rev (B, Bx, By) those of the per-pair
     reversed sequences (reverse_padded), ins_* (B, Bx or By) the insert
-    scores of x, y and their reversals, lxb / lyb (B,) true lengths.
-    Returns (post (B, Bx, By) f32, zero outside the valid region; ea (B,)
+    scores of x, y and their reversals, lxb / lyb (B,) true lengths;
+    start (5,) / tv (7,) shared by every pair, or start (B, 5) / tv
+    (B, 7), one a pair: the recurrence reads each score as a (B, 1)
+    column where the shared form reads a scalar, so every lane gets the
+    bits of the shared form run on its own pack. Returns (post (B, Bx, By) f32, zero outside the valid region; ea (B,)
     f32, zeros if with_mea=False).
     """
     lxb = lxb.long()
@@ -350,3 +359,49 @@ def batch_posteriors(xb, yb, lxb, lyb, match, insert, start, tv,
     return batch_posteriors_emissions(
         e, e_rev, insert[xb], insert[yb], insert[xr], insert[yr], lxb, lyb,
         start, tv, with_mea=with_mea)
+
+
+# ---------------------------------------------------------------------------
+# per-pair score tables (ensemble replicate batching)
+# ---------------------------------------------------------------------------
+
+# the JAX package's name for the per-pair form: batch_posteriors_emissions
+# reads start_b (B, 5) / tv_b (B, 7) as it reads one (5,) / (7,) pack
+batch_posteriors_emissions_multi = batch_posteriors_emissions
+
+
+def batch_posteriors_multi(xb, yb, lxb, lyb, match_b, insert_b, start_b,
+                           tv_b, with_mea: bool = True):
+    """batch_posteriors with per-pair score tables: match_b (B, K+1, K+1),
+    insert_b (B, K+1), start_b (B, 5), tv_b (B, 7)."""
+    xb = xb.long()
+    yb = yb.long()
+    lxb = lxb.long()
+    lyb = lyb.long()
+    xr = reverse_padded(xb, lxb)
+    yr = reverse_padded(yb, lyb)
+    ar = torch.arange(xb.shape[0], device=xb.device)[:, None, None]
+    e = match_b[ar, xb[:, :, None], yb[:, None, :]]
+    e_rev = match_b[ar, xr[:, :, None], yr[:, None, :]]
+
+    def ins(c):
+        return torch.gather(insert_b, 1, c)
+    return batch_posteriors_emissions(
+        e, e_rev, ins(xb), ins(yb), ins(xr), ins(yr), lxb, lyb, start_b,
+        tv_b, with_mea=with_mea)
+
+
+def score_args_multi(packs, rep_idx, device="cpu"):
+    """Stacked per-pair score tables for batch_posteriors_multi:
+    packs[rep_idx[i]] supplies pair i's tables. Returns (match_b
+    (B, K+1, K+1), insert_b (B, K+1), start_b (B, 5), tv_b (B, 7))
+    float32 tensors on `device`."""
+    ri = torch.as_tensor(np.asarray(rep_idx, dtype=np.int64), device=device)
+    match = torch.as_tensor(np.stack([p.match for p in packs]),
+                            dtype=torch.float32, device=device)
+    insert = torch.as_tensor(np.stack([p.insert for p in packs]),
+                             dtype=torch.float32, device=device)
+    start = torch.as_tensor(np.stack([p.start for p in packs]),
+                            dtype=torch.float32, device=device)
+    tv = torch.stack([_trans_vec(p, device) for p in packs])
+    return match[ri], insert[ri], start[ri], tv[ri]

@@ -75,11 +75,18 @@ class MPC:
                  refine_iters: int = DEFAULT_REFINE_ITERS,
                  tree_perm: str | None = None,
                  device=None,
+                 guide_tree_in: Tree | None = None,
+                 input_order: bool = False,
                  mega=None):
         self.consistency_iters = consistency_iters
         self.refine_iters = refine_iters
         self.tree_perm = tree_perm
         self.device = resolve_device(device)
+        # a given guide tree (-guidetreein) replaces UPGMA5 and the
+        # permutation; input_order is the caller's (-input_order: rows
+        # in input order, applied by the caller as in the JAX package)
+        self.guide_tree_in = guide_tree_in
+        self.input_order = input_order
         self.mega = mega          # MegaProfileSet for Muscle-3D emissions
         self.guide_tree: Tree | None = None
         self.dist_mx: np.ndarray | None = None
@@ -105,7 +112,10 @@ class MPC:
         return derep, unique, n, labels, label_to_index, pad_to, pairs
 
     def _tree_from_dist(self, labels, dist_mx):
-        """Guide tree from EA distances (+ optional permutation)."""
+        """Guide tree from EA distances (+ optional permutation), or the
+        given one."""
+        if self.guide_tree_in is not None:
+            return self.guide_tree_in
         d = fix_ea_distmx(dist_mx)
         tree = upgma5(labels, d, LINKAGE_BIASED)
         if self.tree_perm and self.tree_perm != "none":
@@ -205,7 +215,14 @@ class MPC:
                                   min(int(max_nnz), SPARSE_K),
                                   label_to_index)
         del store_v, store_c
+        return self._finish(input_seqs, derep, unique, tree, label_to_index,
+                            posts, refine_rng, joiner=joiner)
 
+    def _finish(self, input_seqs, derep, unique, tree, label_to_index,
+                posts, refine_rng, joiner=None):
+        """Join order -> progressive -> refine -> sort -> dupes (shared
+        with the ensembles' replicate batching, which refines on the
+        host: joiner=None)."""
         idx1, idx2 = guide_tree_join_order(tree, label_to_index)
         with mlog.stage("progressive"):
             msa = progressive_align(unique, idx1, idx2, label_to_index,

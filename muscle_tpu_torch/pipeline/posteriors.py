@@ -20,6 +20,10 @@ Routes, as in the JAX package:
   A/B, transposed or not, the Y-striped kernels 5/6
   (ops/pairhmm_striped.py), or the checkpoint/recompute scan
   (ops/pairhmm_long.py);
+* ensembles: `ensemble_pairs_posteriors_sparse`, every (replicate,
+  pair) lane with its own score tables through the same store loop into
+  an (R, P+1.., L, K) store (kernels 1M/2M on a CUDA device, the scan's
+  batch_posteriors_multi on the CPU);
 * Muscle-3D (`.mega` feature profiles): `small_family_store(mega=)`
   and `all_pairs_posteriors_mega_sparse`, whose batches
   (`_make_mega_chunk_fn`) take their emissions from the profiles
@@ -211,40 +215,57 @@ def all_pairs_posteriors(codes: np.ndarray, lens: np.ndarray, pack,
 
 
 def _sparse_store_loop(fn, chunk_args_fn, pairs, lens, b0: int, k: int,
-                       l_full: int, step: int, device):
+                       l_full: int, step: int, device, reps: int = 1):
     """The bucketed store loop: the pairs are length-bucketed by
     `_bucketize`, each bucket run in chunks (the last one filled with
-    copies of its first pair) and sparsified into a (P+1.., L, K) store
-    whose rows beyond P are empty (the last one is the dump slot).
+    copies of its first entry) and sparsified into a (R, P+1.., L, K)
+    store whose rows beyond P are empty (the last one is the dump slot).
 
-    fn is the batch function, chunk_args_fn(xi, yi, lb) its inputs for
-    the pairs xi, yi at bucket length lb. Returns (vals, cols device tensors, ea (P,)
-    numpy, max_nnz)."""
+    fn is the batch function, chunk_args_fn(xi, yi, lb, ri) its inputs
+    for the pairs xi, yi at bucket length lb on replicates ri. Every
+    (replicate, pair) entry of the R = reps replicates is one lane
+    (the ensembles' replicate batching; R = 1 for one score pack):
+    within a bucket the entries go replicate-major and the filler lanes
+    carry their first entry's replicate.
+    Returns (vals (R, ..) and cols device tensors, ea (R, P) numpy,
+    max_nnz)."""
     n_pairs = len(pairs)
-    store_v = torch.zeros((store_rows(n_pairs), l_full, k),
+    store_v = torch.zeros((reps, store_rows(n_pairs), l_full, k),
                           dtype=torch.float32, device=device)
-    store_c = torch.full((store_rows(n_pairs), l_full, k), -1,
+    store_c = torch.full((reps, store_rows(n_pairs), l_full, k), -1,
                          dtype=torch.int32, device=device)
-    store_ea = torch.zeros((n_pairs,), dtype=torch.float32, device=device)
+    store_ea = torch.zeros((reps, n_pairs), dtype=torch.float32,
+                           device=device)
     max_nnz = 0
     buckets = _bucketize(pairs, lens, l_full) or \
         [(l_full, list(range(n_pairs)))]
     for lb, idxs in buckets:
+        entries = [(r, pi) for r in range(reps) for pi in idxs]
         b = _clamp_chunk_by_len(b0, lb, step)
-        for lo in range(0, len(idxs), b):
-            ch = idxs[lo:lo + b]
+        for lo in range(0, len(entries), b):
+            ch = entries[lo:lo + b]
             full = ch + [ch[0]] * (b - len(ch))
-            xi = torch.as_tensor([pairs[t][0] for t in full], device=device)
-            yi = torch.as_tensor([pairs[t][1] for t in full], device=device)
-            post, ea = fn(*chunk_args_fn(xi, yi, lb))
+            ri = torch.as_tensor([t[0] for t in full], device=device)
+            pi = torch.as_tensor([t[1] for t in full], device=device)
+            xi = torch.as_tensor([pairs[t[1]][0] for t in full],
+                                 device=device)
+            yi = torch.as_tensor([pairs[t[1]][1] for t in full],
+                                 device=device)
+            post, ea = fn(*chunk_args_fn(xi, yi, lb, ri))
             vals, cols, nnz = sp.sparsify(post, k)
             del post
-            idx = torch.as_tensor(full, device=device)
-            store_v[idx, :lb] = vals
-            store_c[idx, :lb] = cols
-            store_ea[idx] = ea
+            store_v[ri, pi, :lb] = vals
+            store_c[ri, pi, :lb] = cols
+            store_ea[ri, pi] = ea
             max_nnz = max(max_nnz, int(nnz))
     return store_v, store_c, store_ea.cpu().numpy(), max_nnz
+
+
+def _one_pack(store):
+    """A one-replicate store of `_sparse_store_loop` without its
+    replicate axis."""
+    vals, cols, ea, max_nnz = store
+    return vals[0], cols[0], ea[0], max_nnz
 
 
 def all_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray, pack,
@@ -268,11 +289,53 @@ def all_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray, pack,
     step = _chunk_step(default_backend(device))
     cj = torch.as_tensor(codes, device=device)
     lj = torch.as_tensor(lens, device=device)
-    return _sparse_store_loop(
+    return _one_pack(_sparse_store_loop(
         _make_batch_fn(pack, True, device),
-        lambda xi, yi, lb: (cj[xi, :lb], cj[yi, :lb], lj[xi], lj[yi]),
+        lambda xi, yi, lb, ri: (cj[xi, :lb], cj[yi, :lb], lj[xi], lj[yi]),
         pairs, lens, _rung(min(batch_size, len(pairs)), step), k,
-        codes.shape[1], step, device)
+        codes.shape[1], step, device))
+
+
+def ensemble_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray,
+                                     packs, pairs: list[tuple[int, int]],
+                                     device, batch_size: int = 256,
+                                     k: int = 32):
+    """Pair grids of R differently-parameterized HMMs in one stream (the
+    ensembles' replicate batching: replicates are the outer batch axis).
+
+    packs: R score packs (one per perturbation seed). Every (rep, pair)
+    combination is one batch lane carrying its own score tables, so a
+    chunk mixes replicates: on a CUDA device kernels 1M/2M
+    (ops/pairhmm_cuda.batch_posteriors_cuda_multi), on the CPU the scan's
+    batch_posteriors_multi. Buckets, chunks and fillers as the JAX
+    package's (its mesh sharding is one device here).
+
+    Returns (vals (R, P+1.., L, K) device tensor, cols, ea (R, P) numpy,
+    max_nnz); each replicate's trailing rows are empty (the last one is
+    its dump slot).
+    """
+    l_full = codes.shape[1]
+    if l_full > LONG_PAIR_THRESHOLD:
+        raise ValueError("ensemble batching requires L <= %d"
+                         % LONG_PAIR_THRESHOLD)
+    backend = default_backend(device)
+    step = _chunk_step(backend)
+    # stacked per-replicate tables, on the device once
+    match_s, insert_s, start_s, tv_s = pairhmm.score_args_multi(
+        packs, np.arange(len(packs)), device)
+    if backend == "cuda":
+        from ..ops.pairhmm_cuda import batch_posteriors_cuda_multi as fn
+    else:
+        fn = pairhmm.batch_posteriors_multi
+    cj = torch.as_tensor(codes, device=device)
+    lj = torch.as_tensor(lens, device=device)
+    return _sparse_store_loop(
+        fn,
+        lambda xi, yi, lb, ri: (cj[xi, :lb], cj[yi, :lb], lj[xi], lj[yi],
+                                match_s[ri], insert_s[ri], start_s[ri],
+                                tv_s[ri]),
+        pairs, lens, _rung(min(batch_size, len(packs) * len(pairs)), step),
+        k, l_full, step, device, reps=len(packs))
 
 
 # ---------------------------------------------------------------------------
@@ -554,11 +617,11 @@ def all_pairs_posteriors_mega_sparse(profiles: np.ndarray, lens: np.ndarray,
     step = _chunk_step(default_backend(device))
     pj = torch.as_tensor(profiles, device=device)
     lj = torch.as_tensor(lens, device=device)
-    return _sparse_store_loop(
+    return _one_pack(_sparse_store_loop(
         _make_mega_chunk_fn(mega, pack, device),
-        lambda xi, yi, lb: (pj[xi, :lb], pj[yi, :lb], lj[xi], lj[yi]),
+        lambda xi, yi, lb, ri: (pj[xi, :lb], pj[yi, :lb], lj[xi], lj[yi]),
         pairs, lens, _rung(min(batch_size, len(pairs)), step), k,
-        profiles.shape[1], step, device)
+        profiles.shape[1], step, device))
 
 
 def store_to_csr(store_v, store_c):

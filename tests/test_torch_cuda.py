@@ -638,3 +638,137 @@ def test_mega_align_on_card_matches_cpu(cuda_device):
     card = align(seqs, mega=ms, device=cuda_device)
     cpu = align(seqs, mega=ms, device="cpu")
     assert card.to_fasta_text() == cpu.to_fasta_text()
+
+
+# ---------------------------------------------------------------------------
+# the ensembles' kernels: 1M / 2M (per-pair tables) and 3K (the letter
+# path's legacy backward)
+# ---------------------------------------------------------------------------
+
+def _multi_tables(device, reps, seeds=(0, 3, 7, 11)):
+    """Per-lane tables (match, insert, start, tv) from packs of the
+    given perturbation seeds, lane i taking pack reps[i]."""
+    from muscle_tpu_torch.ops import pairhmm as ph
+    packs = []
+    for s in seeds:
+        hp = HMMParams.from_defaults()
+        if s:
+            hp.perturb(s)
+        packs.append(hp.to_scores())
+    return packs, ph.score_args_multi(packs, reps, device)
+
+
+def test_ensemble_kernel_specs_and_cpu_route(monkeypatch):
+    """3K builds from csrc/pairhmm_bwd_codes.cu, keyed on the kernel-3
+    header it shares; on CPU tensors both routes of the multi entry
+    point run the plain versions and count nothing."""
+    from muscle_tpu_torch.utils import build
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    spec = next(s for s in pc.kernel_specs() if s.name == "pairhmm_bwd_codes")
+    assert spec.sources[0].endswith("csrc/pairhmm_bwd_codes.cu")
+    assert any(d.endswith("pairhmm_bwd.cuh") for d in spec.deps)
+    xb, yb, lx, ly = _batch(4, 60, 128, 1, False)
+    _, tabs = _multi_tables("cpu", [0, 1, 2, 3])
+    before = dict(pc.LAUNCHES)
+    for fused in (True, False):
+        post, ea = pc.batch_posteriors_cuda_multi(
+            *(torch.from_numpy(a) for a in (xb, yb, lx, ly)), *tabs,
+            fused=fused)
+        assert post.shape == (4, 128, 128) and bool((ea > 0).all())
+    assert pc.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lmax,width", [(16, 300, 384), (4, 900, 1024)],
+                         ids=["384", "1024"])
+def test_multi_and_legacy_kernels_match_plain(cuda_device, b, lmax, width):
+    """1M, 2M and 3K against their plain versions (max |d| = 0), each
+    lane against the single-pack kernels A/B on its pack, 1E/2E with
+    per-pair params on the per-pair lattice against 1M/2M, and the
+    legacy route against the fused one at the kernel gate."""
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    xb, yb, lx, ly = _batch(b, lmax, width, 9, False)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (xb, yb, lx, ly))
+    reps = [i % 4 for i in range(b)]
+    packs, (m, i, s, t) = _multi_tables(cuda_device, reps)
+    p = pc.params_rows(s, t)
+    m, i = m.contiguous(), i.contiguous()
+    fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, m, i, p)
+    fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, m, i, p)
+    rows = torch.arange(width, device=cuda_device)[None, :, None] \
+        < lxt[:, None, None]
+    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(fend, fend2)
+    tot = pc._total_prob(fend, p)
+    post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, m, i, p, tot, fm)
+    post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, m, i, p, tot, fm)
+    assert torch.equal(post, post2) and torch.equal(mea, mea2)
+    rb = pc.pairhmm_bwd_codes(x, y, lxt, lyt, m, i, p)
+    assert torch.equal(rb, pc.bwd_codes_plain(x, y, lxt, lyt, m, i, p))
+    for r, pack in enumerate(packs):
+        lanes = torch.as_tensor([k for k in range(b) if reps[k] == r],
+                                device=cuda_device)
+        tabs = pc.tables(pack, cuda_device)
+        fm1, fend1 = pc.pairhmm_fwd(x, y, lxt, lyt, *tabs)
+        post1, mea1 = pc.pairhmm_bwd_post(x, y, lxt, lyt, *tabs,
+                                          pc._total_prob(fend1, tabs[2]),
+                                          fm1)
+        assert torch.equal(fend[lanes], fend1[lanes])
+        assert torch.equal(post[lanes], post1[lanes])
+        assert torch.equal(mea[lanes], mea1[lanes])
+        assert torch.equal(rb[lanes], pc.pairhmm_bwd_codes(
+            x, y, lxt, lyt, *tabs)[lanes])
+    ar = torch.arange(b, device=cuda_device)[:, None, None]
+    e = m[ar, x.long()[:, :, None], y.long()[:, None, :]].contiguous()
+    ins_x = torch.gather(i, 1, x.long()).contiguous()
+    ins_y = torch.gather(i, 1, y.long()).contiguous()
+    fm3, fend3 = pe.pairhmm_fwd_emis(e, ins_x, ins_y, lxt, lyt, p)
+    assert torch.equal(fm3.where(rows, 0.0), fm.where(rows, 0.0))
+    assert torch.equal(fend3, fend)
+    post3, mea3 = pe.pairhmm_bwd_post_emis(e, ins_x, ins_y, lxt, lyt, p, tot,
+                                           fm)
+    assert torch.equal(post3, post) and torch.equal(mea3, mea)
+    post4, ea4 = pc.batch_posteriors_cuda_multi(x, y, lxt, lyt, m, i, s, t,
+                                                fused=False)
+    torch.cuda.synchronize()
+    ea = mea / torch.minimum(lxt, lyt).float()
+    d = (post4 - post).abs()
+    flip = ((post4 == 0) | (post == 0)) & \
+        (torch.maximum(post4, post) <= 0.0102)
+    assert float(d.where(~flip, 0.0).max()) < 2e-3
+    assert float((ea4 - ea).abs().max()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_ensemble_on_card_matches_cpu(cuda_device, tmp_path):
+    """-replicates 3 through run_align_command on the card (kernels 1M
+    and 2M) gives the CPU's EFA; the legacy route's align of BB11001
+    launches kernel 3K and gives an alignment of its input."""
+    from muscle_tpu_torch import MultiSequence, align
+    from muscle_tpu_torch.pipeline.ensemble import run_align_command
+    inp = tmp_path / "in.fa"
+    inp.write_text(MultiSequence.from_fasta(
+        os.path.join(ROOT, "tests", "goldens", "BB11002.seq.afa"),
+        strip_gaps=True).to_fasta_text())
+    texts = []
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.efa"
+        run_align_command("align", str(inp), str(out),
+                          {"replicates": "3", "refineiters": "10",
+                           "device": dev})
+        texts.append(out.read_text())
+    assert texts[0] == texts[1]
+    seqs = MultiSequence.from_fasta(
+        os.path.join(ROOT, "tests", "goldens", "BB11001.seq.afa"),
+        strip_gaps=True)
+    before = pc.LAUNCHES["pairhmm_bwd_codes"]
+    saved = pc.FUSED
+    pc.FUSED = False
+    try:
+        legacy = align(seqs, device=cuda_device)
+    finally:
+        pc.FUSED = saved
+    assert pc.LAUNCHES["pairhmm_bwd_codes"] > before
+    assert {s.label: s.text().replace("-", "") for s in legacy} == \
+        {s.label: s.text() for s in seqs}

@@ -4,6 +4,7 @@
                                         [--long mixed|pair]
                                         [--super5 synthetic|rdrp16]
                                         [--mega 8|128|long]
+                                        [--ensemble 48|bb11002]
                                         [--trace build/align_trace.json]
 
 Aligns a synthetic family of chip_smoke.py (n mutated copies of one
@@ -19,6 +20,10 @@ golden instead, after building every kernel, tracing the device only
 (the host side of a Super5 run is millions of small operations). With
 --mega it aligns one of chip_smoke.py's Muscle-3D `.mega` sets ("8",
 "128" or "long", refine cut for "long" as chip_smoke.py cuts it).
+With --ensemble it runs one ensemble through
+`pipeline.ensemble.run_align_command`, as the CLI does, tracing the
+device only: chip_smoke.py's ensemble-48 under -stratified ("48") or
+the degapped BB11002 golden under -diversified ("bb11002").
 Prints the device kernels by total time, the device busy time (the
 union of kernel intervals), the wall of the profiled call and the
 device's idle share of it. Needs a CUDA device.
@@ -64,6 +69,8 @@ def main() -> int:
                     "chip_smoke.py's Super5 sets instead")
     ap.add_argument("--mega", choices=("8", "128", "long"), default=None,
                     help="one of chip_smoke.py's .mega sets instead")
+    ap.add_argument("--ensemble", choices=("48", "bb11002"), default=None,
+                    help="one of chip_smoke.py's ensembles instead")
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled call here")
     args = ap.parse_args()
@@ -89,6 +96,30 @@ def main() -> int:
         seqs = (cs.super5_set() if args.super5 == "synthetic" else
                 MultiSequence.from_fasta(os.path.join(ROOT, cs.RDRP16),
                                          strip_gaps=True))
+    elif args.ensemble:
+        import tempfile
+        from muscle_tpu_torch import MultiSequence
+        from muscle_tpu_torch.pipeline.ensemble import run_align_command
+        from muscle_tpu_torch.utils.build import build_all
+        build_all()
+        activities = [ProfilerActivity.CUDA]
+        if args.ensemble == "48":
+            n, lo, hi, seed = cs.ENSEMBLE_48
+            seqs, flag = cs.synthetic_family(n, lo, hi, seed=seed), "stratified"
+        else:
+            seqs = MultiSequence.from_fasta(
+                os.path.join(ROOT, "tests/goldens/BB11002.seq.afa"),
+                strip_gaps=True)
+            flag = "diversified"
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        workdir = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        inp = os.path.join(workdir, "in.fa")
+        seqs.write_fasta(inp)
+
+        def ensemble(_seqs, device):
+            run_align_command("align", inp, os.path.join(workdir, "out.efa"),
+                              {flag: True, "device": device})
+        run = ensemble
     elif args.mega:
         spec = {"8": cs.MEGA_8, "128": cs.MEGA_128,
                 "long": cs.MEGA_LONG}[args.mega]
@@ -103,7 +134,7 @@ def main() -> int:
         seqs = cs.family_of_lengths(cs.LONG_PAIR, b"ACGT", 2)
     else:
         seqs = cs.synthetic_family(args.n, args.lo, args.hi, seed=args.n)
-    if not args.super5:
+    if not (args.super5 or args.ensemble):
         align(seqs, device="cuda", **opts)
         torch.cuda.synchronize()
     with profile(activities=activities) as prof:
