@@ -13,9 +13,12 @@ Phases (each raises on failure, so the run exits non-zero):
    exists) the one torch call computing the same function with CUDA
    events: pair-HMM forward and backward+posterior at B = 512 ragged
    amino pairs padded to 512; densify on one z-tile of the n = 200 Gram
-   panel (blk = 16, L = 512, K = 24) in f32 and bf16; densify-reduce on
-   a 100 x 100 join grid (L = 512, k2 = 24, cc = 768); the MEA direction
-   DP at 768 x 768. Then the long-pair kernels, each required equal to
+   panel (blk = 16, L = 512, K = 24) in f32 and bf16; densify-reduce
+   (kernel 7) on a 100 x 100 join grid (L = 512, k2 = 24, cc = 768),
+   with its launch geometry, the ptxas registers and spills of kernels
+   7/7L, and the time of the one-hot contraction that consumes the same
+   half (DeviceJoiner._half's product, TF32 off; timed only); the MEA
+   direction DP at 768 x 768. Then the long-pair kernels, each required equal to
    its plain version: kernels A/B at Ly = 2176-10240 (2 pairs, Lx 192;
    every segment geometry S = 2..5 and every rung the long families
    launch them at), the Y-striped kernels 5/6 on every stripe launch of
@@ -47,7 +50,11 @@ Phases (each raises on failure, so the run exits non-zero):
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
-   to 0 just before each call, read just after):
+   to 0 just before each call, read just after); the first HELD_GRID
+   kernel-7 launches of each device refine (n = 70, n = 200, mega-128,
+   synthetic-1000's Super4 clusters) held, as they happen, to the plain
+   version on their own inputs and timed there (GridKernelCheck), the
+   checks' time and memory kept out of the walls and peaks:
    - every in-repo family (the degapped tests/goldens/BB1100*.seq.afa
      and tests/data/nt/nt*.fa), printing whether it is column-identical
      to its golden and its Q against it, requiring BB11001 to be
@@ -111,8 +118,10 @@ Phases (each raises on failure, so the run exits non-zero):
      whether its text equals the fused route's printed);
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
-5. print the kernels' JSON line (launch counts summed over phase 3;
-   kernel 7L's times and bound at synthetic-1000's largest device join;
+5. print kernels 7L's and 7's times summed over their held main-path
+   launches, then the kernels' JSON line (launch counts summed over
+   phase 3; kernel 7L's times and bound at synthetic-1000's largest
+   device join;
    each max |d| over phase 2 and the launches held in phase 3),
    then the card line and the final {"ok": true, ...} line.
 
@@ -178,8 +187,10 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def time_cuda(fn, reps: int = 5) -> float:
-    """Median ms of `reps` runs after one warm-up (CUDA events)."""
+def time_cuda(fn, reps: int = 5, per: int = 1) -> float:
+    """Median ms of one call over `reps` runs after one warm-up (CUDA
+    events around `per` calls: for calls of well under a millisecond,
+    per > 1 keeps the host's enqueue out of the device time)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -188,11 +199,17 @@ def time_cuda(fn, reps: int = 5) -> float:
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(per):
+            fn()
         e.record()
         torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / per)
     return statistics.median(times)
+
+
+# calls between the events when timing kernels 7/7L and their yardsticks
+# (0.04-0.3 ms a call: one call alone would time the host's enqueue)
+DR_PER = 20
 
 
 def ragged_batch(b, lo, hi, width, seed):
@@ -307,15 +324,23 @@ def ptxas_lines(names) -> list[str]:
     """Registers and spills of each kernel instantiation of the libraries
     `names`, from the ptxas report kept in their build logs."""
     import re
-    from muscle_tpu_torch.ops import (pairhmm_cuda, pairhmm_emis_cuda,
-                                      pairhmm_striped)
+    from muscle_tpu_torch.ops import (devjoin_cuda, pairhmm_cuda,
+                                      pairhmm_emis_cuda, pairhmm_striped)
     from muscle_tpu_torch.utils.build import build_log
     specs = (pairhmm_cuda.kernel_specs() + pairhmm_striped.kernel_specs()
-             + pairhmm_emis_cuda.kernel_specs())
+             + pairhmm_emis_cuda.kernel_specs() + devjoin_cuda.kernel_specs())
     out = []
     for name in names:
         cur, spill = None, ""
         for line in build_log(name, specs).splitlines():
+            m = re.search(r"Compiling entry function '_ZN2dr(\d+)(\w+)'",
+                          line)
+            if m:  # kernels 7/7L: dr::densify_reduce_kernel<Source>
+                src = m.group(2)[int(m.group(1)):]
+                cur = (m.group(2)[:int(m.group(1))] + "<"
+                       + ("GridRows" if "GridRows" in src else "ListRuns")
+                       + ">")
+                continue
             m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
             if m:
                 cur = m.group(2)[:int(m.group(1))]
@@ -610,8 +635,11 @@ def phase_gram_join_kernels(dev) -> list[dict]:
     from muscle_tpu_torch.ops import consistency as cons
     from muscle_tpu_torch.ops import densify_cuda as dc
     from muscle_tpu_torch.ops import devjoin_cuda as djc
+    from muscle_tpu_torch.ops.consistency import _tf32_off
     from muscle_tpu_torch.pipeline.posteriors import store_rows
 
+    for line in ptxas_lines(["densify_reduce", "densify_reduce_list"]):
+        print(f"ptxas: {line}", flush=True)
     n, l, k, blk = 200, 512, 24, 16
     p1 = store_rows(n * (n - 1) // 2)
     dump = p1 - 1
@@ -682,46 +710,49 @@ def phase_gram_join_kernels(dev) -> list[dict]:
     bank = torch.as_tensor(np.stack([np.sort(rng.choice(cc, l, replace=False))
                                      for _ in cols_of]).astype(np.int32),
                            device=dev)
-    got = djc.densify_reduce(vals, cols, k2, pid_g, bank, dump, cc)
-    want = djc.densify_reduce_plain(vals, cols, k2, pid_g, bank, dump, cc)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    same = torch.equal(got, want)
-    del got, want
-    ms = time_cuda(lambda: djc.densify_reduce(vals, cols, k2, pid_g, bank,
-                                              dump, cc))
-    plain_ms = time_cuda(lambda: djc.densify_reduce_plain(
-        vals, cols, k2, pid_g, bank, dump, cc), reps=3)
-    # one torch call for the same sums: an out-of-place index_add of every
-    # valid slot of the real pairs at its flat (s, l, col) index onto a
-    # zero F template
-    s_i, t_i = torch.nonzero(pid_g != dump, as_tuple=True)
-    p = pid_g[s_i, t_i].long()
-    c = cols[p, :, :k2].long()
-    ok = c >= 0
-    col = bank.long()[t_i[:, None, None], c.clamp(min=0)]
-    flat = ((s_i[:, None, None] * l + torch.arange(l, device=dev)[:, None])
-            * cc + col)[ok]
-    vsel = vals[p, :, :k2][ok]
-    f = torch.zeros(len(rows) * l * cc, device=dev)
-    lib_ms = time_cuda(lambda: torch.index_add(f, 0, flat, vsel))
-    bnd = bound_ms(8 * float(vsel.numel()) + 4 * pid_g.numel()
-                   + 4 * bank.numel() + 4 * len(rows) * l * cc,
-                   float(vsel.numel()))
-    print(f"densify_reduce (kernel 7) vs plain on a 100 x 100 grid, "
-          f"{int(p.numel())} real pairs, L={l}, k2={k2}, cc={cc}: max |d| "
-          f"{err:.3e} {'equal' if same else 'FAIL'}; {ms:.3f} ms (plain "
-          f"{plain_ms:.1f} ms, index_add {lib_ms:.3f} ms, bound "
-          f"{bnd[0]:.3f} ms by {bnd[1]})", flush=True)
-    if not same:
+    case = grid_kernel_case((vals, cols, k2, pid_g, bank, dump, cc))
+    print_grid_case("a 100 x 100 grid of the n = 200 family", case)
+    if not case["same"]:
         raise SmokeFailure("densify_reduce disagrees with its plain version")
     out.append({"name": "densify_reduce", "route": "cuda",
                 "source": "muscle_tpu_torch/csrc/densify_reduce.cu",
                 "replaces": "muscle_tpu/pipeline/devjoin.py:88",
-                "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": lib_ms})
-    del f, flat, vsel, col, c, ok, vals, cols
+                "launches": 0, "max_abs_err": case["err"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound"][0],
+                "bound_by": case["bound"][1], "library_ms": case["lib_ms"]})
+    # the one-hot contraction that consumes this F, as DeviceJoiner._half
+    # runs it (pipeline/devjoin.py: the row-owners' maps uploaded, their
+    # one-hot rows, one f32 product with TF32 off, added into the
+    # column posterior); timed only: no kernel of the port
+    rbank = np.stack([np.sort(rng.choice(cc, l, replace=False))
+                      for _ in rows]).astype(np.int32)
+    f = djc.densify_reduce(vals, cols, k2, pid_g, bank, dump, cc)
+    post = torch.zeros((cc, cc), dtype=torch.float32, device=dev)
+
+    def contract():
+        a = torch.nn.functional.one_hot(
+            torch.as_tensor(rbank, device=dev).long(), cc).to(torch.float32)
+        with _tf32_off():
+            post.add_(a.reshape(-1, cc).T @ f.reshape(-1, cc))
+    c_ms = time_cuda(contract, per=DR_PER)
+    onehot = torch.nn.functional.one_hot(
+        torch.as_tensor(rbank, device=dev).long(), cc).to(torch.float32)
+
+    def product():
+        with _tf32_off():
+            torch.mm(onehot.reshape(-1, cc).T, f.reshape(-1, cc))
+    p_ms = time_cuda(product, per=DR_PER)
+    c_ops = 2.0 * len(rows) * l * cc * cc
+    c_bnd = bound_ms(4 * (len(rows) * l * (cc + cc) + cc * cc), c_ops)
+    print(f"one-hot contraction of that half (DeviceJoiner._half: "
+          f"({len(rows) * l} x {cc})^T @ ({len(rows) * l} x {cc}) f32, TF32 "
+          f"off): {c_ms:.3f} ms as _half runs it (maps uploaded, one-hot "
+          f"built, product, add), product alone {p_ms:.3f} ms; "
+          f"{c_ops / 1e9:.1f} GFLOP ({c_ops / p_ms / 1e9:.1f} TFLOP/s in the "
+          f"product), bound {c_bnd[0]:.3f} ms by {c_bnd[1]}; kernel 7 on the "
+          f"same half {case['ms']:.3f} ms", flush=True)
+    del f, post, onehot, vals, cols
+    torch.cuda.empty_cache()
 
     # MEA direction DP at 768 x 768 (no single torch call computes it)
     g = torch.Generator(device=dev).manual_seed(768)
@@ -752,12 +783,78 @@ def phase_gram_join_kernels(dev) -> list[dict]:
     return out
 
 
+def geometry_text(cc: int) -> str:
+    """Kernels 7/7L's launch geometry (ops/devjoin_cuda._geometry)."""
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    g = djc._geometry(cc)
+    return (f"{g.warps} warps a block, tile {g.tr} x {g.tc}, "
+            f"{-(-cc // g.tc)} column tile(s), {g.smem} B shared")
+
+
+def grid_kernel_case(args, got=None) -> dict:
+    """Kernel 7's output `got` on `args` (launched here when not given)
+    against its plain version on the same inputs, and the times of the
+    kernel and of one torch.index_add of the same slots (CUDA events
+    around DR_PER calls) and of its plain version, with its bound. The
+    launches made here are not counted."""
+    import torch
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    vals, cols, k2, pid, bank, dump, cc = args
+    before = djc.LAUNCHES["densify_reduce"]
+    if got is None:
+        got = djc.densify_reduce(*args)
+    want = djc.densify_reduce_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    same = torch.equal(got, want)
+    del got, want
+    ms = time_cuda(lambda: djc.densify_reduce(*args), per=DR_PER)
+    plain_ms = time_cuda(lambda: djc.densify_reduce_plain(*args), reps=3)
+    djc.LAUNCHES["densify_reduce"] = before
+    # one torch call for the same sums: an out-of-place index_add of every
+    # valid slot of the real pairs at its flat (s, l, col) index onto a
+    # zero F template
+    dev = vals.device
+    n_r, l = pid.shape[0], vals.shape[1]
+    s_i, t_i = torch.nonzero(pid != dump, as_tuple=True)
+    p = pid[s_i, t_i].long()
+    c = cols[p, :, :k2].long()
+    col = bank.long()[t_i[:, None, None], c.clamp(min=0)]
+    ok = (c >= 0) & (col >= 0) & (col < cc)
+    flat = ((s_i[:, None, None] * l + torch.arange(l, device=dev)[:, None])
+            * cc + col)[ok]
+    vsel = vals[p, :, :k2][ok]
+    f = torch.zeros(n_r * l * cc, device=dev)
+    lib_ms = time_cuda(lambda: torch.index_add(f, 0, flat, vsel), per=DR_PER)
+    # the valid slots (value, column), the grid and the maps read once, F
+    # written once; one add per valid slot
+    slots = float(vsel.numel())
+    bnd = bound_ms(8 * slots + 4 * pid.numel() + 4 * bank.numel()
+                   + 4 * n_r * l * cc, slots)
+    del f, flat, vsel, col, c, ok
+    return {"same": same, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "lib_ms": lib_ms, "bound": bnd, "slots": int(slots),
+            "shape": f"{n_r} x {pid.shape[1]} grid, {int(p.numel())} real "
+                     f"pairs, L={l}, k2={k2}, cc={cc}; "
+                     + geometry_text(cc)}
+
+
+def print_grid_case(what: str, case: dict) -> None:
+    bnd = case["bound"]
+    print(f"densify_reduce (kernel 7) vs plain on {what} ({case['shape']}, "
+          f"{case['slots']} valid slots): max |d| {case['err']:.3e} "
+          f"{'equal' if case['same'] else 'FAIL'}; {case['ms']:.3f} ms "
+          f"(plain {case['plain_ms']:.1f} ms, index_add "
+          f"{case['lib_ms']:.3f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})",
+          flush=True)
+
+
 def list_kernel_case(args, got=None) -> dict:
     """Kernel 7L's output `got` on `args` (launched here when not given)
     against its plain version on the same inputs, and the times of the
-    kernel (CUDA events), its plain version and one torch.index_add of
-    the same slots, with its bound. The launches made here are not
-    counted."""
+    kernel and of one torch.index_add of the same slots (CUDA events
+    around DR_PER calls) and of its plain version, with its bound. The
+    launches made here are not counted."""
     import torch
     from muscle_tpu_torch.ops import devjoin_cuda as djc
     vals, cols, k2, rp, pid, co, bk, dump, cc = args
@@ -769,7 +866,7 @@ def list_kernel_case(args, got=None) -> dict:
     err = float((got - want).abs().max()) if got.numel() else 0.0
     same = torch.equal(got, want)
     del got, want
-    ms = time_cuda(lambda: djc.densify_reduce_list(*args))
+    ms = time_cuda(lambda: djc.densify_reduce_list(*args), per=DR_PER)
     plain_ms = time_cuda(lambda: djc.densify_reduce_list_plain(*args), reps=3)
     djc.LAUNCHES["densify_reduce_list"] = before
     # one torch call for the same sums: an out-of-place index_add of every
@@ -788,19 +885,18 @@ def list_kernel_case(args, got=None) -> dict:
             * cc + col)[ok]
     vsel = vals[p, :, :k2][ok]
     f = torch.zeros(n_s * l * cc, device=dev)
-    lib_ms = time_cuda(lambda: torch.index_add(f, 0, flat, vsel))
+    lib_ms = time_cuda(lambda: torch.index_add(f, 0, flat, vsel), per=DR_PER)
     # the valid slots (value, column) and the maps read once, F written
     # once; one add per valid slot
     slots = float(vsel.numel())
     bnd = bound_ms(8 * slots + 4 * (rp.numel() + 2 * (e1 - e0) + bk.numel())
                    + 4 * n_s * l * cc, slots)
     del f, flat, vsel, col, c, ok, own
-    tc = min(cc, djc._TILE)
     return {"same": same, "err": err, "ms": ms, "plain_ms": plain_ms,
             "lib_ms": lib_ms, "bound": bnd, "slots": int(slots),
             "shape": f"{n_s} owners, {e1 - e0} entries, {bk.shape[0]} "
-                     f"col-owners, L={l}, k2={k2}, cc={cc}, tile "
-                     f"{max(1, min(l, djc._TILE // tc))} x {tc}"}
+                     f"col-owners, L={l}, k2={k2}, cc={cc}; "
+                     + geometry_text(cc)}
 
 
 def print_list_case(what: str, case: dict) -> None:
@@ -925,27 +1021,122 @@ def launches() -> dict[str, int]:
     return out
 
 
+class HeldLaunches:
+    """Launches of the main path held, as they happen, to their plain
+    version: `cases` (one each), and the seconds and peak device memory
+    the checks take, to be kept out of the run's walls and peak."""
+
+    def __init__(self):
+        self.cases: list[dict] = []
+        self.seconds = 0.0
+        self.peak = 0
+
+    def hold(self, case_of, args, out) -> None:
+        import torch
+        torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        t0 = time.perf_counter()
+        self.cases.append(case_of(args, got=out))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.seconds += time.perf_counter() - t0
+
+
+# kernel-7 launches held to the plain version at the start of each
+# device refine: the first HELD_GRID of each DeviceJoiner
+HELD_GRID = 2
+
+
+class GridKernelCheck(HeldLaunches):
+    """Stands in for kernel 7's wrapper in the device refine joins while
+    the main path runs: the first HELD_GRID launches of each DeviceJoiner
+    (one an align() call or Super4 cluster that refines on the device;
+    counted as any other) are held against the plain version on the same
+    inputs and timed there (grid_kernel_case); `held_since` prints and
+    requires them."""
+
+    def __init__(self):
+        super().__init__()
+        self._left = 0
+        self._saved = None
+
+    def __call__(self, *args):
+        from muscle_tpu_torch.ops import devjoin_cuda as djc
+        out = djc.densify_reduce(*args)
+        if self._left > 0:
+            self._left -= 1
+            self.hold(grid_kernel_case, args, out)
+        return out
+
+    def __enter__(self):
+        from muscle_tpu_torch.pipeline import devjoin
+        init = devjoin.DeviceJoiner.__init__
+        self._saved = (devjoin.densify_reduce, init)
+
+        def held_init(joiner, *args, **kwargs):
+            self._left = HELD_GRID
+            init(joiner, *args, **kwargs)
+        devjoin.densify_reduce = self
+        devjoin.DeviceJoiner.__init__ = held_init
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.pipeline import devjoin
+        devjoin.densify_reduce, devjoin.DeviceJoiner.__init__ = self._saved
+
+    def held_since(self, name: str, n_cases: int, launched: int) -> None:
+        """Print and require the cases held since there were `n_cases`:
+        at least one for a run that launched kernel 7, each equal."""
+        new = self.cases[n_cases:]
+        for i, case in enumerate(new):
+            print_grid_case(f"{name}'s held launch {i + 1} of {len(new)}",
+                            case)
+        if launched and not new:
+            raise SmokeFailure(f"{name}: {launched} kernel-7 launches, none "
+                               "held")
+        if not all(c["same"] for c in new):
+            raise SmokeFailure(f"{name}: a kernel-7 launch disagrees with its "
+                               "plain version")
+
+
+GRID_CHECK = GridKernelCheck()
+
+
+def peak_bytes() -> int:
+    """Peak device memory since the last reset, the kernel-7 checks'
+    own memory left out."""
+    import torch
+    return max(torch.cuda.max_memory_allocated(), GRID_CHECK.peak)
+
+
 def run_path(name, seqs, dev, kernels, **kwargs):
     """One align() call of the main path: the launch counts are set to 0
     just before it and read just after; each kernel of `kernels` must
-    have launched. Returns (msa, wall s, stage walls, launches)."""
+    have launched. Held kernel-7 launches (GRID_CHECK) are printed and
+    their time taken out of the wall and the refine stage. Returns (msa,
+    wall s, stage walls, launches)."""
     import torch
     from muscle_tpu_torch import align
     from muscle_tpu_torch.utils import logging as mlog
     mlog.STAGE_TIMES.clear()
+    n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
+    GRID_CHECK.peak = 0
     reset_launches()
     t0 = time.perf_counter()
     msa = align(seqs, device=dev, **kwargs)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    held = GRID_CHECK.seconds - s0
+    wall = time.perf_counter() - t0 - held
     got = launches()
     for k, v in got.items():
         MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
     missing = [k for k in kernels if got[k] <= 0]
     if missing:
         raise SmokeFailure(f"{name}: {missing} not launched")
+    GRID_CHECK.held_since(name, n_cases, got["densify_reduce"])
     check_alignment(seqs, msa, name)
-    stages = {k: round(v, 4) for k, v in mlog.STAGE_TIMES.items()}
+    stages = {k: round(v - (held if k == "refine" else 0), 4)
+              for k, v in mlog.STAGE_TIMES.items()}
     return msa, wall, stages, got
 
 
@@ -1198,7 +1389,7 @@ def phase_synthetic(dev) -> dict:
         seqs = synthetic_family(n, lo, hi, seed=n)
         torch.cuda.reset_peak_memory_stats()
         msa, wall, stages, got = run_path(name, seqs, dev, kernels)
-        peak = torch.cuda.max_memory_allocated()
+        peak = peak_bytes()
         print(f"family {name} ({what}): wall={wall:.2f}s "
               f"width={msa.col_count()} "
               f"peak_device_mem={peak / 2**30:.3f} GiB "
@@ -1226,30 +1417,16 @@ def phase_synthetic(dev) -> dict:
     return out
 
 
-class ListKernelCheck:
+class ListKernelCheck(HeldLaunches):
     """Stands in for kernel 7L's wrapper in the device joins while the
     Super5 path runs: each launch of the main path (counted as any other)
-    is held, as it happens, against the plain version on the same inputs
-    and timed there (list_kernel_case). The seconds and device memory
-    the checks take are kept out of the run's wall, stage walls and
-    peak."""
-
-    def __init__(self):
-        self.cases: list[dict] = []
-        self.seconds = 0.0
-        self.peak = 0
+    is held against the plain version on the same inputs and timed there
+    (list_kernel_case)."""
 
     def __call__(self, *args):
-        import torch
         from muscle_tpu_torch.ops import devjoin_cuda as djc
         out = djc.densify_reduce_list(*args)
-        torch.cuda.synchronize()
-        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
-        t0 = time.perf_counter()
-        self.cases.append(list_kernel_case(args, got=out))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        self.seconds += time.perf_counter() - t0
+        self.hold(list_kernel_case, args, out)
         return out
 
 
@@ -1270,17 +1447,20 @@ def run_super5(name, seqs, dev, kernels):
     launch = devjoin.densify_reduce_list
     mlog.STAGE_TIMES.clear()
     torch.cuda.reset_peak_memory_stats()
+    n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
+    GRID_CHECK.peak = 0
     reset_launches()
     devjoin.densify_reduce_list = check
     try:
         t0 = time.perf_counter()
         msa = super5(seqs, device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0 - check.seconds
+        grid_held = GRID_CHECK.seconds - s0
+        wall = time.perf_counter() - t0 - check.seconds - grid_held
     finally:
         devjoin.densify_reduce_list = launch
     got = launches()
-    peak = max(torch.cuda.max_memory_allocated(), check.peak)
+    peak = max(peak_bytes(), check.peak)
     for k, v in got.items():
         MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
     missing = [k for k in kernels if got[k] <= 0]
@@ -1295,12 +1475,19 @@ def run_super5(name, seqs, dev, kernels):
     if not all(c["same"] for c in check.cases):
         raise SmokeFailure(f"{name}: a kernel-7L launch disagrees with its "
                            "plain version")
+    GRID_CHECK.held_since(name, n_cases, got["densify_reduce"])
     check_alignment(seqs, msa, name)
-    stages = {k: round(v - (check.seconds if k in ("pprog", "super4") else 0),
-                       4) for k, v in mlog.STAGE_TIMES.items()}
+    stages = {k: round(v - (check.seconds if k in ("pprog", "super4") else 0)
+                       - (grid_held if k in ("refine", "cluster_mpcs",
+                                             "super4") else 0), 4)
+              for k, v in mlog.STAGE_TIMES.items()}
     if check.cases:
         print(f"{name}: kernel-7L checks took {check.seconds:.2f}s, taken "
               "out of the wall and of the pprog and super4 stages",
+              flush=True)
+    if grid_held:
+        print(f"{name}: kernel-7 checks took {grid_held:.2f}s, taken out of "
+              "the wall and of the refine, cluster_mpcs and super4 stages",
               flush=True)
     return msa, wall, stages, got, dict(LAST_RUN), peak, check.cases
 
@@ -1812,7 +1999,7 @@ def phase_mega(dev, sets) -> dict:
         with check or contextlib.nullcontext():
             msa, wall, stages, got = run_path(name, seqs, dev, kernels,
                                               mega=ms, refine_iters=iters)
-        peak = torch.cuda.max_memory_allocated()
+        peak = peak_bytes()
         if check:
             hold_legacy_launches(name, check, got)
             wall -= check.seconds
@@ -2391,13 +2578,16 @@ def main() -> int:
                + phase_mega_kernels(dev, sets) + phase_ensemble_kernels(dev))
 
     t0 = time.perf_counter()
-    phase_families(dev)
-    phase_synthetic(dev)
-    phase_long_families(dev)
-    s5 = phase_super5(dev)
-    legacy_errs = phase_mega(dev, sets)["legacy_errs"]
-    ens = phase_ensembles(dev)
-    print(f"main path: {time.perf_counter() - t0:.1f}s", flush=True)
+    with GRID_CHECK:
+        phase_families(dev)
+        phase_synthetic(dev)
+        phase_long_families(dev)
+        s5 = phase_super5(dev)
+        legacy_errs = phase_mega(dev, sets)["legacy_errs"]
+        ens = phase_ensembles(dev)
+    print(f"main path: {time.perf_counter() - t0:.1f}s (kernel-7 checks "
+          f"{GRID_CHECK.seconds:.2f}s, {len(GRID_CHECK.cases)} launches "
+          "held)", flush=True)
     phase_scan_route(dev)
     # kernel 7L's entry: its times and bound at the main path's largest
     # device join, the error over every check
@@ -2411,12 +2601,22 @@ def main() -> int:
                library_ms=big["lib_ms"])
     print(f"kernel 7L entry: the largest device join ({big['shape']})",
           flush=True)
+    for what, held_cases in (("kernel 7L over synthetic-1000's device joins",
+                              cases),
+                             ("kernel 7 over the held main-path launches",
+                              GRID_CHECK.cases)):
+        print(f"{what} ({len(held_cases)}): kernel "
+              f"{sum(c['ms'] for c in held_cases):.4f} ms, index_add "
+              f"{sum(c['lib_ms'] for c in held_cases):.4f} ms, bound "
+              f"{sum(c['bound'][0] for c in held_cases):.4f} ms summed",
+              flush=True)
     held = dict(legacy_errs)
     for k in MULTI_KERNELS:
         held[k] = [e for run in ("ensemble-48", "diversified-BB11002")
                    for errs in (ens[run]["errs"], ens[run]["plain_errs"])
                    for e in errs[k]]
     held["pairhmm_bwd_codes"] = ens["legacy-BB11001"]["errs"]
+    held["densify_reduce"] = [c["err"] for c in GRID_CHECK.cases]
     for k in kernels:
         k["max_abs_err"] = max([k["max_abs_err"]] + held.get(k["name"], []))
     for k in kernels:

@@ -11,6 +11,11 @@
   PProg's sampled-pair joins: for every row-owner s, the K-sparse rows
   of its run of sampled pairs summed in entry order, each slot's
   position mapped to that pair's own col-owner's column.
+
+  Both are one body (csrc/densify_reduce.cuh) templated on where an
+  owner's entries come from; `_geometry` picks its warps a block and
+  its shared-memory tile. The kernels take the store's contract: the
+  valid slots of a row come first (ops/sparse.sparsify's order).
 * `mea_dirs` (csrc/mea_dirs.cu) replaces devjoin._mea_dirs, the MEA
   direction DP (an XLA scan in the JAX package) with its 2-bit packing.
 
@@ -27,13 +32,21 @@ counts the kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 LAUNCHES = {"densify_reduce": 0, "densify_reduce_list": 0, "mea_dirs": 0}
 
-# shared-memory tile of densify_reduce: at most 48 KB of f32
-_TILE = 12288
+# densify-reduce blocks (csrc/densify_reduce.cuh): 2 tile rows a warp,
+# 1-8 warps; their entries staged in shared memory (ep, et: one int a
+# thread; wcount: one a warp). A block takes at most a quarter of an
+# SM's 228 KB (the 1 KB the card keeps per block included), so that four
+# are resident.
+_DR_ROWS_PER_WARP = 2
+_DR_MAX_WARPS = 8
+_DR_STAGE = (2 * 32 * _DR_MAX_WARPS + _DR_MAX_WARPS) * 4
+_DR_TILE_AIM = 228 * 1024 // 4 - _DR_STAGE - 1024
 # mea_dirs: 16 * wpt columns per thread, at most 1024 threads, one
 # (threads * 16 * wpt + 1) f32 row in shared memory (227 KB per block)
 _MEA_SMEM = 232448 - 128
@@ -47,8 +60,36 @@ def reset_launches() -> None:
 
 
 def kernel_specs():
-    from ..utils.build import cuda_spec
-    return [cuda_spec(k) for k in LAUNCHES]
+    """Build specs of the three libraries; kernels 7 and 7L are keyed on
+    their shared header too."""
+    from ..utils.build import cuda_spec, package_path
+    dep = (package_path("csrc", "densify_reduce.cuh"),)
+    return [cuda_spec(k, deps=dep if k.startswith("densify_reduce") else ())
+            for k in LAUNCHES]
+
+
+class Geometry(NamedTuple):
+    """A densify-reduce launch: `warps` warps a block, a tile of `tr`
+    rows (2 a warp) by `tc` columns, `smem` bytes of dynamic shared
+    memory a block."""
+    warps: int
+    tr: int
+    tc: int
+    smem: int
+
+
+def _geometry(cc: int) -> Geometry:
+    """As many warps (1-8) as keep the (2 * warps, cc) f32 tile within
+    _DR_TILE_AIM; the whole cc where one warp's rows fit, else column
+    tiles of a multiple of 4 columns (16-byte stores). Slots go 16 to a
+    step whatever k2 is, and rows beyond L are masked, so neither plays
+    a part."""
+    warps = max(1, min(_DR_MAX_WARPS,
+                       _DR_TILE_AIM // (4 * _DR_ROWS_PER_WARP * cc)))
+    tr = _DR_ROWS_PER_WARP * warps
+    room = _DR_TILE_AIM // 4 - 8
+    tc = cc if tr * cc <= room else room // tr // 4 * 4
+    return Geometry(warps, tr, tc, (tr * tc + 8) * 4)
 
 
 def _kernel(name: str):
@@ -121,10 +162,9 @@ def densify_reduce(vals, cols, k2: int, pid, bank, dump: int, cc: int):
     out = torch.empty((n_r, l, cc), dtype=torch.float32, device=dev)
     if n_r == 0 or n_c == 0:
         return out.zero_()
-    tc = min(cc, _TILE)
-    tr = max(1, min(l, _TILE // tc))
+    g = _geometry(cc)
     _launch("densify_reduce", vals.data_ptr(), cols.data_ptr(), p1, l, k, k2,
-            pid.data_ptr(), n_r, n_c, bank.data_ptr(), dump, cc, tr, tc,
+            pid.data_ptr(), n_r, n_c, bank.data_ptr(), dump, cc, g.tr, g.tc,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
@@ -194,12 +234,11 @@ def densify_reduce_list(vals, cols, k2: int, row_ptr, pid, co, bank,
     out = torch.empty((n_s, l, cc), dtype=torch.float32, device=dev)
     if n_s == 0:
         return out
-    tc = min(cc, _TILE)
-    tr = max(1, min(l, _TILE // tc))
+    g = _geometry(cc)
     _launch("densify_reduce_list", vals.data_ptr(), cols.data_ptr(), p1, l,
             k, k2, row_ptr.data_ptr(), n_s, pid.data_ptr(), co.data_ptr(),
-            bank.data_ptr(), bank.shape[0], dump, cc, tr, tc, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            bank.data_ptr(), bank.shape[0], dump, cc, g.tr, g.tc,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

@@ -108,10 +108,11 @@ def build_log(name: str, specs) -> str:
         return fh.read()
 
 
-def cuda_spec(name: str) -> LibSpec:
-    """Library `name` built from csrc/<name>.cu alone."""
+def cuda_spec(name: str, deps: tuple[str, ...] = ()) -> LibSpec:
+    """Library `name` built from csrc/<name>.cu, keyed on `deps` (the
+    headers it includes) too."""
     return LibSpec(name=name, compiler=nvcc(), flags=CUDA_FLAGS,
-                   sources=(package_path("csrc", f"{name}.cu"),))
+                   sources=(package_path("csrc", f"{name}.cu"),), deps=deps)
 
 
 def load_kernel(spec: LibSpec, argtypes):

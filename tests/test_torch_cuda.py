@@ -135,11 +135,13 @@ def test_align_on_card_matches_golden(cuda_device):
 # ---------------------------------------------------------------------------
 
 def _store(rng, p1, l, k, max_nnz=6):
-    """(P1, l, k) store with 1..max_nnz unique columns per row, valid
-    slots first; the last row is the empty dump slot."""
+    """(P1, l, k) store with 1..max_nnz unique columns per row (every
+    slot where max_nnz >= k), valid slots first; the last row is the
+    empty dump slot."""
     cols = np.argsort(rng.random((p1, l, l)), axis=-1)[..., :k].astype(
         np.int32)
-    nnz = rng.integers(1, max_nnz + 1, size=(p1, l, 1))
+    nnz = (np.full((p1, l, 1), k) if max_nnz >= k else
+           rng.integers(1, max_nnz + 1, size=(p1, l, 1)))
     valid = np.arange(k) < nnz
     valid[-1] = False
     vals = np.where(valid, rng.random((p1, l, k)) * 0.9 + 0.02, 0.0)
@@ -157,6 +159,9 @@ def test_new_kernel_build_flags(monkeypatch):
         assert "arch=compute_90a,code=sm_90a" in spec.flags
         assert "-fmad=false" in spec.flags
         assert spec.sources[0].endswith(f"csrc/{spec.name}.cu")
+        # kernels 7 and 7L share one body: an edit to it rebuilds both
+        assert (any(d.endswith("csrc/densify_reduce.cuh") for d in spec.deps)
+                == spec.name.startswith("densify_reduce"))
 
 
 def test_new_kernels_on_cpu_run_plain_versions_and_count_nothing():
@@ -208,38 +213,55 @@ def test_densify_kernel_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,cc", [(256, 300), (128, 13000)],
-                         ids=["one-column-tile", "column-tiles"])
-def test_densify_reduce_kernel_matches_plain(cuda_device, l, cc):
+@pytest.mark.parametrize(
+    "l,cc,k,k2,n_c,nnz",
+    [(256, 300, 16, 8, 11, 6), (128, 13000, 16, 8, 11, 6),
+     (128, 500, 32, 32, 11, 32), (384, 2600, 32, 32, 40, 8),
+     (512, 768, 32, 24, 100, 8)],
+    ids=["one-column-tile", "column-tiles", "k2-32-full-rows", "cc-2600",
+         "l512-nc100"])
+def test_densify_reduce_kernel_matches_plain(cuda_device, l, cc, k, k2, n_c,
+                                            nnz):
+    """Kernel 7 against its plain version, bit for bit: dump pairs, an
+    all-dump row-owner, rows with every slot valid (nnz = K), column
+    tiles, synthetic-1000's widest cc and the n = 200 half's L and n_c."""
     from muscle_tpu_torch.ops import devjoin_cuda as djc
     rng = np.random.default_rng(3)
-    k, k2, n_r, n_c, p1 = 16, 8, 9, 11, 120
-    vals, cols = _store(rng, p1, l, k)
+    n_r, p1 = 9, 120
+    vals, cols = _store(rng, p1, l, k, max_nnz=nnz)
     pid = rng.integers(0, p1 - 1, size=(n_r, n_c)).astype(np.int32)
     pid[rng.random((n_r, n_c)) < 0.5] = p1 - 1
+    pid[2] = p1 - 1
     bank = np.stack([np.sort(rng.choice(cc, l, replace=False))
                      for _ in range(n_c)]).astype(np.int32)
     args = [torch.from_numpy(a).to(cuda_device)
             for a in (vals, cols, pid, bank)]
+    before = djc.LAUNCHES["densify_reduce"]
     got = djc.densify_reduce(args[0], args[1], k2, args[2], args[3], p1 - 1,
                              cc)
     want = djc.densify_reduce_plain(args[0], args[1], k2, args[2], args[3],
                                     p1 - 1, cc)
     torch.cuda.synchronize()
+    assert djc.LAUNCHES["densify_reduce"] == before + 1
     assert torch.equal(got, want)
+    assert not got[2].any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,cc", [(384, 600), (128, 13000)],
-                         ids=["one-column-tile", "column-tiles"])
-def test_densify_reduce_list_kernel_matches_plain(cuda_device, l, cc):
+@pytest.mark.parametrize(
+    "l,cc,k,k2,nnz",
+    [(384, 600, 16, 8, 6), (128, 13000, 16, 8, 6), (128, 500, 32, 32, 32),
+     (384, 2600, 32, 32, 8)],
+    ids=["one-column-tile", "column-tiles", "k2-32-full-rows", "cc-2600"])
+def test_densify_reduce_list_kernel_matches_plain(cuda_device, l, cc, k, k2,
+                                                 nnz):
     """Kernel 7L against its plain version, bit for bit: owners with no
-    entry, dump and out-of-range entries, and (at cc = 13000) a
-    boundary between column tiles."""
+    entry, dump and out-of-range entries, full rows, and (at cc = 13000)
+    a boundary between column tiles."""
     from muscle_tpu_torch.ops import devjoin_cuda as djc
     rng = np.random.default_rng(5)
-    k, k2, n_s, n2, p1, n_e = 16, 8, 12, 7, 90, 200
-    vals, cols = _store(rng, p1, l, k)
+    n_s, n2, p1, n_e = 12, 7, 90, 200
+    vals, cols = _store(rng, p1, l, k, max_nnz=nnz)
     owner = np.sort(rng.integers(0, n_s, n_e))
     owner[owner == 3] = 4
     pid = rng.integers(0, p1 - 1, n_e).astype(np.int32)
@@ -389,6 +411,9 @@ def test_stripe_kernel_build_flags(monkeypatch):
         assert "arch=compute_90a,code=sm_90a" in spec.flags
         assert "-fmad=false" in spec.flags
         assert spec.sources[0].endswith(f"csrc/{spec.name}.cu")
+        # kernels 7 and 7L share one body: an edit to it rebuilds both
+        assert (any(d.endswith("csrc/densify_reduce.cuh") for d in spec.deps)
+                == spec.name.startswith("densify_reduce"))
         assert any(d.endswith("pairhmm_common.cuh") for d in spec.deps)
 
 
@@ -548,6 +573,9 @@ def test_emis_kernel_build_flags(monkeypatch):
         assert "arch=compute_90a,code=sm_90a" in spec.flags
         assert "-fmad=false" in spec.flags
         assert spec.sources[0].endswith(f"csrc/{spec.name}.cu")
+        # kernels 7 and 7L share one body: an edit to it rebuilds both
+        assert (any(d.endswith("csrc/densify_reduce.cuh") for d in spec.deps)
+                == spec.name.startswith("densify_reduce"))
     for spec in specs[:3]:
         assert any(d.endswith("pairhmm_common.cuh") for d in spec.deps)
     # kernels A and B are built from the headers they share with 1E, 2E
