@@ -21,12 +21,17 @@ Phases (each raises on failure, so the run exits non-zero):
    direction DP at 768 x 768. Then the long-pair kernels, each required equal to
    its plain version: kernels A/B at Ly = 2176-10240 (2 pairs, Lx 192;
    every segment geometry S = 2..5 and every rung the long families
-   launch them at), the Y-striped kernels 5/6 on every stripe launch of
-   8 ragged pairs (Lx 512, By = 2 x 2048); their ptxas registers and
-   spills; the whole striped route on a 9000 x 8950 pair (5 stripes)
-   held to kernels A/B at the kernel gate; and their times at the long
-   families' shapes (A/B on one 11000 x 9800 pair at 11264 x 10240, 5/6
-   on one stripe of the 19000 x 18900 nt pair); then densify-reduce's
+   launch them at), the Y-striped kernels 5/6 (one launch a pass, every
+   stripe as a skewed wavefront of groups of G warps) against their
+   whole-pass twins on 8 ragged pairs (Lx 512, By = 2 x 2048) at the
+   geometry's G and at G = 1 and 32, each pass bounded in wall time
+   (STRIPE_PASS_LIMIT_S) and by the kernels' own watchdog; their ptxas
+   registers and spills; the whole striped route on a 9000 x 8950 pair
+   (5 stripes) held to kernels A/B at the kernel gate; and their times
+   at the long families' shapes (A/B on one 11000 x 9800 pair at 11264 x
+   10240; one whole pass of 5 and of 6 on the 19000 x 18900 nt pair, 10
+   stripes, at every G, beside the bound and the dependency floor,
+   row_floor_ms); then densify-reduce's
    list variant (kernel 7L) on 2,000 pairs sampled from a 128 x 128-row
    join over a random store (L = 384, k2 = 24, cc = 600), required
    equal; then the Muscle-3D kernels (ops/pairhmm_emis_cuda.py), each
@@ -75,7 +80,12 @@ Phases (each raises on failure, so the run exits non-zero):
      5 transposed, 3 on the striped kernels; pad 12288, blocked f32 Gram
      consistency with one sequence a block, host refine cut to 20
      iterations); "long pair", two ~19 kb nucleotide sequences on the
-     striped kernels (10 stripes);
+     striped kernels (10 stripes); each required to make one launch of
+     kernel 5 and one of kernel 6 a striped group (STRIPED_GROUPS), the
+     sha256 of each alignment's FASTA text printed and required to be
+     LONG_FAMILY_SHA256, the text before kernels 5/6 ran as one launch
+     a pass (tools/torch_long_family_sha.py prints it for another
+     commit's package);
    - `muscle_tpu_torch.super5(..., device="cuda")` with default
      settings: on the degapped tests/goldens/rdrp_sub16.super5.afa,
      required column-identical to that golden by label (Q printed); on
@@ -205,6 +215,69 @@ def time_cuda(fn, reps: int = 5, per: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e) / per)
     return statistics.median(times)
+
+
+# a striped pass (kernels 5, 6) that has not ended after this many
+# seconds of wall time is a hang: the kernels' own watchdog ends a wait
+# on a left neighbour after ops/pairhmm_striped.WAIT_LIMIT_NS (10 s)
+STRIPE_PASS_LIMIT_S = 60.0
+
+
+def bounded_pass(fn, what, dev):
+    """Run one striped pass and wait for it, raising if it has not ended
+    within STRIPE_PASS_LIMIT_S or if a wait in its hand-over passed the
+    kernels' limit."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_striped as ps
+    t0 = time.perf_counter()
+    out = fn()
+    done = torch.cuda.Event()
+    done.record()
+    while not done.query():
+        if time.perf_counter() - t0 > STRIPE_PASS_LIMIT_S:
+            raise SmokeFailure(f"{what}: no end after {STRIPE_PASS_LIMIT_S} "
+                               "s (a hang in the hand-over)")
+        time.sleep(0.001)
+    try:
+        ps.check_waits(dev)
+    except RuntimeError as e:
+        raise SmokeFailure(f"{what}: {e}") from e
+    return out
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()
+    return float(out[0]) * 1e6
+
+
+# The dependency floor of kernels 5/6: a DP row (forward) or step
+# (backward) is a serial chain, so a pass takes at least Lx times one
+# row's critical path at G segments a group. Counted from the code
+# (csrc/pairhmm_fwd_stripe.cu, pairhmm_bwd_stripe.cu,
+# pairhmm_common.cuh): LOG_ADD is 15 dependent f32 operations (max/min,
+# sub, clamp 2, compare, 2 selects, 3 mul + 3 add, add, select), the
+# scans' LOG_ADD_p 21 (max/min, sub, min, 8 mul + 8 add, add, select).
+# Forward: the five-way fold (4 LOG_ADD + an add = 61), the emission add
+# and c's 2 adds (3), six scan rounds (select + add + LOG_ADD_p = 23
+# each, 138), the carry chain (G steps of add + LOG_ADD_p = 22), the
+# combine (22): 224 + 22 G operations, 8 shuffles, 4 shared-memory round
+# trips, 4 barriers. Backward: the M shift add and c's add (2), the
+# scans (138), the chain (22 G), the IY/JY combine (22), the shift adds
+# and the five-way M fold (2 + 61), the posterior and MEA row (~30): 255
+# + 22 G operations, 15 shuffles, 4 shared-memory round trips, 5
+# barriers. Latencies assumed for Hopper: 4 cycles a dependent f32
+# operation, 24 a shuffle, 30 a shared-memory round trip, 24 a barrier;
+# at the card's highest SM clock.
+ROW_FLOOR = {False: (224, 8, 4, 4), True: (255, 15, 4, 5)}
+
+
+def row_floor_ms(rows, g, clock_hz, backward) -> float:
+    ops, shfl, smem, bars = ROW_FLOOR[backward]
+    cycles = 4 * (ops + 22 * g) + 24 * shfl + 30 * smem + 24 * bars
+    return rows * cycles / clock_hz * 1e3
 
 
 # calls between the events when timing kernels 7/7L and their yardsticks
@@ -375,10 +448,10 @@ def batch_of(lengths_x, lengths_y, width_x, width_y, nletters, seed):
             np.asarray(lengths_y, np.int32))
 
 
-def stripe_cells(lx, ly, sigma, w):
-    """Real DP cells of forward stripe sigma: rows < lx, lanes < ly."""
-    cols = np.clip(np.asarray(ly, np.int64) - sigma * w, 0, w)
-    return float(np.sum(np.asarray(lx, np.int64) * cols))
+# kernels 5/6's check: 8 ragged pairs, Lx 512, By = 2 x 2048, padding
+# inside either stripe, at its edge and one lane past it
+STRIPE_CHECK_LX = (512, 500, 300, 512, 100, 450, 257, 511)
+STRIPE_CHECK_LY = (4096, 4000, 2048, 2049, 1500, 3000, 4095, 100)
 
 
 # widths of kernels A/B held against their twins beyond phase 2's 512:
@@ -459,65 +532,49 @@ def phase_long_kernels(dev) -> list[dict]:
           f"{ms_b:.3f} ms (bound {bnd_b[0]:.4f} ms by {bnd_b[1]})", flush=True)
     del fm
 
-    # kernels 5/6 vs twins: 8 pairs, Lx 512, By = 2 x 2048, padding
-    # inside either stripe, every stripe launch compared on the same
-    # inputs
+    # kernels 5/6 (one launch a pass) vs their whole-pass twins on 8
+    # ragged pairs, Lx 512, By = 2 x 2048, at the geometry's G and at G =
+    # 1 and 32, every pass bounded in wall time
     w = ps.MAX_W
-    lx = [512, 500, 300, 512, 100, 450, 257, 511]
-    ly = [4096, 4000, 2048, 2049, 1500, 3000, 4095, 100]
-    xb, yb, lxn, lyn = batch_of(lx, ly, 512, 2 * w, 20, seed=2048)
-    args = cuda(xb, yb, lxn, lyn) + amino
+    args = cuda(*batch_of(STRIPE_CHECK_LX, STRIPE_CHECK_LY, 512, 2 * w, 20,
+                          seed=2048)) + amino
     match, insert, params = amino
     iy0, jy0, iy0b, jy0b = ps.row0_closed_forms(args[1], args[3], insert,
                                                 params)
-    d_st, plain_f, plain_b = 0.0, [], []
-
-    def twin_timed(fn, store):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = fn()
-        e.record()
-        torch.cuda.synchronize()
-        store.append(s.elapsed_time(e))
-        return out
-
-    def diff(a, b):
-        return max(float((p - q).abs().max()) for p, q in zip(a, b)
-                   if p is not None)
-
-    bnds, fms, fend = [], [], None
-    for s in range(2):
-        bin_ = bnds[-1] if s else None
-        got = ps.pairhmm_fwd_stripe(*args, iy0, jy0, bin_, s, w)
-        want = twin_timed(lambda: ps.fwd_stripe_plain(
-            *args, iy0, jy0, bin_, s, w), plain_f)
-        d_st = max(d_st, diff(got, want))
-        bnds.append(got[0])
-        fms.append(got[2])
-        fend = got[1] if fend is None else torch.maximum(fend, got[1])
-    tot = pc._total_prob(fend, params).contiguous()
-    bwd_bnd = None
-    for sp in range(2):
-        fm = fms[1 - sp]
-        got = ps.pairhmm_bwd_stripe(*args, tot, iy0b, jy0b, bwd_bnd, fm, sp, w)
-        want = twin_timed(lambda: ps.bwd_stripe_plain(
-            *args, tot, iy0b, jy0b, bwd_bnd, fm, sp, w), plain_b)
-        d_st = max(d_st, diff(got, want))
-        bwd_bnd = got[1]
-    ms5_chk = time_cuda(lambda: ps.pairhmm_fwd_stripe(
-        *args, iy0, jy0, bnds[0], 1, w))
-    ms6_chk = time_cuda(lambda: ps.pairhmm_bwd_stripe(
-        *args, tot, iy0b, jy0b, None, fms[1], 0, w))
-    print(f"kernels 5/6 (pairhmm_fwd_stripe, pairhmm_bwd_stripe) vs twins "
-          f"(8 pairs, Lx 512, By 2 x {w}): max |d| {d_st:.3e} "
-          f"{'equal' if d_st == 0 else 'FAIL'}; kernel 5 {ms5_chk:.3f} ms "
-          f"(twin {statistics.median(plain_f):.1f} ms), kernel 6 "
-          f"{ms6_chk:.3f} ms (twin {statistics.median(plain_b):.1f} ms) "
-          f"per stripe", flush=True)
+    t0 = time.perf_counter()
+    fm2, fend2 = ps.fwd_striped_plain(*args, iy0, jy0, w)
+    torch.cuda.synchronize()
+    plain_f = (time.perf_counter() - t0) * 1e3
+    tot = pc._total_prob(fend2, params).contiguous()
+    t0 = time.perf_counter()
+    post2, mea2 = ps.bwd_striped_plain(*args, tot, iy0b, jy0b, fm2.clone(),
+                                       w)
+    torch.cuda.synchronize()
+    plain_b = (time.perf_counter() - t0) * 1e3
+    g_check = ps._geometry(len(STRIPE_CHECK_LX), 2 * w, w).g
+    d_st = 0.0
+    for g in sorted({g_check, 1, 32}):
+        fm, fend = bounded_pass(lambda: ps.pairhmm_fwd_striped(
+            *args, iy0, jy0, w, g), f"kernel 5 at G = {g}", dev)
+        d5 = max(float((fm - fm2).abs().max()),
+                 float((fend - fend2).abs().max()))
+        post, mea = bounded_pass(lambda: ps.pairhmm_bwd_striped(
+            *args, tot, iy0b, jy0b, fm2.clone(), w, g), f"kernel 6 at G = {g}",
+            dev)
+        d6 = max(float((post - post2).abs().max()),
+                 float((mea - mea2).abs().max()))
+        d_st = max(d_st, d5, d6)
+        chosen = " (the geometry's)" if g == g_check else ""
+        print(f"kernels 5/6 (pairhmm_fwd_stripe, pairhmm_bwd_stripe; one "
+              f"launch a pass) vs whole-pass twins (8 pairs, Lx 512, By 2 x "
+              f"{w}) at G = {g}{chosen}: max |d| {d5:.3e} / {d6:.3e} "
+              f"{'equal' if d5 == d6 == 0 else 'FAIL'}", flush=True)
+        del fm, post
+    print(f"kernels 5/6's twins there: {plain_f:.1f} / {plain_b:.1f} ms",
+          flush=True)
     if d_st != 0:
         raise SmokeFailure("a striped kernel differs from its plain version")
-    del fms, bnds
+    del fm2, post2
 
     # the whole striped route (row-0 forms, pass A's chained stripes, the
     # final-state max, pass B, the top-K merge, EA) against kernels A/B +
@@ -557,53 +614,62 @@ def phase_long_kernels(dev) -> list[dict]:
     del got, want, d, flip, vals, cols, kv, kc
 
     # their time at the long pair's shape: 19000 x 18900 nt, padded
-    # 19456 x 20480 (10 stripes); kernel 5 on the last stripe with its M
-    # rows (pass A's last launch), kernel 6 on reversed stripe 0 on it
+    # 19456 x 20480 (10 stripes), one whole pass each, at every G (the
+    # geometry's for B = 1 is the main path's)
     lx1, ly1, px, py = 19000, 18900, 19456, 10 * w
     x, y, lxt, lyt = cuda(*batch_of([lx1], [ly1], px, py, 4, seed=19))
     match, insert, params = nt
     iy0, jy0, iy0b, jy0b = ps.row0_closed_forms(y, lyt, insert, params)
     args = (x, y, lxt, lyt) + nt
-    bnds, fend = [], None
-    for s in range(10):
-        bnd, fe, fm = ps.pairhmm_fwd_stripe(*args, iy0, jy0,
-                                            bnds[-1] if s else None, s, w)
-        bnds.append(bnd)
-        fend = fe if fend is None else torch.maximum(fend, fe)
-    tot = pc._total_prob(fend, params).contiguous()
-    ms5 = time_cuda(lambda: ps.pairhmm_fwd_stripe(*args, iy0, jy0, bnds[8], 9,
-                                                  w))
-    ms6 = time_cuda(lambda: ps.pairhmm_bwd_stripe(*args, tot, iy0b, jy0b,
-                                                  None, fm, 0, w))
-    cells = stripe_cells([lx1], [ly1], 9, w)
-    # kernel 5: codes, the stripe's row-0 forms and the previous boundary
-    # column in; boundary column, final states and the M cells out
-    bnd5 = bound_ms(4 * (lx1 + w + 2 * w + 5 * lx1 + 5 * lx1 + 5 + cells),
+    g_main = ps._geometry(1, py, w).g
+    cells = float(lx1) * ly1
+    # kernel 5: codes, the row-0 forms in; the real M cells and the final
+    # states out
+    bnd5 = bound_ms(4 * (lx1 + py + 2 * py + cells + 5),
                     cells * FWD_OPS_PER_CELL)
-    # kernel 6: codes, row-0 forms, the M cells in; the dense posterior
-    # stripe, its boundary column and the MEA out
-    bnd6 = bound_ms(4 * (lx1 + w + 2 * w + cells + px * w + 6 * lx1 + 1),
+    # kernel 6: codes, row-0 forms, the real M cells in; the dense
+    # posterior over the lattice and the MEA out
+    bnd6 = bound_ms(4 * (lx1 + py + 2 * py + cells + px * py + 1),
                     cells * BWD_POST_OPS_PER_CELL)
-    print(f"kernels 5/6 at the long pair's stripe (Lx {px}, W {w}, "
-          f"{cells:.0f} real cells): kernel 5 {ms5:.3f} ms (bound "
-          f"{bnd5[0]:.4f} ms by {bnd5[1]}), kernel 6 {ms6:.3f} ms (bound "
-          f"{bnd6[0]:.4f} ms by {bnd6[1]}); one block: 1 of 132 SMs",
-          flush=True)
-    del fm, bnds
-    torch.cuda.empty_cache()
+    clock = max_sm_clock_hz()
+    times = {}
+    for g in (1, 2, 4, 8, 16, 32):
+        fm, fend = bounded_pass(lambda: ps.pairhmm_fwd_striped(
+            *args, iy0, jy0, w, g), f"kernel 5 at the long pair, G = {g}", dev)
+        tot = pc._total_prob(fend, params).contiguous()
+        ms5 = time_cuda(lambda: ps.pairhmm_fwd_striped(*args, iy0, jy0, w, g),
+                        reps=3)
+        # kernel 6 writes its posterior over fm: its repeats run on their
+        # own output (the work does not depend on the values)
+        ms6 = time_cuda(lambda: ps.pairhmm_bwd_striped(*args, tot, iy0b, jy0b,
+                                                       fm, w, g), reps=3)
+        ps.check_waits(dev)
+        times[g] = (ms5, ms6)
+        f5 = row_floor_ms(lx1, g, clock, backward=False)
+        f6 = row_floor_ms(lx1, g, clock, backward=True)
+        chosen = " (the geometry's)" if g == g_main else ""
+        print(f"kernels 5/6 at the long pair (Lx {px}, By {py}, 10 stripes, "
+              f"{cells:.0f} real cells), one pass each at G = {g}{chosen}, "
+              f"{py // (64 * g)} groups: kernel 5 {ms5:.3f} ms (bound "
+              f"{bnd5[0]:.4f} ms by {bnd5[1]}, dependency floor {f5:.2f} ms), "
+              f"kernel 6 {ms6:.3f} ms (bound {bnd6[0]:.4f} ms by {bnd6[1]}, "
+              f"dependency floor {f6:.2f} ms); per-stripe launches before "
+              f"(PERF.md row 5/6): 10 x 197.5 = 1975 / 10 x 151.5 = 1515 ms",
+              flush=True)
+        del fm
+        torch.cuda.empty_cache()
+    ms5, ms6 = times[g_main]
     return [
         {"name": "pairhmm_fwd_stripe", "route": "cuda",
          "source": "muscle_tpu_torch/csrc/pairhmm_fwd_stripe.cu",
          "replaces": "muscle_tpu/ops/pairhmm_striped.py:96",
-         "launches": 0, "max_abs_err": d_st, "ms": ms5,
-         "plain_ms": statistics.median(plain_f), "bound_ms": bnd5[0],
-         "bound_by": bnd5[1], "library_ms": None},
+         "launches": 0, "max_abs_err": d_st, "ms": ms5, "plain_ms": plain_f,
+         "bound_ms": bnd5[0], "bound_by": bnd5[1], "library_ms": None},
         {"name": "pairhmm_bwd_stripe", "route": "cuda",
          "source": "muscle_tpu_torch/csrc/pairhmm_bwd_stripe.cu",
          "replaces": "muscle_tpu/ops/pairhmm_striped.py:312",
-         "launches": 0, "max_abs_err": d_st, "ms": ms6,
-         "plain_ms": statistics.median(plain_b), "bound_ms": bnd6[0],
-         "bound_by": bnd6[1], "library_ms": None},
+         "launches": 0, "max_abs_err": d_st, "ms": ms6, "plain_ms": plain_b,
+         "bound_ms": bnd6[0], "bound_by": bnd6[1], "library_ms": None},
     ]
 
 
@@ -1213,20 +1279,42 @@ LONG_PAIR = (19000, 18900)
 # column posteriors): 100 iterations took its call past 60 s; 20 keep
 # the whole script near 600 s beside the ensemble phases
 LONG_MIXED_REFINE_ITERS = 20
+# sha256 of the long families' FASTA text on the H100 at commit d02860e,
+# before kernels 5/6 ran as one launch a pass
+# (tools/torch_long_family_sha.py): the redesign keeps every bit, so
+# the text must not move
+LONG_FAMILY_SHA256 = {
+    "long mixed":
+        "c6c783c655f27053a3bc10dab941f262f818e7ac01858b26f5f77cf69f88e914",
+    "long pair":
+        "c3dc2d8b5d576b370f15e5a569c26566a5b6f36c797530135ed9ed9f49e799d1",
+}
+# striped groups of the long families (pairs of one (px, py) rectangle):
+# long mixed's 11000 x 10600, 11000 x 10900 (11264 x 12288) and 10600 x
+# 10900 (10752 x 12288); the long pair's one
+STRIPED_GROUPS = {"long mixed": 2, "long pair": 1}
 
 
 def phase_long_families(dev) -> dict:
     """The long-pair router on the main path: `align` of the two long
     families at full length."""
+    import hashlib
+    from collections import Counter
+
     import torch
     from muscle_tpu_torch.ops import pairhmm_cuda as pc
     from muscle_tpu_torch.pipeline import posteriors as post_mod
-    widths = []
+    widths, striped = [], []
     launch_fwd = pc.pairhmm_fwd
+    striped_batch = post_mod._long_pairs_striped_batch
 
     def recording_fwd(xb, yb, *args):
         widths.append(int(yb.shape[1]))
         return launch_fwd(xb, yb, *args)
+
+    def recording_striped(codes, lens, pack, batch, *args):
+        striped.append(len(batch))
+        return striped_batch(codes, lens, pack, batch, *args)
 
     out = {}
     print(f"family long mixed: refine cut to {LONG_MIXED_REFINE_ITERS} "
@@ -1244,20 +1332,31 @@ def phase_long_families(dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         post_mod.reset_routes()
         widths.clear()
+        striped.clear()
         pc.pairhmm_fwd = recording_fwd
+        post_mod._long_pairs_striped_batch = recording_striped
         try:
             msa, wall, stages, got = run_path(name, seqs, dev, kernels,
                                               refine_iters=iters)
         finally:
             pc.pairhmm_fwd = launch_fwd
+            post_mod._long_pairs_striped_batch = striped_batch
         peak = torch.cuda.max_memory_allocated()
         routes = dict(post_mod.ROUTES)
+        digest = hashlib.sha256(msa.to_fasta_text().encode()).hexdigest()
+        same = digest == LONG_FAMILY_SHA256[name]
         print(f"family {name} (lengths {[len(s) for s in seqs]}): "
               f"wall={wall:.2f}s width={msa.col_count()} "
               f"peak_device_mem={peak / 2**30:.3f} GiB "
               f"stages={json.dumps(stages)} routes={json.dumps(routes)} "
-              f"kernel A widths={sorted(set(widths))} "
-              f"launches={json.dumps(got)}", flush=True)
+              f"kernel A launches by width="
+              f"{dict(sorted(Counter(widths).items()))} "
+              f"striped groups={striped} "
+              f"launches={json.dumps(got)} sha256={digest} "
+              f"({'the same as' if same else 'NOT'} the text before the "
+              "striped redesign)", flush=True)
+        if not same:
+            raise SmokeFailure(f"{name}: the alignment's text moved")
         if routes != want:
             raise SmokeFailure(f"{name}: routes {routes}, want {want}")
         if name == "long mixed" and 10240 not in widths:
@@ -1266,9 +1365,15 @@ def phase_long_families(dev) -> dict:
         if unchecked:
             raise SmokeFailure(f"{name}: kernels A/B ran at widths "
                                f"{unchecked} not held against their twins")
-        if name == "long pair" and (got["pairhmm_bwd_stripe"] != 10 or
-                                    got["pairhmm_fwd_stripe"] != 10):
-            raise SmokeFailure(f"{name}: want 10 stripes, one forward pass")
+        # one forward and one backward launch a striped group, whatever
+        # its stripes (10 for the long pair, 6 for long mixed's)
+        if (len(striped) != STRIPED_GROUPS[name]
+                or got["pairhmm_fwd_stripe"] != len(striped)
+                or got["pairhmm_bwd_stripe"] != len(striped)):
+            raise SmokeFailure(f"{name}: {len(striped)} striped groups, "
+                               f"launches {got['pairhmm_fwd_stripe']} / "
+                               f"{got['pairhmm_bwd_stripe']}: want one "
+                               "pass each way a group")
         out[name] = {"wall_s": wall, "peak_bytes": peak, "stages": stages,
                      "routes": routes}
     return out

@@ -60,22 +60,44 @@ __device__ __forceinline__ float logexp1_sel(float x) {
   return madd(madd(madd(c0, x, c1), x, c2), x, c3);
 }
 
+// `p ? a : b`, always computed as a select. The LOG_ADD variants end in
+// `small ? hi : lo + fit`; written as a plain ?:, the compiler makes
+// each one a branch around the fit (a convergence region of its own), so
+// independent LOG_ADDs of a thread cannot interleave and each fit's
+// latency is exposed. With kBranchFree (the striped kernels 5/6) the fit
+// runs on every lane and a PTX selp picks: the same operations, so the
+// same bits.
+__device__ __forceinline__ float select_f(bool p, float a, float b) {
+  float r;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %3, 0;\n\t"
+      "selp.f32 %0, %1, %2, q;\n\t}"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"(static_cast<int>(p)));
+  return r;
+}
+
 // LOG_ADD with the reference cubic (M/IX/JX updates, total prob).
+template <bool kBranchFree = false>
 __device__ __forceinline__ float log_add(float x, float y) {
   const float hi = fmaxf(x, y), lo = fminf(x, y);
   const float d = __fsub_rn(hi, lo);
   const bool small = (lo <= LOG_ZERO) || (d >= LOG_UNDERFLOW);
   const float dc = fminf(fmaxf(d, 0.0f), LOG_UNDERFLOW);
+  if (kBranchFree) return select_f(small, hi, __fadd_rn(lo, logexp1_sel(dc)));
   return small ? hi : __fadd_rn(lo, logexp1_sel(dc));
 }
 
+template <bool kBranchFree = false>
 __device__ __forceinline__ float log_add5(float a, float b, float c, float d,
                                           float e) {
-  return log_add(a, log_add(b, log_add(c, log_add(d, e))));
+  return log_add<kBranchFree>(
+      a, log_add<kBranchFree>(
+             b, log_add<kBranchFree>(c, log_add<kBranchFree>(d, e))));
 }
 
 // LOG_ADD with the selection-free degree-8 fit, used inside the
 // within-row scans (muscle_tpu/ops/pairhmm_pallas.py _log_add_p).
+template <bool kBranchFree = false>
 __device__ __forceinline__ float log_add_p(float x, float y) {
   const float hi = fmaxf(x, y), lo = fminf(x, y);
   const float d = fminf(__fsub_rn(hi, lo), LOG_UNDERFLOW);
@@ -89,6 +111,7 @@ __device__ __forceinline__ float log_add_p(float x, float y) {
   r = madd(r, d, 1.22831020e-01f);
   r = madd(r, d, 5.00330250e-01f);
   r = madd(r, d, 6.93143978e-01f);
+  if (kBranchFree) return select_f(small, hi, __fadd_rn(lo, r));
   return small ? hi : __fadd_rn(lo, r);
 }
 
@@ -96,6 +119,7 @@ __device__ __forceinline__ float log_add_p(float x, float y) {
 // segment; (a[e], c[e]) are lanes 2l+e. Composition of lane j with
 // lane j-k: (a_j + a_{j-k}, LOG_ADD_p(c_{j-k} + a_j, c_j)); lanes with
 // no partner combine with (0, NEG_BIG) as in the Pallas kernel.
+template <bool kBranchFree = false>
 __device__ __forceinline__ void seg_scan(float a[2], float c[2], int l) {
   {
     const float a_up = __shfl_up_sync(PH_FULL, a[1], 1);
@@ -103,8 +127,8 @@ __device__ __forceinline__ void seg_scan(float a[2], float c[2], int l) {
     const bool v0 = l >= 1;
     const float a_p0 = v0 ? a_up : 0.0f, c_p0 = v0 ? c_up : NEG_BIG;
     const float a_p1 = a[0], c_p1 = c[0];
-    const float c0n = log_add_p(__fadd_rn(c_p0, a[0]), c[0]);
-    const float c1n = log_add_p(__fadd_rn(c_p1, a[1]), c[1]);
+    const float c0n = log_add_p<kBranchFree>(__fadd_rn(c_p0, a[0]), c[0]);
+    const float c1n = log_add_p<kBranchFree>(__fadd_rn(c_p1, a[1]), c[1]);
     a[0] = __fadd_rn(a[0], a_p0);
     a[1] = __fadd_rn(a[1], a_p1);
     c[0] = c0n;
@@ -117,8 +141,10 @@ __device__ __forceinline__ void seg_scan(float a[2], float c[2], int l) {
     const float c_u0 = __shfl_up_sync(PH_FULL, c[0], d);
     const float c_u1 = __shfl_up_sync(PH_FULL, c[1], d);
     const bool v = l >= d;
-    const float c0n = log_add_p(__fadd_rn(v ? c_u0 : NEG_BIG, a[0]), c[0]);
-    const float c1n = log_add_p(__fadd_rn(v ? c_u1 : NEG_BIG, a[1]), c[1]);
+    const float c0n =
+        log_add_p<kBranchFree>(__fadd_rn(v ? c_u0 : NEG_BIG, a[0]), c[0]);
+    const float c1n =
+        log_add_p<kBranchFree>(__fadd_rn(v ? c_u1 : NEG_BIG, a[1]), c[1]);
     a[0] = __fadd_rn(a[0], v ? a_u0 : 0.0f);
     a[1] = __fadd_rn(a[1], v ? a_u1 : 0.0f);
     c[0] = c0n;

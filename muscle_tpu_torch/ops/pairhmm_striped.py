@@ -2,52 +2,60 @@
 
 Port of muscle_tpu.ops.pairhmm_striped, the path the JAX package's long-
 pair router takes for pairs whose both sides exceed the lane cap of
-kernels A and B (pipeline/posteriors.py::_long_pairs_sparse):
+kernels A and B (pipeline/posteriors.py::_long_pairs_sparse). The JAX
+package launches its two kernels once per stripe of W lanes; the port
+runs every stripe of a pass in one launch:
 
-* kernel 5, `pairhmm_fwd_stripe` (csrc/pairhmm_fwd_stripe.cu), replaces
-  `_fwd_stripe_kernel`: the forward recurrence of kernel A on one stripe
-  of W lanes. It reads the previous stripe's last column at every DP row
-  (the M shift-in, and the IY/JY carries injected into lane 0 of the
-  within-row scan as u_0 = LOG_ADD(carry + a_0, c_0)) and writes its own,
-  with the final states where the stripe holds column ly and the
-  stripe's M rows;
-* kernel 6, `pairhmm_bwd_stripe` (csrc/pairhmm_bwd_stripe.cu), replaces
+* kernel 5, `pairhmm_fwd_striped` (csrc/pairhmm_fwd_stripe.cu), replaces
+  `_fwd_stripe_kernel`: the forward recurrence of kernel A on each
+  stripe, where a stripe reads the previous stripe's last column at
+  every DP row (the M shift-in, and the IY/JY carries injected into lane
+  0 of the within-row scan as u_0 = LOG_ADD(carry + a_0, c_0)); it
+  returns the (B, Lx, By) M lattice and the final states at (lx, ly);
+* kernel 6, `pairhmm_bwd_striped` (csrc/pairhmm_bwd_stripe.cu), replaces
   `_bwd_stripe_kernel`: the backward recurrence, posterior and MEA row of
-  kernel B on one reversed stripe, with the same carries plus the MEA
-  row's max-plus carry.
+  kernel B on each reversed stripe, with the same carries plus the MEA
+  row's max-plus carry, the posterior written over the M lattice in
+  place (JAX's arrays are immutable; the port saves the second lattice,
+  ~20 GB at the router's striped cell budget).
 
-Boundary columns are kept as (B, Lx, 8) f32 rows [M, IX, IY, JX, JY, MEA,
-0, 0]: the forward's row i is DP row i + 1, the backward's row u its step
-u. Stripes run in order, one launch each. `striped_posteriors_sparse`
-orchestrates as JAX does: the global row-0 closed forms (XLA-grouped
-prefix sums, `_cumsum_xla`), pass A (M rows, boundaries and final states
-of every stripe), the total probability, pass B right to left (backward
-stripe S-1-sigma on forward stripe sigma's M rows, the stripe's top-K),
-and the exact top-K merge. JAX recomputes each forward stripe in pass B
-to keep one M stripe alive in TPU memory; the recompute gives the same
-bits, so pass A keeps the whole (B, Lx, By) M lattice instead: 1.6 GB
-for one 19k x 19k pair, at most ~22 GB for 8 pairs at the router's
-striped cell budget.
+Each launch runs the stripes as a skewed wavefront of groups of G
+64-lane segments (`_geometry`), handing each DP row's edge values from
+group to group through device memory (csrc/stripe_wavefront.cuh); the
+arithmetic and its association are those of the per-stripe kernels.
+`striped_posteriors_sparse` orchestrates as JAX does: the global row-0
+closed forms (XLA-grouped prefix sums, `_cumsum_xla`), pass A, the
+total probability, pass B, each stripe's top-K right to left and the
+exact top-K merge. JAX recomputes each forward stripe in pass B to keep
+one M stripe alive in TPU memory; the recompute gives the same bits, so
+pass A keeps the whole M lattice instead: 1.6 GB for one 19k x 19k
+pair, at most ~22 GB for 8 pairs at the router's striped cell budget.
 
-Beside each kernel is its plain twin (`fwd_stripe_plain`,
-`bwd_stripe_plain`), a torch transcription of the Pallas kernel over
-(B, W) rows with a Python loop over DP rows, in the kernels' association
-(that of ops/pairhmm_cuda.py). A wrapper given CPU tensors runs the twin;
-given CUDA tensors it launches the kernel or raises. `LAUNCHES` counts the
-kernel launches.
+Beside the kernels are their plain twins: `fwd_stripe_plain` and
+`bwd_stripe_plain`, a torch transcription of the Pallas kernels on one
+stripe over (B, W) rows with a Python loop over DP rows, in the kernels'
+association (that of ops/pairhmm_cuda.py), with the boundary column of a
+stripe as (B, Lx, 8) f32 rows [M, IX, IY, JX, JY, MEA, 0, 0] (the
+forward's row i is DP row i + 1, the backward's row u its step u); and
+`fwd_striped_plain`, `bwd_striped_plain`, which chain them over the
+stripes as the JAX package's launches do. A wrapper given CPU tensors
+runs the whole-pass twin; given CUDA tensors it launches the kernel or
+raises. `LAUNCHES` counts the kernel launches, one a pass.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .logspace import LOG_ZERO
 from .pairhmm import MIN_SPARSE_SCORE, _cumsum_xla
 from .pairhmm_cuda import (NEG_BIG, P_TII, P_TJJ, P_TSI, P_TSJ, _log_add,
-                           _log_add5, _ptr, _raise_on, _scan2, _shift_fill,
-                           _total_prob, _unpack, load_libs, tables)
+                           _log_add5, _on_card, _ptr, _raise_on, _scan2,
+                           _shift_fill, _total_prob, _unpack, load_libs,
+                           tables)
 
 BND = 8   # boundary slots per row
 B_M, B_IX, B_IY, B_JX, B_JY, B_MEA = range(6)
@@ -273,33 +281,116 @@ def bwd_stripe_plain(xb, yb, lxb, lyb, match, insert, params, tot, iy0b,
 
 
 # ---------------------------------------------------------------------------
+# whole-pass twins: the per-stripe twins chained as the kernels' one
+# launch chains the stripes
+# ---------------------------------------------------------------------------
+
+def fwd_striped_plain(xb, yb, lxb, lyb, match, insert, params, iy0, jy0,
+                      w: int):
+    """Twin of kernel 5: `fwd_stripe_plain` on stripes 0 .. S-1, each on
+    the boundary of the one before. Returns (fm (B, Lx, By), fend (B, 5),
+    the stripes' final states merged by max)."""
+    bnd, fms, fend = None, [], None
+    for s in range(yb.shape[1] // w):
+        bnd, fe, fm = fwd_stripe_plain(xb, yb, lxb, lyb, match, insert,
+                                       params, iy0, jy0, bnd, s, w)
+        fms.append(fm)
+        fend = fe if fend is None else torch.maximum(fend, fe)
+    return torch.cat(fms, dim=2), fend
+
+
+def bwd_striped_plain(xb, yb, lxb, lyb, match, insert, params, tot, iy0b,
+                      jy0b, fm, w: int):
+    """Twin of kernel 6: `bwd_stripe_plain` on reversed stripes 0 ..
+    S-1 (forward stripe S-1-sp's M rows), each on the boundary of the
+    one before; each stripe's posterior is written over its M rows in
+    fm, as the kernel does. Returns (post (B, Lx, By), which is fm, mea
+    (B,))."""
+    n_s = yb.shape[1] // w
+    bnd, mea = None, None
+    for sp in range(n_s):
+        cols = slice((n_s - 1 - sp) * w, (n_s - sp) * w)
+        post, bnd, mea = bwd_stripe_plain(xb, yb, lxb, lyb, match, insert,
+                                          params, tot, iy0b, jy0b, bnd,
+                                          fm[:, :, cols], sp, w)
+        fm[:, :, cols] = post
+    return fm, mea
+
+
+# ---------------------------------------------------------------------------
 # kernel build + launch
 # ---------------------------------------------------------------------------
 
 _KERNELS = ("pairhmm_fwd_stripe", "pairhmm_bwd_stripe")
 _libs: dict = {}
 
+# DP rows a group runs between two publications of its progress; the
+# consumer then lags its left neighbour by R to 2R rows. 8 and 4 were
+# 2-7 % faster than 16 and 32 at the long pair's shape on an H100 80GB
+# HBM3 at 700 W (tools/torch_striped_probe.py)
+ROWS_PER_PUBLISH = 8
+# 64-lane segments a group at most: G = 4 ran one pass at the long
+# pair's shape fastest at B = 1 and B = 8 copies, against G = 1, 2, 8,
+# 16, 32 (same probe): fewer warps a group lengthen the wavefront's skew
+# (a group starts ~R rows after its left neighbour), more lengthen each
+# row (the carry chain, barriers over more warps)
+GROUP_SEGMENTS = 4
+# a wait on the left group past this (device clock) is a deadlock: the
+# kernel flags it and runs on, and `check_waits` raises
+WAIT_LIMIT_NS = 10_000_000_000
+# hand-over floats a record (kernel 5, kernel 6)
+_REC_FLOATS = {"pairhmm_fwd_stripe": 4, "pairhmm_bwd_stripe": 8}
+
+
+class Geometry(NamedTuple):
+    """One pass of kernel 5 or 6: groups of `g` 64-lane segments (one
+    warp each), `groups` a pair."""
+    g: int
+    groups: int
+
+    def hand_bytes(self, b: int, lx: int, kernel: str) -> int:
+        """Bytes of the hand-over records of one launch: one record a
+        DP row for each group."""
+        return b * self.groups * lx * _REC_FLOATS[kernel] * 4
+
+
+def _geometry(b: int, by: int, w: int, g: int | None = None) -> Geometry:
+    """Segments a group: `g` if given (a divisor of 32 and of the
+    stripe's w / 64 segments, so that a group never straddles a stripe
+    edge), else the largest power of two up to GROUP_SEGMENTS that
+    divides the stripe's segments, whatever B and By."""
+    nseg_w = w // 64
+    if g is None:
+        g = GROUP_SEGMENTS
+        while nseg_w % g:
+            g //= 2
+    if g < 1 or 32 % g or nseg_w % g:
+        raise ValueError(f"{g} segments a group: want a divisor of 32 and "
+                         f"of the stripe's {nseg_w} segments")
+    return Geometry(g, by // (64 * g))
+
 
 def kernel_specs():
-    from ..utils.build import CUDA_FLAGS, LibSpec, nvcc, package_path
-    dep = package_path("csrc", "pairhmm_common.cuh")
-    return [LibSpec(name=k, compiler=nvcc(), flags=CUDA_FLAGS,
-                    sources=(package_path("csrc", f"{k}.cu"),), deps=(dep,))
-            for k in _KERNELS]
+    from ..utils.build import cuda_spec, package_path
+    deps = (package_path("csrc", "pairhmm_common.cuh"),
+            package_path("csrc", "stripe_wavefront.cuh"))
+    return [cuda_spec(k, deps=deps) for k in _KERNELS]
 
 
 def _lib(name: str):
     if name not in _libs:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         load_libs(kernel_specs(),
-                  {"pairhmm_fwd_stripe": [vp] * 10 + [ci] * 6 + [vp] * 4,
-                   "pairhmm_bwd_stripe": [vp] * 12 + [ci] * 6 + [vp] * 4},
+                  {"pairhmm_fwd_stripe": [vp] * 9 + [ci] * 7 + [ll]
+                   + [vp] * 6,
+                   "pairhmm_bwd_stripe": [vp] * 10 + [ci] * 7 + [ll]
+                   + [vp] * 6},
                   _libs)
     return _libs[name]
 
 
-def _check(xb, yb, lxb, lyb, match, insert, params, floats, s, w, bnd_in):
-    """Shapes, types and devices of a stripe launch; returns (B, Lx, By)."""
+def _check(xb, yb, lxb, lyb, match, insert, params, floats, w):
+    """Shapes, types and devices of a pass; returns (B, Lx, By, K+1)."""
     dev = xb.device
     for name, t in (("xb", xb), ("yb", yb), ("lxb", lxb), ("lyb", lyb)):
         if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
@@ -312,81 +403,96 @@ def _check(xb, yb, lxb, lyb, match, insert, params, floats, s, w, bnd_in):
     by = yb.shape[1]
     if yb.shape[0] != b or lxb.shape != (b,) or lyb.shape != (b,) or lx < 1:
         raise ValueError("batch shapes disagree")
-    if w % 64 or not 0 < w <= MAX_W or by % w or not 0 <= s < by // w:
-        raise ValueError(f"stripe {s} of width {w} over By={by}: want a "
+    if w % 64 or not 0 < w <= MAX_W or by % w:
+        raise ValueError(f"stripes of width {w} over By={by}: want a "
                          f"64-multiple width <= {MAX_W} dividing By")
-    if (bnd_in is None) != (s == 0) or (
-            bnd_in is not None and bnd_in.shape != (b, lx, BND)):
-        raise ValueError("bnd_in: (B, Lx, 8) from the previous stripe, "
-                         "None for the first")
     kk = insert.shape[0]
     if match.shape != (kk, kk) or params.shape != (16,):
         raise ValueError("score table shapes")
     return b, lx, by, kk
 
 
-def pairhmm_fwd_stripe(xb, yb, lxb, lyb, match, insert, params, iy0, jy0,
-                       bnd_in, s: int, w: int):
-    """Kernel 5 on stripe s. CPU tensors run `fwd_stripe_plain`."""
-    if xb.device.type == "cpu":
-        return fwd_stripe_plain(xb, yb, lxb, lyb, match, insert, params, iy0,
-                                jy0, bnd_in, s, w)
-    if xb.device.type != "cuda":
-        raise ValueError(f"unsupported device {xb.device}")
-    floats = {"iy0": iy0, "jy0": jy0}
-    if bnd_in is not None:
-        floats["bnd_in"] = bnd_in
-    b, lx, by, kk = _check(xb, yb, lxb, lyb, match, insert, params, floats,
-                           s, w, bnd_in)
+# each device's fault flag: set by a launch whose wait on a left
+# neighbour passed WAIT_LIMIT_NS
+_faults: dict = {}
+
+
+def check_waits(device) -> None:
+    """Raise if a launch on `device` since the last call flagged a wait
+    past WAIT_LIMIT_NS (a deadlock in the hand-over); synchronises with
+    those launches."""
+    flag = _faults.get(torch.device(device))
+    if flag is not None and int(flag.item()):
+        flag.zero_()
+        raise RuntimeError("a striped pass waited past its limit on a "
+                           "left neighbour: the hand-over deadlocked")
+
+
+def _launch(name, geo, ins, dims, outs):
+    """Launch kernel `name` on input tensors `ins`, (B, Lx, By, W, K+1)
+    `dims` and output tensors `outs`, with a zeroed ticket, progress
+    counters and hand-over records of its own."""
+    b, lx, by, w, kk = dims
+    dev = ins[0].device
+    if dev not in _faults:
+        _faults[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    sync = torch.zeros(1 + b * geo.groups, dtype=torch.int32, device=dev)
+    hand = torch.zeros(geo.hand_bytes(b, lx, name) // 4, dtype=torch.float32,
+                       device=dev)
+    lib = _lib(name)
+    rc = getattr(lib, name)(
+        *(_ptr(t) for t in ins), b, lx, by, w, geo.g, kk,
+        ROWS_PER_PUBLISH, WAIT_LIMIT_NS, _ptr(sync), _ptr(_faults[dev]),
+        _ptr(hand), *(_ptr(t) for t in outs),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+
+
+def pairhmm_fwd_striped(xb, yb, lxb, lyb, match, insert, params, iy0, jy0,
+                        w: int, g: int | None = None):
+    """Kernel 5: the forward pass over every stripe of width w, one
+    launch (`g` segments a group, `_geometry`'s choice if None). CPU
+    tensors run `fwd_striped_plain`. Returns (fm (B, Lx, By), fend (B,
+    5))."""
+    b, lx, by, kk = _check(xb, yb, lxb, lyb, match, insert, params,
+                           {"iy0": iy0, "jy0": jy0}, w)
     if iy0.shape != (b, by) or jy0.shape != (b, by):
         raise ValueError("iy0/jy0: (B, By)")
-    dev = xb.device
-    bnd = torch.zeros((b, lx, BND), dtype=torch.float32, device=dev)
-    fend = torch.full((b, 5), NEG_BIG, dtype=torch.float32, device=dev)
-    fm = torch.zeros((b, lx, w), dtype=torch.float32, device=dev)
-    lib = _lib("pairhmm_fwd_stripe")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.pairhmm_fwd_stripe(
-        _ptr(xb), _ptr(yb), _ptr(lxb), _ptr(lyb), _ptr(match), _ptr(insert),
-        _ptr(params), _ptr(iy0), _ptr(jy0),
-        None if bnd_in is None else _ptr(bnd_in), b, lx, by, s, w, kk,
-        _ptr(bnd), _ptr(fend), _ptr(fm),
-        ctypes.c_void_p(stream))
-    _raise_on(lib, rc, "pairhmm_fwd_stripe")
-    LAUNCHES["pairhmm_fwd_stripe"] += 1
-    return bnd, fend, fm
+    geo = _geometry(b, by, w, g)
+    if not _on_card(xb):
+        return fwd_striped_plain(xb, yb, lxb, lyb, match, insert, params,
+                                 iy0, jy0, w)
+    fend = torch.full((b, 5), NEG_BIG, dtype=torch.float32, device=xb.device)
+    fm = torch.zeros((b, lx, by), dtype=torch.float32, device=xb.device)
+    _launch("pairhmm_fwd_stripe", geo,
+            (xb, yb, lxb, lyb, match, insert, params, iy0, jy0),
+            (b, lx, by, w, kk), (fend, fm))
+    return fm, fend
 
 
-def pairhmm_bwd_stripe(xb, yb, lxb, lyb, match, insert, params, tot, iy0b,
-                       jy0b, bnd_in, fm, sp: int, w: int):
-    """Kernel 6 on reversed stripe sp. CPU tensors run `bwd_stripe_plain`."""
-    if xb.device.type == "cpu":
-        return bwd_stripe_plain(xb, yb, lxb, lyb, match, insert, params, tot,
-                                iy0b, jy0b, bnd_in, fm, sp, w)
-    if xb.device.type != "cuda":
-        raise ValueError(f"unsupported device {xb.device}")
-    floats = {"tot": tot, "iy0b": iy0b, "jy0b": jy0b, "fm": fm}
-    if bnd_in is not None:
-        floats["bnd_in"] = bnd_in
-    b, lx, by, kk = _check(xb, yb, lxb, lyb, match, insert, params, floats,
-                           sp, w, bnd_in)
+def pairhmm_bwd_striped(xb, yb, lxb, lyb, match, insert, params, tot, iy0b,
+                        jy0b, fm, w: int, g: int | None = None):
+    """Kernel 6: the backward pass, posterior and MEA row over every
+    reversed stripe of width w, one launch. The posterior is written
+    over fm in place and returned as `post` (the same tensor). CPU
+    tensors run `bwd_striped_plain`. Returns (post (B, Lx, By), mea
+    (B,))."""
+    b, lx, by, kk = _check(xb, yb, lxb, lyb, match, insert, params,
+                           {"tot": tot, "iy0b": iy0b, "jy0b": jy0b,
+                            "fm": fm}, w)
     if (tot.shape != (b,) or iy0b.shape != (b, by) or jy0b.shape != (b, by)
-            or fm.shape != (b, lx, w)):
-        raise ValueError("tot (B,), iy0b/jy0b (B, By), fm (B, Lx, W)")
-    dev = xb.device
-    post = torch.empty((b, lx, w), dtype=torch.float32, device=dev)
-    bnd = torch.empty((b, lx, BND), dtype=torch.float32, device=dev)
-    mea = torch.empty((b,), dtype=torch.float32, device=dev)
-    lib = _lib("pairhmm_bwd_stripe")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.pairhmm_bwd_stripe(
-        _ptr(xb), _ptr(yb), _ptr(lxb), _ptr(lyb), _ptr(match), _ptr(insert),
-        _ptr(params), _ptr(tot), _ptr(iy0b), _ptr(jy0b),
-        None if bnd_in is None else _ptr(bnd_in), _ptr(fm), b, lx, by, sp, w,
-        kk, _ptr(post), _ptr(bnd), _ptr(mea), ctypes.c_void_p(stream))
-    _raise_on(lib, rc, "pairhmm_bwd_stripe")
-    LAUNCHES["pairhmm_bwd_stripe"] += 1
-    return post, bnd, mea
+            or fm.shape != (b, lx, by)):
+        raise ValueError("tot (B,), iy0b/jy0b (B, By), fm (B, Lx, By)")
+    geo = _geometry(b, by, w, g)
+    if not _on_card(xb):
+        return bwd_striped_plain(xb, yb, lxb, lyb, match, insert, params,
+                                 tot, iy0b, jy0b, fm, w)
+    mea = torch.empty((b,), dtype=torch.float32, device=xb.device)
+    _launch("pairhmm_bwd_stripe", geo,
+            (xb, yb, lxb, lyb, match, insert, params, tot, iy0b, jy0b),
+            (b, lx, by, w, kk), (fm, mea))
+    return fm, mea
 
 
 # ---------------------------------------------------------------------------
@@ -423,12 +529,13 @@ def row0_closed_forms(yb, lyb, insert, params):
 
 
 def striped_posteriors_sparse(xb, yb, lxb, lyb, pack, k: int = 32,
-                              stripe_w: int = 2048):
+                              stripe_w: int = 2048, g: int | None = None):
     """Sparse posteriors + EA for long pairs via the Y-striped kernels.
 
     xb/yb: (B, Bx)/(B, By) wildcard-padded codes, By a multiple of
-    stripe_w. Returns (vals (B, Bx, K), cols (B, Bx, K), ea (B,), max_nnz
-    int) — the contract of sparsify(batch_posteriors(...)) with EA.
+    stripe_w; `g` segments a group (the kernels' geometry if None).
+    Returns (vals (B, Bx, K), cols (B, Bx, K), ea (B,), max_nnz int) —
+    the contract of sparsify(batch_posteriors(...)) with EA.
     """
     dev = xb.device
     match, insert, params = tables(pack, dev)
@@ -443,35 +550,31 @@ def striped_posteriors_sparse(xb, yb, lxb, lyb, pack, k: int = 32,
     iy0, jy0, iy0b, jy0b = row0_closed_forms(yb, lyb, insert, params)
     args = (xb, yb, lxb, lyb, match, insert, params)
 
-    # pass A: M rows, boundaries and final states of every stripe
-    fms, bnd, fend = [], None, None
-    for s in range(n_s):
-        bnd, fe, fm = pairhmm_fwd_stripe(*args, iy0, jy0, bnd, s, stripe_w)
-        fms.append(fm)
-        fend = fe if fend is None else torch.maximum(fend, fe)
-    del bnd
+    # pass A: the M lattice and the final states, every stripe
+    fm, fend = pairhmm_fwd_striped(*args, iy0, jy0, stripe_w, g)
     tot = _total_prob(fend, params).contiguous()
+    # pass B: backward, posterior and MEA row of every reversed stripe,
+    # the posterior written over fm
+    post, mea = pairhmm_bwd_striped(*args, tot, iy0b, jy0b, fm, stripe_w, g)
+    del fm
 
-    # pass B, right to left: backward stripe S-1-sigma on forward stripe
-    # sigma's M rows, then the stripe's top-K
-    vals_parts, cols_parts, nnz = [], [], 0
-    bwd_bnd, mea = None, None
+    # each stripe's top-K, right to left, then the exact merge: the global
+    # top-K is the top-K of the stripes' top-Ks
+    vals_parts, cols_parts = [], []
     for sp in range(n_s):
         sigma = n_s - 1 - sp
-        post, bwd_bnd, mea = pairhmm_bwd_stripe(
-            *args, tot, iy0b, jy0b, bwd_bnd, fms.pop(), sp, stripe_w)
-        v, c = _top_k(post, k)
+        v, c = _top_k(post[..., sigma * stripe_w:(sigma + 1) * stripe_w], k)
         vals_parts.append(v)
         cols_parts.append(torch.where(v > 0, c.to(torch.int32)
                                       + sigma * stripe_w, -1))
-        nnz = nnz + (post > 0).sum(dim=-1)
-        del post
-
-    # exact merge: the global top-K is the top-K of the stripes' top-Ks
+    nnz = (post > 0).sum(dim=-1)
+    del post
     v, idx = _top_k(torch.cat(vals_parts, dim=-1), k)
     c = torch.gather(torch.cat(cols_parts, dim=-1), -1, idx)
     valid = v > 0.0
     vals = torch.where(valid, v, 0.0)
     cols = torch.where(valid, c, -1).to(torch.int32)
     ea = mea / torch.minimum(lxb, lyb).float()
+    if _on_card(xb):
+        check_waits(dev)
     return vals, cols, ea, int(nnz.max())

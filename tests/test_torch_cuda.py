@@ -415,6 +415,9 @@ def test_stripe_kernel_build_flags(monkeypatch):
         assert (any(d.endswith("csrc/densify_reduce.cuh") for d in spec.deps)
                 == spec.name.startswith("densify_reduce"))
         assert any(d.endswith("pairhmm_common.cuh") for d in spec.deps)
+        # kernels 5 and 6 share the wavefront's hand-over
+        assert any(d.endswith("csrc/stripe_wavefront.cuh")
+                   for d in spec.deps)
 
 
 @pytest.mark.cuda
@@ -451,20 +454,23 @@ def test_wrapper_raises_past_top_rung(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [256, 2048])
-def test_stripe_kernels_match_twins(cuda_device, w):
-    """Every stripe launch of a ragged batch, kernel against twin on the
-    same inputs: boundary columns, final states, M rows, posteriors and
-    MEA equal bit for bit; the whole orchestration launches S + S."""
+@pytest.mark.parametrize("w,g", [(256, 1), (256, 2), (256, 4), (2048, 1),
+                                 (2048, 2), (2048, 8), (2048, 32)])
+def test_stripe_kernels_match_twins(cuda_device, w, g):
+    """One launch a pass, groups of g segments, against the whole-pass
+    twins on the same inputs: M lattice, final states, posteriors and
+    MEA equal bit for bit, on ragged pairs whose padding starts inside a
+    group, at a stripe edge and one lane past it; the orchestration
+    launches each kernel once."""
     from muscle_tpu_torch.ops import pairhmm_striped as ps
-    rng = np.random.default_rng(w)
+    rng = np.random.default_rng(w + g)
     n_s, bx = 3, 200
     by = n_s * w
-    lx = np.array([200, 150, 37, 199, 64], np.int32)
-    ly = np.array([by, by - 5, w, w + 1, 2 * w - 3], np.int32)
-    xb = np.full((5, bx), 20, np.int32)
-    yb = np.full((5, by), 20, np.int32)
-    for i in range(5):
+    lx = np.array([200, 150, 37, 199, 64, 120], np.int32)
+    ly = np.array([by, by - 5, w, w + 1, 2 * w - 3, 64 * 3 + 17], np.int32)
+    xb = np.full((6, bx), 20, np.int32)
+    yb = np.full((6, by), 20, np.int32)
+    for i in range(6):
         xb[i, :lx[i]] = rng.integers(0, 20, lx[i])
         yb[i, :ly[i]] = rng.integers(0, 20, ly[i])
     pack = HMMParams.from_defaults().to_scores()
@@ -473,32 +479,29 @@ def test_stripe_kernels_match_twins(cuda_device, w):
                  for a in (xb, yb, lx, ly)) + tabs
     iy0, jy0, iy0b, jy0b = ps.row0_closed_forms(args[1], args[3], tabs[1],
                                                 tabs[2])
-    bnd, fms, fend = None, [], None
-    for s in range(n_s):
-        got = ps.pairhmm_fwd_stripe(*args, iy0, jy0, bnd, s, w)
-        want = ps.fwd_stripe_plain(*args, iy0, jy0, bnd, s, w)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-        bnd = got[0]
-        fms.append(got[2])
-        fend = got[1] if fend is None else torch.maximum(fend, got[1])
-    tot = pc._total_prob(fend, tabs[2]).contiguous()
-    bwd = None
-    for sp in range(n_s):
-        fm = fms[n_s - 1 - sp]
-        got = ps.pairhmm_bwd_stripe(*args, tot, iy0b, jy0b, bwd, fm, sp, w)
-        want = ps.bwd_stripe_plain(*args, tot, iy0b, jy0b, bwd, fm, sp, w)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-        bwd = got[1]
     before = dict(ps.LAUNCHES)
+    fm, fend = ps.pairhmm_fwd_striped(*args, iy0, jy0, w, g)
+    fm2, fend2 = ps.fwd_striped_plain(*args, iy0, jy0, w)
+    torch.cuda.synchronize()
+    assert torch.equal(fm, fm2) and torch.equal(fend, fend2)
+    tot = pc._total_prob(fend, tabs[2]).contiguous()
+    post, mea = ps.pairhmm_bwd_striped(*args, tot, iy0b, jy0b, fm, w, g)
+    post2, mea2 = ps.bwd_striped_plain(*args, tot, iy0b, jy0b, fm2, w)
+    torch.cuda.synchronize()
+    ps.check_waits(cuda_device)
+    assert post.data_ptr() == fm.data_ptr()    # in place
+    assert torch.equal(post, post2) and torch.equal(mea, mea2)
+    assert ps.LAUNCHES["pairhmm_fwd_stripe"] == \
+        before["pairhmm_fwd_stripe"] + 1
+    assert ps.LAUNCHES["pairhmm_bwd_stripe"] == \
+        before["pairhmm_bwd_stripe"] + 1
     ps.striped_posteriors_sparse(*(torch.from_numpy(a).to(cuda_device)
                                    for a in (xb, yb, lx, ly)), pack,
-                                 stripe_w=w)
+                                 stripe_w=w, g=g)
     assert ps.LAUNCHES["pairhmm_fwd_stripe"] == \
-        before["pairhmm_fwd_stripe"] + n_s
+        before["pairhmm_fwd_stripe"] + 2
     assert ps.LAUNCHES["pairhmm_bwd_stripe"] == \
-        before["pairhmm_bwd_stripe"] + n_s
+        before["pairhmm_bwd_stripe"] + 2
 
 
 @pytest.mark.cuda

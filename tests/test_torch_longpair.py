@@ -181,13 +181,15 @@ def test_stripe_wrappers_reject_bad_inputs(packs):
     match, insert, params = t_cuda.tables(tp, "cpu")
     iy0, jy0, _, _ = t_striped.row0_closed_forms(yb, ly, insert, params)
     args = (xb, yb, lx, ly, match, insert, params, {"iy0": iy0})
-    assert t_striped._check(*args, 0, 256, None) == (8, 256, 512, 21)
+    assert t_striped._check(*args, 256) == (8, 256, 512, 21)
     with pytest.raises(ValueError):
-        t_striped._check(*args, 0, 192, None)      # does not divide By
+        t_striped._check(*args, 192)      # does not divide By
     with pytest.raises(ValueError):
-        t_striped._check(*args, 1, 256, None)      # no boundary given
+        t_striped._check(*args, 32)       # not a multiple of 64
     with pytest.raises(ValueError):
-        t_striped._check(xb.long(), *args[1:], 0, 256, None)
+        t_striped._check(xb.long(), *args[1:], 256)
+    with pytest.raises(ValueError):
+        t_striped._check(*args[:7], {"iy0": iy0.double()}, 256)
 
 
 # ---------------------------------------------------------------------------
