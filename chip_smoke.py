@@ -21,7 +21,10 @@ Phases (each raises on failure, so the run exits non-zero):
    direction DP at 768 x 768. Then the long-pair kernels, each required equal to
    its plain version: kernels A/B at Ly = 2176-10240 (2 pairs, Lx 192;
    every segment geometry S = 2..5 and every rung the long families
-   launch them at), the Y-striped kernels 5/6 (one launch a pass, every
+   launch them at) on both schedules (one block a pair; the wave, each
+   pair's row as a skewed wavefront of groups of G segments across SMs,
+   at the geometry's G and at G = 1), with the ptxas registers and
+   spills of every instance, the Y-striped kernels 5/6 (one launch a pass, every
    stripe as a skewed wavefront of groups of G warps) against their
    whole-pass twins on 8 ragged pairs (Lx 512, By = 2 x 2048) at the
    geometry's G and at G = 1 and 32, each pass bounded in wall time
@@ -29,7 +32,8 @@ Phases (each raises on failure, so the run exits non-zero):
    registers and spills; the whole striped route on a 9000 x 8950 pair
    (5 stripes) held to kernels A/B at the kernel gate; and their times
    at the long families' shapes (A/B on one 11000 x 9800 pair at 11264 x
-   10240; one whole pass of 5 and of 6 on the 19000 x 18900 nt pair, 10
+   10240 on the wave and on one block, beside the times before the wave
+   and its dependency floor; one whole pass of 5 and of 6 on the 19000 x 18900 nt pair, 10
    stripes, at every G, beside the bound and the dependency floor,
    row_floor_ms); then densify-reduce's
    list variant (kernel 7L) on 2,000 pairs sampled from a 128 x 128-row
@@ -82,6 +86,9 @@ Phases (each raises on failure, so the run exits non-zero):
      iterations); "long pair", two ~19 kb nucleotide sequences on the
      striped kernels (10 stripes); each required to make one launch of
      kernel 5 and one of kernel 6 a striped group (STRIPED_GROUPS), the
+     launches of kernels A/B by schedule and width and long mixed's
+     wall and posteriors stage printed (beside its wall before the
+     wave), the
      sha256 of each alignment's FASTA text printed and required to be
      LONG_FAMILY_SHA256, the text before kernels 5/6 ran as one launch
      a pass (tools/torch_long_family_sha.py prints it for another
@@ -130,8 +137,9 @@ Phases (each raises on failure, so the run exits non-zero):
    card, held to kernels A/B at the kernel gate;
 5. print kernels 7L's and 7's times summed over their held main-path
    launches, then the kernels' JSON line (launch counts summed over
-   phase 3; kernel 7L's times and bound at synthetic-1000's largest
-   device join;
+   phase 3, kernels A/B's also by schedule, with their wave times and
+   bounds at 11264 x 10240; kernel 7L's times and bound at
+   synthetic-1000's largest device join;
    each max |d| over phase 2 and the launches held in phase 3),
    then the card line and the final {"ok": true, ...} line.
 
@@ -197,6 +205,16 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def real_cells(t, lx, ly):
+    """t (B, Lx, Ly) with its cells outside each pair's (lx, ly) zeroed:
+    the forward kernels (A, 1M, 1E) leave rows past lx and the 64-lane
+    segments past column ly unwritten, and every reader masks them."""
+    import torch
+    r = torch.arange(t.shape[1], device=t.device)[None, :, None]
+    c = torch.arange(t.shape[2], device=t.device)[None, None, :]
+    return t.where((r < lx[:, None, None]) & (c < ly[:, None, None]), 0.0)
+
+
 def time_cuda(fn, reps: int = 5, per: int = 1) -> float:
     """Median ms of one call over `reps` runs after one warm-up (CUDA
     events around `per` calls: for calls of well under a millisecond,
@@ -228,7 +246,7 @@ def bounded_pass(fn, what, dev):
     within STRIPE_PASS_LIMIT_S or if a wait in its hand-over passed the
     kernels' limit."""
     import torch
-    from muscle_tpu_torch.ops import pairhmm_striped as ps
+    from muscle_tpu_torch.ops import wavefront
     t0 = time.perf_counter()
     out = fn()
     done = torch.cuda.Event()
@@ -239,7 +257,7 @@ def bounded_pass(fn, what, dev):
                                "s (a hang in the hand-over)")
         time.sleep(0.001)
     try:
-        ps.check_waits(dev)
+        wavefront.check_waits(dev)
     except RuntimeError as e:
         raise SmokeFailure(f"{what}: {e}") from e
     return out
@@ -349,10 +367,13 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
           f"{'ok' if ok_b else 'FAIL'}", flush=True)
     del fm2, fend2, post2, mea2, d, flip, d_fm, tol_fm
 
+    # 5 launches between the events: the wrapper's host time (~0.05-0.25
+    # ms a call, before its launch) stays out of the kernels' time
     ms_a = time_cuda(lambda: pc.pairhmm_fwd(x, y, lxt, lyt, match, insert,
-                                            params))
+                                            params), per=5)
     ms_b = time_cuda(lambda: pc.pairhmm_bwd_post(x, y, lxt, lyt, match,
-                                                 insert, params, tot, fm))
+                                                 insert, params, tot, fm),
+                     per=5)
     plain_a = time_cuda(lambda: pc.fwd_plain(x, y, lxt, lyt, match, insert,
                                              params), reps=3)
     plain_b = time_cuda(lambda: pc.bwd_post_plain(x, y, lxt, lyt, match,
@@ -372,9 +393,11 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
                      + 4 * b * width * width + 4 * b,
                      cells * BWD_POST_OPS_PER_CELL)
     print(f"kernel A {ms_a:.3f} ms (twin {plain_a:.1f} ms, bound "
-          f"{bnd_a[0]:.3f} ms by {bnd_a[1]}); kernel B {ms_b:.3f} ms (twin "
-          f"{plain_b:.1f} ms, bound {bnd_b[0]:.3f} ms by {bnd_b[1]}); "
-          f"{b} pairs, {cells:.0f} real cells", flush=True)
+          f"{bnd_a[0]:.3f} ms by {bnd_a[1]}; was {AB_WAS_MS['A_512']} ms); "
+          f"kernel B {ms_b:.3f} ms (twin {plain_b:.1f} ms, bound "
+          f"{bnd_b[0]:.3f} ms by {bnd_b[1]}; was {AB_WAS_MS['B_512']} ms); "
+          f"{b} pairs, {cells:.0f} real cells, schedule "
+          f"{pc.ab_geometry(b, width).schedule}", flush=True)
     if not (ok_a and ok_b):
         raise SmokeFailure("a kernel disagrees with its twin")
     return [
@@ -414,12 +437,19 @@ def ptxas_lines(names) -> list[str]:
                        + ("GridRows" if "GridRows" in src else "ListRuns")
                        + ">")
                 continue
-            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            m = re.search(r"Compiling entry function '_Z(?:N2ph)?(\d+)(\w+)'",
+                          line)
             if m:
                 cur = m.group(2)[:int(m.group(1))]
                 rest = m.group(2)[int(m.group(1)):]
                 t = re.match(r"ILi(\d+)E", rest)
-                if t:
+                w = re.search(r"Lb([01])E", rest)
+                if "wave_kernel" in cur and w:  # pairhmm_wave.cuh
+                    cur += ("<" + ("lattice" if "LatticeEmission" in rest
+                                   else "letters") + ", row 0 "
+                            + ("in the launch" if w.group(1) == "1"
+                               else "given") + ">")
+                elif t:
                     arg = "S" if cur.startswith("pairhmm") else "UNITS"
                     src = (", lattice" if "LatticeEmission" in rest else
                            ", letters" if "CodeEmission" in rest else "")
@@ -460,6 +490,19 @@ STRIPE_CHECK_LY = (4096, 4000, 2048, 2049, 1500, 3000, 4095, 100)
 # 10240 (S = 5 full); phase_long_families fails on any other width
 AB_CHECK_WIDTHS = (2176, 4352, 6272, 8192, 8704, 9728, 10240)
 
+# kernels A/B at 11264 x 10240 and their holds at AB_CHECK_WIDTHS
+# (phase_long_kernels), for the kernels line
+AB_WIDE: dict = {}
+
+# kernels A and B before the wave schedule (PERF.md rows 1-2, the commit
+# before it, NVIDIA H100 80GB HBM3 at 700 W): phase 2's 512 shape, and
+# one 11000 x 9800 pair at 11264 x 10240 on one block
+AB_WAS_MS = {"A_512": 3.679, "B_512": 3.863, "A_10240": 581.9,
+             "B_10240": 752.3}
+# (the 512 times were one launch between the events, the wrapper's host
+# time in; tools/torch_ab_probe.py --rung512 --parent times that commit's
+# kernels beside these with 5, as phase 2 now does)
+
 
 def phase_long_kernels(dev) -> list[dict]:
     """Kernels A and B at the widths of AB_CHECK_WIDTHS, and kernels 5
@@ -486,51 +529,87 @@ def phase_long_kernels(dev) -> list[dict]:
 
     # kernels A/B against their twins at every segment geometry above
     # phase 2's (S = 2..5, with and without idle segment slots) and at
-    # every rung the long families launch them at: 2 pairs, Lx 192, one
-    # pair at the full width, one with padding across two segments
+    # every rung the long families launch them at, under both schedules
+    # (the block a pair, and the wave at the geometry's G and at G = 1):
+    # 2 pairs, Lx 192, one pair at the full width, one with padding
+    # across two segments; each wave launch bounded in wall time
+    d_ab = 0.0
     for width in AB_CHECK_WIDTHS:
         x, y, lxt, lyt = cuda(*batch_of([192, 150], [width, width - 131],
                                         192, width, 20, seed=width))
-        fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *amino)
-        fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *amino)
-        rows = (torch.arange(192, device=dev)[None, :, None]
-                < lxt[:, None, None])
-        tot = pc._total_prob(fend, amino[2])
-        post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, *amino, tot, fm)
-        post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *amino, tot, fm)
-        torch.cuda.synchronize()
-        d_ab = max(float((fm - fm2).abs().where(rows, 0.0).max()),
-                   float((fend - fend2).abs().max()),
-                   float((post - post2).abs().max()),
-                   float((mea - mea2).abs().max()))
         nseg = width // 64
         s_ = -(-nseg // 32)
-        print(f"kernels A/B at Ly={width} (S={s_}, {-(-nseg // s_)} warps, "
-              f"{-(-nseg // s_) * s_ - nseg} idle segment slots; 2 pairs, "
-              f"Lx 192) vs twins: max |d| {d_ab:.3e} "
-              f"{'equal' if d_ab == 0 else 'FAIL'}", flush=True)
-        if d_ab != 0:
-            raise SmokeFailure(f"kernels A/B at Ly = {width} differ from "
-                               "their twins")
-        del fm, fm2, post, post2
+        g_auto = pc.ab_geometry(2, width).g
+        for sched, g in (("block", None), ("wave", g_auto), ("wave", 1)):
+            def ab(sched=sched, g=g):
+                fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *amino,
+                                          schedule=sched, g=g)
+                tot = pc._total_prob(fend, amino[2])
+                return fm, fend, tot, pc.pairhmm_bwd_post(
+                    x, y, lxt, lyt, *amino, tot, fm, schedule=sched, g=g)
+            what = f"kernels A/B at Ly = {width}, {sched} G = {g}"
+            fm, fend, tot, (post, mea) = bounded_pass(ab, what, dev)
+            fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *amino)
+            post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *amino, tot, fm)
+            torch.cuda.synchronize()
+            d = max(float((real_cells(fm, lxt, lyt)
+                           - real_cells(fm2, lxt, lyt)).abs().max()),
+                    float((fend - fend2).abs().max()),
+                    float((post - post2).abs().max()),
+                    float((mea - mea2).abs().max()))
+            d_ab = max(d_ab, d)
+            geo = (f"S={s_}, {-(-nseg // s_)} warps, "
+                   f"{-(-nseg // s_) * s_ - nseg} idle segment slots"
+                   if sched == "block" else
+                   f"G={g}, {nseg // g} groups a pair")
+            print(f"kernels A/B at Ly={width} {sched} ({geo}; 2 pairs, Lx "
+                  f"192) vs twins: max |d| {d:.3e} "
+                  f"{'equal' if d == 0 else 'FAIL'}", flush=True)
+            if d != 0:
+                raise SmokeFailure(f"kernels A/B at Ly = {width} ({sched}, "
+                                   f"G = {g}) differ from their twins")
+            del fm, fm2, post, post2
 
     # their time at the long mixed family's in-cap rung (one pair
-    # 11000 x 9800, padded 11264 x 10240)
+    # 11000 x 9800, padded 11264 x 10240), on the router's schedule (the
+    # wave) and on one block a pair, beside the times before the wave
+    # (PERF.md rows 1-2, AB_WAS_MS) and the wave's dependency
+    # floor (Lx times one row's critical path at its G)
     x, y, lxt, lyt = cuda(*batch_of([11000], [9800], 11264, 10240, 20,
                                     seed=11))
-    ms_a = time_cuda(lambda: pc.pairhmm_fwd(x, y, lxt, lyt, *amino))
-    fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *amino)
-    tot = pc._total_prob(fend, amino[2])
-    ms_b = time_cuda(lambda: pc.pairhmm_bwd_post(x, y, lxt, lyt, *amino,
-                                                 tot, fm))
+    geo = pc.ab_geometry(1, 10240)
+    wide = {}
+    for sched, reps in ((geo.schedule, 5), ("block", 1)):
+        fm, fend = bounded_pass(lambda: pc.pairhmm_fwd(
+            x, y, lxt, lyt, *amino, schedule=sched), f"kernel A, {sched}",
+            dev)
+        tot = pc._total_prob(fend, amino[2])
+        ms_a = time_cuda(lambda: pc.pairhmm_fwd(x, y, lxt, lyt, *amino,
+                                                schedule=sched), reps=reps)
+        ms_b = time_cuda(lambda: pc.pairhmm_bwd_post(
+            x, y, lxt, lyt, *amino, tot, fm, schedule=sched), reps=reps)
+        pc.wavefront.check_waits(dev)
+        wide[sched] = (ms_a, ms_b)
+        del fm
     cells = 11000.0 * 9800.0
     bnd_a = bound_ms(4 * (11000 + 9800 + cells + 5), cells * FWD_OPS_PER_CELL)
     bnd_b = bound_ms(4 * (11000 + 9800 + cells + 11264 * 10240),
                      cells * BWD_POST_OPS_PER_CELL)
-    print(f"kernels A/B at 11264 x 10240 (one pair 11000 x 9800): A "
-          f"{ms_a:.3f} ms (bound {bnd_a[0]:.4f} ms by {bnd_a[1]}), B "
-          f"{ms_b:.3f} ms (bound {bnd_b[0]:.4f} ms by {bnd_b[1]})", flush=True)
-    del fm
+    clock = max_sm_clock_hz()
+    ms_a, ms_b = wide[geo.schedule]
+    print(f"kernels A/B at 11264 x 10240 (one pair 11000 x 9800), "
+          f"{geo.schedule} G = {geo.g} ({geo.groups} groups): A {ms_a:.3f} "
+          f"ms (bound {bnd_a[0]:.4f} ms by {bnd_a[1]}, dependency floor "
+          f"{row_floor_ms(11000, geo.g, clock, False):.2f} ms; was "
+          f"{AB_WAS_MS['A_10240']} ms), B {ms_b:.3f} ms (bound "
+          f"{bnd_b[0]:.4f} ms by {bnd_b[1]}, dependency floor "
+          f"{row_floor_ms(11000, geo.g, clock, True):.2f} ms; was "
+          f"{AB_WAS_MS['B_10240']} ms); one block a pair in this run: A "
+          f"{wide['block'][0]:.3f} ms, B {wide['block'][1]:.3f} ms; "
+          f"{AB_WAS_MS['A_10240'] / ms_a:.1f}x / "
+          f"{AB_WAS_MS['B_10240'] / ms_b:.1f}x the times before", flush=True)
+    AB_WIDE.update(ms=(ms_a, ms_b), bound=(bnd_a[0], bnd_b[0]),
+                   block_ms=wide["block"], max_abs_err=d_ab, g=geo.g)
 
     # kernels 5/6 (one launch a pass) vs their whole-pass twins on 8
     # ragged pairs, Lx 512, By = 2 x 2048, at the geometry's G and at G =
@@ -643,7 +722,7 @@ def phase_long_kernels(dev) -> list[dict]:
         # own output (the work does not depend on the values)
         ms6 = time_cuda(lambda: ps.pairhmm_bwd_striped(*args, tot, iy0b, jy0b,
                                                        fm, w, g), reps=3)
-        ps.check_waits(dev)
+        ps.wavefront.check_waits(dev)
         times[g] = (ms5, ms6)
         f5 = row_floor_ms(lx1, g, clock, backward=False)
         f6 = row_floor_ms(lx1, g, clock, backward=True)
@@ -1063,8 +1142,10 @@ REFINE_KERNELS = ("densify_reduce", "mea_dirs")
 LIST_KERNELS = ("densify_reduce_list",)
 DENSIFY = ("densify",)
 
-# launches of each kernel over the main path's runs (phase 3)
+# launches of each kernel over the main path's runs (phase 3), and of
+# kernels A/B/1M/2M by (name, schedule, Ly)
 MAIN_PATH: dict[str, int] = {}
+MAIN_SCHEDULES: dict[tuple, int] = {}
 
 
 def _kernel_modules():
@@ -1085,6 +1166,18 @@ def launches() -> dict[str, int]:
     for m in _kernel_modules():
         out.update(m.LAUNCHES)
     return out
+
+
+def count_main_path() -> dict[str, int]:
+    """The launches since reset_launches(), added to MAIN_PATH, and
+    kernels A/B/1M/2M's by schedule and width to MAIN_SCHEDULES."""
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    got = launches()
+    for k, v in got.items():
+        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
+    for k, v in pc.SCHEDULES.items():
+        MAIN_SCHEDULES[k] = MAIN_SCHEDULES.get(k, 0) + v
+    return got
 
 
 class HeldLaunches:
@@ -1193,9 +1286,7 @@ def run_path(name, seqs, dev, kernels, **kwargs):
     torch.cuda.synchronize()
     held = GRID_CHECK.seconds - s0
     wall = time.perf_counter() - t0 - held
-    got = launches()
-    for k, v in got.items():
-        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
+    got = count_main_path()
     missing = [k for k in kernels if got[k] <= 0]
     if missing:
         raise SmokeFailure(f"{name}: {missing} not launched")
@@ -1293,6 +1384,10 @@ LONG_FAMILY_SHA256 = {
 # long mixed's 11000 x 10600, 11000 x 10900 (11264 x 12288) and 10600 x
 # 10900 (10752 x 12288); the long pair's one
 STRIPED_GROUPS = {"long mixed": 2, "long pair": 1}
+# long mixed's wall before kernels A/B's wave schedule (PERF.md §5, two
+# runs of this script on the commit before it, NVIDIA H100 80GB HBM3 at
+# 700 W)
+LONG_MIXED_WAS = "39.71-42.08 s"
 
 
 def phase_long_families(dev) -> dict:
@@ -1343,6 +1438,8 @@ def phase_long_families(dev) -> dict:
             post_mod._long_pairs_striped_batch = striped_batch
         peak = torch.cuda.max_memory_allocated()
         routes = dict(post_mod.ROUTES)
+        scheds = {f"{k[0]} {k[1]} {k[2]}": v
+                  for k, v in sorted(pc.SCHEDULES.items())}
         digest = hashlib.sha256(msa.to_fasta_text().encode()).hexdigest()
         same = digest == LONG_FAMILY_SHA256[name]
         print(f"family {name} (lengths {[len(s) for s in seqs]}): "
@@ -1352,9 +1449,15 @@ def phase_long_families(dev) -> dict:
               f"kernel A launches by width="
               f"{dict(sorted(Counter(widths).items()))} "
               f"striped groups={striped} "
+              f"kernel A/B launches by schedule and width="
+              f"{json.dumps(scheds)} "
               f"launches={json.dumps(got)} sha256={digest} "
               f"({'the same as' if same else 'NOT'} the text before the "
               "striped redesign)", flush=True)
+        if name == "long mixed":
+            print(f"family long mixed: wall {wall:.2f}s, posteriors stage "
+                  f"{stages.get('posteriors', 0.0):.2f}s (before the wave "
+                  f"schedule: wall {LONG_MIXED_WAS}, PERF.md)", flush=True)
         if not same:
             raise SmokeFailure(f"{name}: the alignment's text moved")
         if routes != want:
@@ -1564,10 +1667,8 @@ def run_super5(name, seqs, dev, kernels):
         wall = time.perf_counter() - t0 - check.seconds - grid_held
     finally:
         devjoin.densify_reduce_list = launch
-    got = launches()
+    got = count_main_path()
     peak = max(peak_bytes(), check.peak)
-    for k, v in got.items():
-        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
     missing = [k for k in kernels if got[k] <= 0]
     if missing:
         raise SmokeFailure(f"{name}: {missing} not launched")
@@ -1790,7 +1891,9 @@ def hold_fwd(args, fm, r=HELD_ROWS):
     want, _ = pe.fwd_emis_plain(*head)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return float((fm[:, :r] - want).abs().max()), ms
+    lx, ly = head[3], head[4]
+    return float((real_cells(fm[:, :r], lx, ly)
+                  - real_cells(want, lx, ly)).abs().max()), ms
 
 
 def hold_bwd(args, rb, r=HELD_ROWS):
@@ -1891,10 +1994,6 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     def cells_of(lx, ly):
         return float((lx.long() * ly.long()).sum())
 
-    def valid_rows(t, lx):
-        rows = torch.arange(t.shape[1], device=dev)[None, :, None]
-        return t.where(rows < lx[:, None, None], 0.0)
-
     # 1E and 2E at mega-128's bucket shape: its first 256 pairs at 384
     ms128 = sets["mega-128"][0]
     n128 = len(ms128.labels)
@@ -1903,7 +2002,8 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     args = (e, ins_x, ins_y, lx, ly, params)
     fm, fend = pe.pairhmm_fwd_emis(*args)
     fm2, fend2 = pe.fwd_emis_plain(*args)
-    d1 = max(float((valid_rows(fm, lx) - valid_rows(fm2, lx)).abs().max()),
+    d1 = max(float((real_cells(fm, lx, ly) - real_cells(fm2, lx, ly)).abs()
+                    .max()),
              float((fend - fend2).abs().max()))
     tot = pc._total_prob(fend, params)
     post, mea = pe.pairhmm_bwd_post_emis(*args, tot, fm)
@@ -1958,7 +2058,7 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     fme, fende = pe.pairhmm_fwd_emis(*largs)
     poste, meae = pe.pairhmm_bwd_post_emis(*largs, tota, fma)
     torch.cuda.synchronize()
-    same = (torch.equal(valid_rows(fma, lxt), valid_rows(fme, lxt))
+    same = (torch.equal(real_cells(fma, lxt, lyt), real_cells(fme, lxt, lyt))
             and torch.equal(fenda, fende) and torch.equal(posta, poste)
             and torch.equal(meaa, meae))
     print(f"kernels 1E/2E on the letter lattice match[x_i, y_j] (256 amino "
@@ -2170,7 +2270,7 @@ def lane_groups(match, insert, params):
 
 
 def hold_multi_fwd(args, fm, fend):
-    """Max |d| of a kernel-1M launch's output (fm on rows < lx, fend)
+    """Max |d| of a kernel-1M launch's output (fm on the real cells, fend)
     against kernel A on each pack's lanes with that pack's tables."""
     import torch
     from muscle_tpu_torch.ops import pairhmm_cuda as pc
@@ -2181,9 +2281,8 @@ def hold_multi_fwd(args, fm, fend):
         sub = tuple(t[lanes].contiguous() for t in (x, y, lx, ly))
         fm1, fend1 = pc.pairhmm_fwd(*sub, m[k].contiguous(),
                                     i[k].contiguous(), p[k].contiguous())
-        rows = torch.arange(fm.shape[1], device=fm.device)[None, :, None] \
-            < sub[2][:, None, None]
-        d = max(d, float((fm[lanes] - fm1).where(rows, 0.0).abs().max()),
+        d = max(d, float((real_cells(fm[lanes], sub[2], sub[3])
+                          - real_cells(fm1, sub[2], sub[3])).abs().max()),
                 float((fend[lanes] - fend1).abs().max()))
     return d
 
@@ -2230,11 +2329,11 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
     args = (x, y, lxt, lyt, m, i, p)
     cells = float(np.sum(lx.astype(np.int64) * ly.astype(np.int64)))
     kk = i.shape[1]
-    rows = torch.arange(width, device=dev)[None, :, None] < lxt[:, None, None]
 
     fm, fend = pc.pairhmm_fwd(*args)
     fm2, fend2 = pc.fwd_plain(*args)
-    d1 = max(float((fm - fm2).where(rows, 0.0).abs().max()),
+    d1 = max(float((real_cells(fm, lxt, lyt)
+                    - real_cells(fm2, lxt, lyt)).abs().max()),
              float((fend - fend2).abs().max()))
     tot = pc._total_prob(fend, p)
     post, mea = pc.pairhmm_bwd_post(*args, tot, fm)
@@ -2264,7 +2363,8 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
     poste, meae = pe.pairhmm_bwd_post_emis(el, ins_x, ins_y, lxt, lyt, p, tot,
                                            fm)
     torch.cuda.synchronize()
-    de = max(float((fme - fm).where(rows, 0.0).abs().max()),
+    de = max(float((real_cells(fme, lxt, lyt)
+                    - real_cells(fm, lxt, lyt)).abs().max()),
              float((fende - fend).abs().max()),
              float((poste - post).abs().max()), float((meae - mea).abs().max()))
     print(f"kernels 1E/2E with per-pair params on the per-pair lattice vs "
@@ -2345,15 +2445,14 @@ MULTI_KERNELS = ("pairhmm_fwd_multi", "pairhmm_bwd_post_multi")
 def hold_plain(name, args, out):
     """Max |d| of a kernel-1M or 2M launch's output against its plain
     version on all of its lanes, the same per-pair tables and inputs (fm
-    on rows < lx, as kernel 1M leaves the rest unwritten)."""
+    on the real cells, as kernel 1M leaves the rest unwritten)."""
     import torch
     from muscle_tpu_torch.ops import pairhmm_cuda as pc
     if name == "pairhmm_fwd_multi":
         fm, fend = out
         fm2, fend2 = pc.fwd_plain(*args)
-        rows = torch.arange(fm.shape[1], device=fm.device)[None, :, None] \
-            < args[2][:, None, None]
-        return max(float((fm - fm2).where(rows, 0.0).abs().max()),
+        return max(float((real_cells(fm, args[2], args[3])
+                          - real_cells(fm2, args[2], args[3])).abs().max()),
                    float((fend - fend2).abs().max()))
     post, mea = out
     post2, mea2 = pc.bwd_post_plain(*args)
@@ -2387,9 +2486,11 @@ class MultiKernelCheck:
         torch.cuda.synchronize()
         self.peak = max(self.peak, torch.cuda.max_memory_allocated())
         t0 = time.perf_counter()
-        counts = dict(pc.LAUNCHES)
+        counts, scheds = dict(pc.LAUNCHES), pc.SCHEDULES.copy()
         into.append(check())
         pc.LAUNCHES.update(counts)
+        pc.SCHEDULES.clear()
+        pc.SCHEDULES.update(scheds)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         self.seconds += time.perf_counter() - t0
@@ -2497,10 +2598,8 @@ def run_ensemble(name, seqs, dev, opts, workdir):
         run_align_command("align", inp, efa, {**opts, "device": str(dev)})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - check.seconds
-    got = launches()
+    got = count_main_path()
     peak = max(torch.cuda.max_memory_allocated(), check.peak)
-    for k, v in got.items():
-        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
     missing = [k for k in MULTI_KERNELS if got[k] <= 0]
     if missing:
         raise SmokeFailure(f"{name}: {missing} not launched")
@@ -2728,6 +2827,16 @@ def main() -> int:
         k["launches"] = MAIN_PATH.get(k["name"], 0)
         if k["launches"] <= 0:
             raise SmokeFailure(f"{k['name']} never launched on the main path")
+    # kernels A/B: their launches on the main path by schedule and width,
+    # and their times, bound and hold at the long families' in-cap rung
+    for i, k in enumerate(kernels[:2]):
+        k["schedule"] = {f"{sched} {ly}": n for (name, sched, ly), n
+                         in sorted(MAIN_SCHEDULES.items())
+                         if name == k["name"]}
+        k.update(ms_10240=AB_WIDE["ms"][i],
+                 block_ms_10240=AB_WIDE["block_ms"][i],
+                 bound_ms_10240=AB_WIDE["bound"][i],
+                 max_abs_err=max(k["max_abs_err"], AB_WIDE["max_abs_err"]))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -181,7 +181,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
                                 __fadd_rn(__fadd_rn(tMJ, jx0), insx));
       __syncthreads();
       // (2) carry over the segments
-      carry_chain(s_tot, s_carry, nseg);
+      carry_chain(s_tot, s_carry, nseg, nseg);
       __syncthreads();
       // (3) IY/JY rows
 #pragma unroll

@@ -35,6 +35,14 @@
 // Ly-1-q], one coalesced row per step: the TPU kernel's lane flip
 // (_flip_lanes, an exchange-matrix product per 128 lanes) is index
 // arithmetic here, and no flipped copy exists.
+//
+// As for kernel A (pairhmm_fwd.cuh), the card measured a latency chain:
+// at 512 lanes a block alone ran its step (~11,000 cycles: terms + scans
+// 48 %, posterior + MEA 15 %, M fold 14 %, carry chain 13 %) within 14 %
+// of four sharing an SM. So the LOG_ADDs are selects (kBF); rows wider
+// than 2048 lanes run on the wave schedule (pairhmm_wave.cuh). The
+// padding lanes on the left carry the column boundary chains, so every
+// segment works.
 #pragma once
 
 #include "pairhmm_common.cuh"
@@ -129,8 +137,9 @@ pairhmm_bwd_post_kernel(const typename Src::Args args,
                             jy[s][0]};
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float mr = log_add(__fadd_rn(__fadd_rn(tMI, shi[e]), insy[s][e]),
-                                 __fadd_rn(__fadd_rn(tMJ, shj[e]), insy[s][e]));
+        const float mr =
+            log_add<kBF>(__fadd_rn(__fadd_rn(tMI, shi[e]), insy[s][e]),
+                         __fadd_rn(__fadd_rn(tMJ, shj[e]), insy[s][e]));
         m[s][e] = pad[s][e] ? tSM : mr;
         ix[s][e] = pad[s][e] ? tSI : LOG_ZERO;
         jx[s][e] = pad[s][e] ? tSJ : LOG_ZERO;
@@ -165,15 +174,17 @@ pairhmm_bwd_post_kernel(const typename Src::Args args,
             nm[s][e] = __fadd_rn(shm[e], er);
             nix[s][e] = __fadd_rn(ix[s][e], insx);
             njx[s][e] = __fadd_rn(jx[s][e], insx);
-            ix[s][e] = log_add(__fadd_rn(tII, nix[s][e]), __fadd_rn(tIM, nm[s][e]));
-            jx[s][e] = log_add(__fadd_rn(tJJ, njx[s][e]), __fadd_rn(tJM, nm[s][e]));
+            ix[s][e] = log_add<kBF>(__fadd_rn(tII, nix[s][e]),
+                                    __fadd_rn(tIM, nm[s][e]));
+            jx[s][e] = log_add<kBF>(__fadd_rn(tJJ, njx[s][e]),
+                                    __fadd_rn(tJM, nm[s][e]));
             aI[s][e] = __fadd_rn(insy[s][e], tII);
             cI[s][e] = __fadd_rn(tIM, nm[s][e]);
             aJ[s][e] = __fadd_rn(insy[s][e], tJJ);
             cJ[s][e] = __fadd_rn(tJM, nm[s][e]);
           }
-          seg_scan(aI[s], cI[s], l);
-          seg_scan(aJ[s], cJ[s], l);
+          seg_scan<kBF>(aI[s], cI[s], l);
+          seg_scan<kBF>(aJ[s], cJ[s], l);
           if (l == 31) {
             s_tot[g] = aI[s][1];
             s_tot[nseg + g] = cI[s][1];
@@ -184,11 +195,11 @@ pairhmm_bwd_post_kernel(const typename Src::Args args,
       }
       const float ix0n = __fadd_rn(__fadd_rn(tII, ix0), insx);
       const float jx0n = __fadd_rn(__fadd_rn(tJJ, jx0), insx);
-      const float m0n = log_add(__fadd_rn(__fadd_rn(tMI, ix0), insx),
+      const float m0n = log_add<kBF>(__fadd_rn(__fadd_rn(tMI, ix0), insx),
                                 __fadd_rn(__fadd_rn(tMJ, jx0), insx));
       __syncthreads();
       // (2) carry over the segments
-      carry_chain(s_tot, s_carry, nseg);
+      carry_chain<kBF>(s_tot, s_carry, nseg, nseg);
       __syncthreads();
       // (3) IY/JY rows
 #pragma unroll
@@ -197,8 +208,10 @@ pairhmm_bwd_post_kernel(const typename Src::Args args,
         if (g < nseg) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            iy[s][e] = log_add_p(__fadd_rn(s_carry[g], aI[s][e]), cI[s][e]);
-            jy[s][e] = log_add_p(__fadd_rn(s_carry[nseg + g], aJ[s][e]), cJ[s][e]);
+            iy[s][e] =
+                log_add_p<kBF>(__fadd_rn(s_carry[g], aI[s][e]), cI[s][e]);
+            jy[s][e] = log_add_p<kBF>(__fadd_rn(s_carry[nseg + g], aJ[s][e]),
+                                      cJ[s][e]);
           }
           if (l == 31) {
             s_edge_iy[g] = iy[s][1];
@@ -220,9 +233,10 @@ pairhmm_bwd_post_kernel(const typename Src::Args args,
           for (int e = 0; e < 2; ++e) {
             const float niy = __fadd_rn(shi[e], insy[s][e]);
             const float njy = __fadd_rn(shj[e], insy[s][e]);
-            m[s][e] = log_add5(__fadd_rn(tMM, nm[s][e]), __fadd_rn(tMI, nix[s][e]),
-                               __fadd_rn(tMJ, njx[s][e]), __fadd_rn(tMI, niy),
-                               __fadd_rn(tMJ, njy));
+            m[s][e] = log_add5<kBF>(
+                __fadd_rn(tMM, nm[s][e]), __fadd_rn(tMI, nix[s][e]),
+                __fadd_rn(tMJ, njx[s][e]), __fadd_rn(tMI, niy),
+                __fadd_rn(tMJ, njy));
           }
           if (l == 31) s_edge_m[g] = m[s][1];
         }

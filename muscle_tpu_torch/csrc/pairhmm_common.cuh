@@ -76,6 +76,13 @@ __device__ __forceinline__ float select_f(bool p, float a, float b) {
   return r;
 }
 
+// The LOG_ADDs of kernels A/B (both schedules), 1M/2M, 1E/2E and 5/6 are
+// selects: their rows are latency chains (a block alone on its SM runs
+// a 512-lane row within 12-14 % of four sharing one, and selects cut
+// kernel A's launch at 512 to 0.78x and a lone block's row to 0.6x on an
+// H100 80GB HBM3 at 700 W; tools/torch_ab_probe.py --rung512).
+constexpr bool kBF = true;
+
 // LOG_ADD with the reference cubic (M/IX/JX updates, total prob).
 template <bool kBranchFree = false>
 __device__ __forceinline__ float log_add(float x, float y) {
@@ -155,9 +162,11 @@ __device__ __forceinline__ void seg_scan(float a[2], float c[2], int l) {
 // Sequential carry chain over the segment totals of the IY (t = 0) and
 // JY (t = 1) scans, run by threads 0 and 1: tot holds
 // [a_IY | c_IY | a_JY | c_JY], each nseg long; carry[t * nseg + g] is
-// the transform entering segment g (NEG_BIG for g = 0).
+// the transform entering segment g (NEG_BIG for g = 0), for g < n (the
+// segments that hold real columns).
+template <bool kBranchFree = false>
 __device__ __forceinline__ void carry_chain(const float* tot, float* carry,
-                                            int nseg) {
+                                            int nseg, int n) {
   const int t = threadIdx.x;
   if (t < 2) {
     const float* ta = tot + 2 * t * nseg;
@@ -165,8 +174,8 @@ __device__ __forceinline__ void carry_chain(const float* tot, float* carry,
     float* car = carry + t * nseg;
     float cc = NEG_BIG;
     car[0] = cc;
-    for (int g = 0; g + 1 < nseg; ++g) {
-      cc = log_add_p(__fadd_rn(cc, ta[g]), tc[g]);
+    for (int g = 0; g + 1 < n; ++g) {
+      cc = log_add_p<kBranchFree>(__fadd_rn(cc, ta[g]), tc[g]);
       car[g + 1] = cc;
     }
   }

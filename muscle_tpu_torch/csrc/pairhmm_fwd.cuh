@@ -13,8 +13,9 @@
 // the Pallas kernels' segmented scan ("segpoly": Hillis-Steele rounds in
 // 64-lane segments, a sequential carry over the segments, one combine
 // per lane). Row 0 is the boundary prefix sum. Output: the forward M
-// lattice fm (B, Lx, Ly) (rows >= lx are not written; nothing reads
-// them) and fend (B, 5), the states [M, IX, IY, JX, JY] at (lx, ly).
+// lattice fm (B, Lx, Ly) (rows >= lx and the 64-lane segments past
+// column ly are not written; every reader masks cells outside (lx, ly))
+// and fend (B, 5), the states [M, IX, IY, JX, JY] at (lx, ly).
 //
 // What bounds it on the H100: for the function itself, bytes. It writes
 // one 4-byte M cell per (pair, row, column), 512 MiB for 512 pairs at
@@ -33,6 +34,16 @@
 // one coalesced row of the lattice per DP row instead of the tables, so
 // it also reads the lattice's real cells once (4 bytes a cell more than
 // kernel A, still a bytes-bound function).
+//
+// What the card measured (tools/torch_ab_probe.py, clock64 marks between
+// the row loop's barriers): a row is a latency chain, not an issue
+// limit. At 512 lanes a block alone on its SM ran its row (~8,800
+// cycles: scans 48 %, fold 26 %, carry chain 16 %) within 12 % of four
+// blocks sharing one. So the LOG_ADDs are selects (kBF), which let a
+// thread's independent LOG_ADDs overlap, and the row loop does no work on
+// segments past column ly. Rows wider than 2048 lanes, whose S segments
+// a warp and S * 32-step carry chain made each pair's row a chain on one
+// SM, run on the wave schedule instead (pairhmm_wave.cuh).
 #pragma once
 
 #include "pairhmm_common.cuh"
@@ -63,6 +74,10 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
   const float tII = pp[TII], tIM = pp[TIM], tJJ = pp[TJJ];
   const float tJM = pp[TJM];
   const int lx = lxb[b], ly = lyb[b];
+  // segments that hold real columns: the row loop does no work on the
+  // others (the scan runs left to right and the fold reads column j-1,
+  // so no real cell reads them; their columns of fm are not written)
+  const int nlive = min(nseg, (ly + 63) >> 6);
   float* fm_b = fm + (size_t)b * Lx * Ly;
   __syncthreads();
 
@@ -104,21 +119,22 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int g = warp + s * W;
-      if (g < nseg) {
+      if (g < nlive) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          comb[s][e] = log_add5(__fadd_rn(m[s][e], tMM), __fadd_rn(ix[s][e], tIM),
-                                __fadd_rn(jx[s][e], tJM), __fadd_rn(iy[s][e], tIM),
-                                __fadd_rn(jy[s][e], tJM));
-          ixn[s][e] = __fadd_rn(log_add(__fadd_rn(ix[s][e], tII),
-                                        __fadd_rn(m[s][e], tMI)), insx);
-          jxn[s][e] = __fadd_rn(log_add(__fadd_rn(jx[s][e], tJJ),
-                                        __fadd_rn(m[s][e], tMJ)), insx);
+          comb[s][e] = log_add5<kBF>(
+              __fadd_rn(m[s][e], tMM), __fadd_rn(ix[s][e], tIM),
+              __fadd_rn(jx[s][e], tJM), __fadd_rn(iy[s][e], tIM),
+              __fadd_rn(jy[s][e], tJM));
+          ixn[s][e] = __fadd_rn(log_add<kBF>(__fadd_rn(ix[s][e], tII),
+                                             __fadd_rn(m[s][e], tMI)), insx);
+          jxn[s][e] = __fadd_rn(log_add<kBF>(__fadd_rn(jx[s][e], tJJ),
+                                             __fadd_rn(m[s][e], tMJ)), insx);
         }
         if (l == 31) s_edge_c[g] = comb[s][1];
       }
     }
-    const float fill = log_add(__fadd_rn(ix0, tIM), __fadd_rn(jx0, tJM));
+    const float fill = log_add<kBF>(__fadd_rn(ix0, tIM), __fadd_rn(jx0, tJM));
     const float ix0n = i == 0 ? __fadd_rn(tSI, insx)
                               : __fadd_rn(__fadd_rn(ix0, tII), insx);
     const float jx0n = i == 0 ? __fadd_rn(tSJ, insx)
@@ -129,7 +145,7 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int g = warp + s * W;
-      if (g < nseg) {
+      if (g < nlive) {
         const float left = left_of_even(comb[s][1], fill, s_edge_c, g, l);
         const int j0 = g * 64 + 2 * l;
         const float2 ev = src.emit2(j0, yc[s][0], yc[s][1]);
@@ -147,7 +163,7 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int g = warp + s * W;
-      if (g < nseg) {
+      if (g < nlive) {
         const float msh[2] = {left_of_even(mn[s][1], LOG_ZERO, s_edge_m, g, l),
                               mn[s][0]};
 #pragma unroll
@@ -157,8 +173,8 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
           aJ[s][e] = __fadd_rn(insy[s][e], tJJ);
           cJ[s][e] = __fadd_rn(__fadd_rn(msh[e], tMJ), insy[s][e]);
         }
-        seg_scan(aI[s], cI[s], l);
-        seg_scan(aJ[s], cJ[s], l);
+        seg_scan<kBF>(aI[s], cI[s], l);
+        seg_scan<kBF>(aJ[s], cJ[s], l);
         if (l == 31) {
           s_tot[g] = aI[s][1];
           s_tot[nseg + g] = cI[s][1];
@@ -169,18 +185,20 @@ pairhmm_fwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
     }
     __syncthreads();
     // (4) carry over the segments
-    carry_chain(s_tot, s_carry, nseg);
+    carry_chain<kBF>(s_tot, s_carry, nseg, nlive);
     __syncthreads();
 
     // (5) combine; new row becomes the state
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int g = warp + s * W;
-      if (g < nseg) {
+      if (g < nlive) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          iy[s][e] = log_add_p(__fadd_rn(s_carry[g], aI[s][e]), cI[s][e]);
-          jy[s][e] = log_add_p(__fadd_rn(s_carry[nseg + g], aJ[s][e]), cJ[s][e]);
+          iy[s][e] =
+              log_add_p<kBF>(__fadd_rn(s_carry[g], aI[s][e]), cI[s][e]);
+          jy[s][e] =
+              log_add_p<kBF>(__fadd_rn(s_carry[nseg + g], aJ[s][e]), cJ[s][e]);
           m[s][e] = mn[s][e];
           ix[s][e] = ixn[s][e];
           jx[s][e] = jxn[s][e];

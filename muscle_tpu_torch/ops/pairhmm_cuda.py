@@ -33,16 +33,28 @@ Hillis-Steele row-0 prefix sums, the reference cubic for M/IX/JX,
 products and sums rounded separately), so on the card kernel and twin
 agree bit for bit (chip_smoke.py). A kernel wrapper given CPU tensors
 runs the twin; given CUDA tensors it launches the kernel or raises.
-`LAUNCHES` counts the kernel launches.
+`LAUNCHES` counts the kernel launches, `SCHEDULES` them by schedule
+and width.
+
+Each kernel runs on one of two schedules of the same arithmetic
+(`ab_geometry`): one thread block a pair up to 2048 lanes, or, for wider
+rows (the long-pair router's rungs, the bucket ladder's 3072-8192),
+each pair's row as a skewed wavefront of groups of segments across SMs
+(csrc/pairhmm_wave.cuh, shared with kernels 5/6; ops/wavefront.py).
+`letter_path` raises after a wavefront launch whose hand-over waited
+past its limit (`wavefront.check_waits`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+from collections import Counter
+from typing import NamedTuple
 
 import torch
 
+from . import wavefront
 from .logspace import LOG_UNDERFLOW, LOG_ZERO, _C0, _C1, _C2, _C3
 from .pairhmm import MIN_SPARSE_SCORE
 
@@ -58,6 +70,8 @@ MAX_LY = 10240
 
 LAUNCHES = {"pairhmm_fwd": 0, "pairhmm_bwd_post": 0, "pairhmm_fwd_multi": 0,
             "pairhmm_bwd_post_multi": 0, "pairhmm_bwd_codes": 0}
+# kernel launches of LAUNCHES' names by (name, schedule, Ly)
+SCHEDULES: Counter = Counter()
 
 # the fused route (kernel B: backward, posterior and MEA in one pass);
 # off, as the JAX package's MUSCLE_TPU_FUSED=0 (read as
@@ -68,6 +82,66 @@ FUSED = os.environ.get("MUSCLE_TPU_FUSED", "1") != "0"
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SCHEDULES.clear()
+
+
+# ---------------------------------------------------------------------------
+# the two schedules of kernels A and B (and 1M, 2M)
+# ---------------------------------------------------------------------------
+#
+# "block": one thread block a pair, its rows a serial chain on one SM
+# (csrc/pairhmm_fwd.cuh, pairhmm_bwd_post.cuh). "wave": each pair's row
+# cut into groups of g 64-lane segments, one block a group, run by one
+# launch as a skewed wavefront across SMs (csrc/pairhmm_wave.cuh, the
+# bodies of kernels 5/6 with one stripe of the whole row and row 0 from
+# the kernels' own rounds). Same operations in the same association:
+# both equal the plain versions bit for bit.
+
+# segments a group of the wave: the largest divisor of the row's
+# segments up to this. On an H100 80GB HBM3 at 700 W, one 11000 x 9800
+# pair at 10240 ran 18.3 / 42.0 ms (kernels A / B) at G = 2, 18.9 / 42.0
+# at 4, 26.2 / 47.9 at 8 (tools/torch_ab_probe.py)
+AB_GROUP_SEGMENTS = 4
+# rows wider than this (S >= 2 segments a warp) take the wave whatever B:
+# with one block a pair a row is a serial chain on one SM (the carry
+# over S * 32 segments by one thread). On the same card the wave was
+# faster at every B from 1 to 264 pairs of Lx 1024 at Ly 2176, 4352 and
+# 10240 (0.63-0.89x one block a pair at B = 132-264, 0.03-0.15x at B =
+# 1; tools/torch_ab_probe.py --crossover); at S = 1 one block a pair
+# stays
+WAVE_MIN_LY = 2048
+
+
+class ABGeometry(NamedTuple):
+    """The schedule of one launch of kernel A or B: "block", or "wave"
+    with groups of `g` segments, `groups` a pair."""
+    schedule: str
+    g: int = 0
+    groups: int = 0
+
+
+def ab_geometry(b: int, ly: int, schedule: str | None = None,
+                g: int | None = None) -> ABGeometry:
+    """The schedule of a launch of B pairs at width Ly: `schedule` if
+    given ("block" or "wave"), else the wave for Ly > WAVE_MIN_LY (S >= 2
+    segments a warp); for the wave, groups of `g` segments if given (a
+    divisor of the Ly / 64 segments, at most 32), else the largest
+    divisor up to AB_GROUP_SEGMENTS. (B does not enter the choice.)"""
+    nseg = ly // 64
+    if schedule is None:
+        schedule = "wave" if ly > WAVE_MIN_LY else "block"
+    if schedule == "block":
+        if g is not None:
+            raise ValueError("g is the wave's group size")
+        return ABGeometry("block")
+    if schedule != "wave":
+        raise ValueError(f"schedule {schedule!r}: want 'block' or 'wave'")
+    if g is None:
+        g = max(d for d in range(1, AB_GROUP_SEGMENTS + 1) if nseg % d == 0)
+    if not 1 <= g <= 32 or nseg % g:
+        raise ValueError(f"{g} segments a group: want a divisor of the "
+                         f"{nseg} segments, at most 32")
+    return ABGeometry("wave", g, nseg // g)
 
 
 # ---------------------------------------------------------------------------
@@ -470,11 +544,12 @@ def kernel_specs(names=_KERNELS):
     """Build specs of the pair-HMM kernel libraries `names`: each from
     csrc/<name>.cu, keyed on the shared headers too (kernels A/1M/1E
     share pairhmm_fwd.cuh, B/2M/2E pairhmm_bwd_post.cuh, 3/3K
-    pairhmm_bwd.cuh)."""
+    pairhmm_bwd.cuh; A/B's wide schedule and kernels 5/6 pairhmm_wave.cuh
+    and stripe_wavefront.cuh)."""
     from ..utils.build import CUDA_FLAGS, LibSpec, nvcc, package_path
     deps = tuple(package_path("csrc", h) for h in (
         "pairhmm_common.cuh", "pairhmm_fwd.cuh", "pairhmm_bwd_post.cuh",
-        "pairhmm_bwd.cuh"))
+        "pairhmm_bwd.cuh", "stripe_wavefront.cuh", "pairhmm_wave.cuh"))
     return [LibSpec(name=k, compiler=nvcc(), flags=CUDA_FLAGS,
                     sources=(package_path("csrc", f"{k}.cu"),), deps=deps)
             for k in names]
@@ -499,11 +574,12 @@ def load_libs(specs, argtypes: dict, into: dict) -> None:
 
 def _lib(name: str):
     if name not in _libs:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        wave = [ci] * 2 + [ll] + [vp] * 4   # G, R, wait_ns, 4 buffers
         load_libs(kernel_specs(),
-                  {"pairhmm_fwd": [vp] * 7 + [ci] * 5 + [vp] * 3,
+                  {"pairhmm_fwd": [vp] * 7 + [ci] * 5 + wave + [vp] * 3,
                    "pairhmm_bwd_post": [vp] * 7 + [ci] + [vp] + [ci] * 5
-                   + [vp] * 4,
+                   + wave + [vp] * 4,
                    "pairhmm_bwd_codes": [vp] * 7 + [ci] * 5 + [vp] * 2},
                   _libs)
     return _libs[name]
@@ -554,16 +630,36 @@ def _on_card(t) -> bool:
     return True
 
 
+def _wave_args(geo: ABGeometry, b: int, lx: int, ly: int, kind: str, dev):
+    """(args, buffers): the C entries' wave arguments (G, R, wait_ns,
+    sync, fault, hand, row0) for a launch on schedule `geo`, and the
+    tensors behind them, which the caller keeps until it has launched:
+    zero and null pointers for the block schedule; else a zeroed ticket,
+    counters and records, the device's fault flag and row 0's 4 B Ly
+    floats."""
+    if geo.schedule == "block":
+        null = ctypes.c_void_p(0)
+        return (0, 0, 0, null, null, null, null), ()
+    sync, hand = wavefront.buffers(b, geo.groups, lx, kind, dev)
+    row0 = torch.empty(4 * b * ly, dtype=torch.float32, device=dev)
+    bufs = (sync, wavefront.fault_flag(dev), hand, row0)
+    return (geo.g, wavefront.ROWS_PER_PUBLISH, wavefront.WAIT_LIMIT_NS,
+            *(_ptr(t) for t in bufs)), bufs
+
+
 def _raise_on(lib, rc, name):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.pairhmm_error_string(rc).decode()}")
 
 
-def pairhmm_fwd(xb, yb, lxb, lyb, match, insert, params):
+def pairhmm_fwd(xb, yb, lxb, lyb, match, insert, params,
+                schedule: str | None = None, g: int | None = None):
     """Kernel A (forward, one table set) or, given per-pair tables
-    (match (B, K+1, K+1), insert (B, K+1), params (B, 16)), kernel 1M.
-    CPU tensors run `fwd_plain`."""
+    (match (B, K+1, K+1), insert (B, K+1), params (B, 16)), kernel 1M,
+    on the schedule `ab_geometry(B, Ly, schedule, g)` picks. CPU tensors
+    run `fwd_plain`. Cells outside (lx, ly) of fm are unspecified."""
+    geo = ab_geometry(xb.shape[0], yb.shape[1], schedule, g)
     if not _on_card(xb):
         return fwd_plain(xb, yb, lxb, lyb, match, insert, params)
     b, lx, ly, kk = _check_inputs(xb, yb, lxb, lyb, match, insert, params)
@@ -572,20 +668,25 @@ def pairhmm_fwd(xb, yb, lxb, lyb, match, insert, params):
     fm = torch.empty((b, lx, ly), dtype=torch.float32, device=xb.device)
     fend = torch.empty((b, 5), dtype=torch.float32, device=xb.device)
     lib = _lib("pairhmm_fwd")
+    wave, _bufs = _wave_args(geo, b, lx, ly, "fwd", xb.device)
     rc = lib.pairhmm_fwd(_ptr(xb), _ptr(yb), _ptr(lxb), _ptr(lyb),
                          _ptr(match), _ptr(insert), _ptr(params),
-                         int(per_pair), b, lx, ly, kk, _ptr(fm), _ptr(fend),
-                         _stream(xb))
+                         int(per_pair), b, lx, ly, kk, *wave,
+                         _ptr(fm), _ptr(fend), _stream(xb))
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
+    SCHEDULES[(name, geo.schedule, ly)] += 1
     return fm, fend
 
 
 def pairhmm_bwd_post(xb, yb, lxb, lyb, match, insert, params, tot, fm,
-                     with_mea: bool = True):
+                     with_mea: bool = True, schedule: str | None = None,
+                     g: int | None = None):
     """Kernel B (backward + posterior + MEA, one table set) or, given
-    per-pair tables, kernel 2M (always with the MEA). CPU tensors run
-    `bwd_post_plain`."""
+    per-pair tables, kernel 2M (always with the MEA), on the schedule
+    `ab_geometry(B, Ly, schedule, g)` picks (the wave always computes
+    the MEA). CPU tensors run `bwd_post_plain`."""
+    geo = ab_geometry(xb.shape[0], yb.shape[1], schedule, g)
     if not _on_card(xb):
         return bwd_post_plain(xb, yb, lxb, lyb, match, insert, params, tot,
                               fm, with_mea)
@@ -603,13 +704,15 @@ def pairhmm_bwd_post(xb, yb, lxb, lyb, match, insert, params, tot, fm,
     mea = torch.empty((b,), dtype=torch.float32, device=xb.device)
     name = "pairhmm_bwd_post_multi" if per_pair else "pairhmm_bwd_post"
     lib = _lib("pairhmm_bwd_post")
+    wave, _bufs = _wave_args(geo, b, lx, ly, "bwd", xb.device)
     rc = lib.pairhmm_bwd_post(_ptr(xb), _ptr(yb), _ptr(lxb), _ptr(lyb),
                               _ptr(match), _ptr(insert), _ptr(params),
                               int(per_pair), _ptr(tot), b, lx, ly, kk,
-                              int(with_mea), _ptr(fm), _ptr(post), _ptr(mea),
-                              _stream(xb))
+                              int(with_mea), *wave,
+                              _ptr(fm), _ptr(post), _ptr(mea), _stream(xb))
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
+    SCHEDULES[(name, geo.schedule, ly)] += 1
     return post, mea
 
 
@@ -657,6 +760,8 @@ def letter_path(xb, yb, lxb, lyb, match, insert, params, with_mea=True,
         post = finish_posteriors(fm, rbm, fend, lxb, lyb, params)
         del rbm
         mea = mea_scores(post, lxb) if with_mea else None
+    if _on_card(xb) and ab_geometry(*yb.shape).schedule == "wave":
+        wavefront.check_waits(xb.device)    # raises on a stuck hand-over
     if with_mea:
         ea = mea / torch.minimum(lxb, lyb).float()
     else:

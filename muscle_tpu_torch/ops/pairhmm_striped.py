@@ -50,6 +50,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import wavefront
 from .logspace import LOG_ZERO
 from .pairhmm import MIN_SPARSE_SCORE, _cumsum_xla
 from .pairhmm_cuda import (NEG_BIG, P_TII, P_TJJ, P_TSI, P_TSJ, _log_add,
@@ -324,22 +325,14 @@ def bwd_striped_plain(xb, yb, lxb, lyb, match, insert, params, tot, iy0b,
 _KERNELS = ("pairhmm_fwd_stripe", "pairhmm_bwd_stripe")
 _libs: dict = {}
 
-# DP rows a group runs between two publications of its progress; the
-# consumer then lags its left neighbour by R to 2R rows. 8 and 4 were
-# 2-7 % faster than 16 and 32 at the long pair's shape on an H100 80GB
-# HBM3 at 700 W (tools/torch_striped_probe.py)
-ROWS_PER_PUBLISH = 8
 # 64-lane segments a group at most: G = 4 ran one pass at the long
 # pair's shape fastest at B = 1 and B = 8 copies, against G = 1, 2, 8,
 # 16, 32 (same probe): fewer warps a group lengthen the wavefront's skew
 # (a group starts ~R rows after its left neighbour), more lengthen each
 # row (the carry chain, barriers over more warps)
 GROUP_SEGMENTS = 4
-# a wait on the left group past this (device clock) is a deadlock: the
-# kernel flags it and runs on, and `check_waits` raises
-WAIT_LIMIT_NS = 10_000_000_000
-# hand-over floats a record (kernel 5, kernel 6)
-_REC_FLOATS = {"pairhmm_fwd_stripe": 4, "pairhmm_bwd_stripe": 8}
+# the hand-over's record of each kernel (ops/wavefront.py REC_FLOATS)
+_KIND = {"pairhmm_fwd_stripe": "fwd", "pairhmm_bwd_stripe": "bwd"}
 
 
 class Geometry(NamedTuple):
@@ -351,7 +344,7 @@ class Geometry(NamedTuple):
     def hand_bytes(self, b: int, lx: int, kernel: str) -> int:
         """Bytes of the hand-over records of one launch: one record a
         DP row for each group."""
-        return b * self.groups * lx * _REC_FLOATS[kernel] * 4
+        return wavefront.hand_bytes(b, self.groups, lx, _KIND[kernel])
 
 
 def _geometry(b: int, by: int, w: int, g: int | None = None) -> Geometry:
@@ -372,8 +365,8 @@ def _geometry(b: int, by: int, w: int, g: int | None = None) -> Geometry:
 
 def kernel_specs():
     from ..utils.build import cuda_spec, package_path
-    deps = (package_path("csrc", "pairhmm_common.cuh"),
-            package_path("csrc", "stripe_wavefront.cuh"))
+    deps = tuple(package_path("csrc", h) for h in (
+        "pairhmm_common.cuh", "stripe_wavefront.cuh", "pairhmm_wave.cuh"))
     return [cuda_spec(k, deps=deps) for k in _KERNELS]
 
 
@@ -412,38 +405,19 @@ def _check(xb, yb, lxb, lyb, match, insert, params, floats, w):
     return b, lx, by, kk
 
 
-# each device's fault flag: set by a launch whose wait on a left
-# neighbour passed WAIT_LIMIT_NS
-_faults: dict = {}
-
-
-def check_waits(device) -> None:
-    """Raise if a launch on `device` since the last call flagged a wait
-    past WAIT_LIMIT_NS (a deadlock in the hand-over); synchronises with
-    those launches."""
-    flag = _faults.get(torch.device(device))
-    if flag is not None and int(flag.item()):
-        flag.zero_()
-        raise RuntimeError("a striped pass waited past its limit on a "
-                           "left neighbour: the hand-over deadlocked")
-
-
 def _launch(name, geo, ins, dims, outs):
     """Launch kernel `name` on input tensors `ins`, (B, Lx, By, W, K+1)
     `dims` and output tensors `outs`, with a zeroed ticket, progress
     counters and hand-over records of its own."""
     b, lx, by, w, kk = dims
     dev = ins[0].device
-    if dev not in _faults:
-        _faults[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    sync = torch.zeros(1 + b * geo.groups, dtype=torch.int32, device=dev)
-    hand = torch.zeros(geo.hand_bytes(b, lx, name) // 4, dtype=torch.float32,
-                       device=dev)
+    sync, hand = wavefront.buffers(b, geo.groups, lx, _KIND[name], dev)
     lib = _lib(name)
     rc = getattr(lib, name)(
         *(_ptr(t) for t in ins), b, lx, by, w, geo.g, kk,
-        ROWS_PER_PUBLISH, WAIT_LIMIT_NS, _ptr(sync), _ptr(_faults[dev]),
-        _ptr(hand), *(_ptr(t) for t in outs),
+        wavefront.ROWS_PER_PUBLISH, wavefront.WAIT_LIMIT_NS, _ptr(sync),
+        _ptr(wavefront.fault_flag(dev)), _ptr(hand),
+        *(_ptr(t) for t in outs),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
@@ -576,5 +550,5 @@ def striped_posteriors_sparse(xb, yb, lxb, lyb, pack, k: int = 32,
     cols = torch.where(valid, c, -1).to(torch.int32)
     ea = mea / torch.minimum(lxb, lyb).float()
     if _on_card(xb):
-        check_waits(dev)
+        wavefront.check_waits(dev)
     return vals, cols, ea, int(nnz.max())

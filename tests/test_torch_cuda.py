@@ -28,6 +28,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _real(t, lx, ly):
+    """t (B, Lx, Ly) with the cells outside each pair's (lx, ly) zeroed:
+    the forward kernels (A, 1M, 1E) leave rows past lx and the 64-lane
+    segments past column ly unwritten, and every reader masks them."""
+    r = torch.arange(t.shape[1], device=t.device)[None, :, None]
+    c = torch.arange(t.shape[2], device=t.device)[None, None, :]
+    return t.where((r < lx[:, None, None]) & (c < ly[:, None, None]), 0.0)
+
+
 def _batch(b, lmax, width, seed, nucleo):
     nletters = 4 if nucleo else 20
     rng = np.random.default_rng(seed)
@@ -85,9 +94,8 @@ def test_kernels_match_twins(cuda_device, b, lmax, width, seed, nucleo):
     launches = dict(pc.LAUNCHES)
     fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, match, insert, params)
     fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, match, insert, params)
-    rows = torch.arange(width, device=cuda_device)[None, :, None] \
-        < lxt[:, None, None]
-    assert float((fm - fm2).abs().where(rows, 0.0).max()) < 1e-3
+    assert float((_real(fm, lxt, lyt) - _real(fm2, lxt, lyt)).abs().max()) \
+        < 1e-3
     assert float((fend - fend2).abs().max()) < 1e-3
     tot = pc._total_prob(fend, params)
     post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, match, insert, params,
@@ -433,15 +441,98 @@ def test_kernels_match_twins_at_top_rung(cuda_device):
     tabs = pc.tables(HMMParams.from_defaults().to_scores(), cuda_device)
     fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *tabs)
     fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *tabs)
-    rows = torch.arange(128, device=cuda_device)[None, :, None] \
-        < lxt[:, None, None]
     tot = pc._total_prob(fend, tabs[2])
     post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, *tabs, tot, fm)
     post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *tabs, tot, fm)
     torch.cuda.synchronize()
-    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(_real(fm, lxt, lyt), _real(fm2, lxt, lyt))
     assert torch.equal(fend, fend2)
     assert torch.equal(post, post2) and torch.equal(mea, mea2)
+
+
+# phase 2's 512 and chip_smoke.py's AB_CHECK_WIDTHS: S = 1..5, with and
+# without idle segment slots, and the long-pair router's rungs
+AB_WIDTHS = (512, 2176, 4352, 6272, 8192, 8704, 9728, 10240)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "wave"])
+@pytest.mark.parametrize("width", AB_WIDTHS)
+def test_ab_schedules_match_plain(cuda_device, width, schedule):
+    """Kernels A and B forced onto each schedule (ab_geometry) against
+    their plain versions, equal bit for bit on a full-width pair, one
+    whose padding starts inside a segment and a short one; each launch
+    counted once, under its schedule and width."""
+    rng = np.random.default_rng(width)
+    lx = np.array([96, 80, 33], np.int32)
+    ly = np.array([width, width - 131, 100], np.int32)
+    xb = np.full((3, 96), 20, np.int32)
+    yb = np.full((3, width), 20, np.int32)
+    for i in range(3):
+        xb[i, :lx[i]] = rng.integers(0, 20, lx[i])
+        yb[i, :ly[i]] = rng.integers(0, 20, ly[i])
+    x, y, lxt, lyt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (xb, yb, lx, ly))
+    tabs = pc.tables(HMMParams.from_defaults().to_scores(), cuda_device)
+    before = dict(pc.LAUNCHES)
+    fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, *tabs, schedule=schedule)
+    tot = pc._total_prob(fend, tabs[2]).contiguous()
+    post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, *tabs, tot, fm,
+                                    schedule=schedule)
+    torch.cuda.synchronize()
+    pc.wavefront.check_waits(cuda_device)
+    fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *tabs)
+    post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *tabs, tot, fm)
+    assert torch.equal(_real(fm, lxt, lyt), _real(fm2, lxt, lyt))
+    assert torch.equal(fend, fend2)
+    assert torch.equal(post, post2) and torch.equal(mea, mea2)
+    for name in ("pairhmm_fwd", "pairhmm_bwd_post"):
+        assert pc.LAUNCHES[name] == before[name] + 1
+        assert pc.SCHEDULES[(name, schedule, width)] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 17])
+def test_wave_per_pair_tables_and_groups(cuda_device, g):
+    """Kernels 1M/2M (per-pair tables) on the wave at 2176 (34 segments)
+    with groups of 1, 2 and 17 segments, equal to the plain versions;
+    letter_path on the router's shape (B = 2 at 2176) takes the wave by
+    itself and gives the block schedule's posteriors."""
+    xb, yb, lx, ly = _batch(4, 150, 160, 21, False)
+    yb = np.full((4, 2176), 20, np.int32)
+    ly = np.array([2176, 2000, 1500, 64], np.int32)
+    rng = np.random.default_rng(g)
+    for i in range(4):
+        yb[i, :ly[i]] = rng.integers(0, 21, ly[i])
+    x, y, lxt, lyt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (xb, yb, lx, ly))
+    _, (m, i, st, tv) = _multi_tables(cuda_device, [k % 4 for k in range(4)])
+    m, i, p = m.contiguous(), i.contiguous(), pc.params_rows(st, tv)
+    fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, m, i, p, schedule="wave", g=g)
+    tot = pc._total_prob(fend, p).contiguous()
+    post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, m, i, p, tot, fm,
+                                    schedule="wave", g=g)
+    torch.cuda.synchronize()
+    pc.wavefront.check_waits(cuda_device)
+    fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, m, i, p)
+    post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, m, i, p, tot, fm)
+    assert torch.equal(_real(fm, lxt, lyt), _real(fm2, lxt, lyt))
+    assert torch.equal(fend, fend2)
+    assert torch.equal(post, post2) and torch.equal(mea, mea2)
+    pack = HMMParams.from_defaults().to_scores()
+    assert pc.ab_geometry(2, 2176).schedule == "wave"
+    before = pc.SCHEDULES[("pairhmm_fwd", "wave", 2176)]
+    post_w, ea_w = pc.batch_posteriors_cuda(x[:2], y[:2], lxt[:2], lyt[:2],
+                                            pack)
+    assert pc.SCHEDULES[("pairhmm_fwd", "wave", 2176)] == before + 1
+    match, insert, params = pc.tables(pack, cuda_device)
+    args = (x[:2], y[:2], lxt[:2], lyt[:2], match, insert, params)
+    fm_b, fend_b = pc.pairhmm_fwd(*args, schedule="block")
+    post_b, mea_b = pc.pairhmm_bwd_post(
+        *args, pc._total_prob(fend_b, params).contiguous(), fm_b,
+        schedule="block")
+    assert torch.equal(post_w, post_b)
+    assert torch.equal(ea_w, mea_b / torch.minimum(lxt[:2], lyt[:2]).float())
 
 
 @pytest.mark.cuda
@@ -488,7 +579,7 @@ def test_stripe_kernels_match_twins(cuda_device, w, g):
     post, mea = ps.pairhmm_bwd_striped(*args, tot, iy0b, jy0b, fm, w, g)
     post2, mea2 = ps.bwd_striped_plain(*args, tot, iy0b, jy0b, fm2, w)
     torch.cuda.synchronize()
-    ps.check_waits(cuda_device)
+    ps.wavefront.check_waits(cuda_device)
     assert post.data_ptr() == fm.data_ptr()    # in place
     assert torch.equal(post, post2) and torch.equal(mea, mea2)
     assert ps.LAUNCHES["pairhmm_fwd_stripe"] == \
@@ -603,7 +694,7 @@ def test_emis_cpu_tensors_run_plain_versions_and_count_nothing():
                          ids=["S1", "S1-2048", "S6-12288"])
 def test_emis_kernels_match_plain(cuda_device, lx_max, width):
     """Kernels 1E, 2E (up to FUSED_MAX_LY), 3 and 4 against their plain
-    versions on the card, equal bit for bit (1E on the rows it writes)."""
+    versions on the card, equal bit for bit (1E on the real cells)."""
     from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
     e, ins_x, ins_y, lx, ly = _mega_lattice(4, lx_max, width, 4,
                                             cuda_device)
@@ -612,9 +703,7 @@ def test_emis_kernels_match_plain(cuda_device, lx_max, width):
     lx, ly = lx.int(), ly.int()
     fm, fend = pe.pairhmm_fwd_emis(e, ins_x, ins_y, lx, ly, params)
     fm2, fend2 = pe.fwd_emis_plain(e, ins_x, ins_y, lx, ly, params)
-    rows = torch.arange(lx_max, device=cuda_device)[None, :, None] \
-        < lx[:, None, None]
-    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(_real(fm, lx, ly), _real(fm2, lx, ly))
     assert torch.equal(fend, fend2)
     tot = pc._total_prob(fend, params)
     if width <= pe.FUSED_MAX_LY:
@@ -647,9 +736,7 @@ def test_lattice_kernels_equal_letter_kernels(cuda_device):
     ins_x = insert[x.long()].contiguous()
     ins_y = insert[y.long()].contiguous()
     fm2, fend2 = pe.pairhmm_fwd_emis(e, ins_x, ins_y, lxt, lyt, params)
-    rows = torch.arange(384, device=cuda_device)[None, :, None] \
-        < lxt[:, None, None]
-    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(_real(fm, lxt, lyt), _real(fm2, lxt, lyt))
     assert torch.equal(fend, fend2)
     post2, mea2 = pe.pairhmm_bwd_post_emis(e, ins_x, ins_y, lxt, lyt, params,
                                            tot, fm)
@@ -727,9 +814,7 @@ def test_multi_and_legacy_kernels_match_plain(cuda_device, b, lmax, width):
     m, i = m.contiguous(), i.contiguous()
     fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, m, i, p)
     fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, m, i, p)
-    rows = torch.arange(width, device=cuda_device)[None, :, None] \
-        < lxt[:, None, None]
-    assert torch.equal(fm.where(rows, 0.0), fm2.where(rows, 0.0))
+    assert torch.equal(_real(fm, lxt, lyt), _real(fm2, lxt, lyt))
     assert torch.equal(fend, fend2)
     tot = pc._total_prob(fend, p)
     post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, m, i, p, tot, fm)
@@ -755,7 +840,7 @@ def test_multi_and_legacy_kernels_match_plain(cuda_device, b, lmax, width):
     ins_x = torch.gather(i, 1, x.long()).contiguous()
     ins_y = torch.gather(i, 1, y.long()).contiguous()
     fm3, fend3 = pe.pairhmm_fwd_emis(e, ins_x, ins_y, lxt, lyt, p)
-    assert torch.equal(fm3.where(rows, 0.0), fm.where(rows, 0.0))
+    assert torch.equal(_real(fm3, lxt, lyt), _real(fm, lxt, lyt))
     assert torch.equal(fend3, fend)
     post3, mea3 = pe.pairhmm_bwd_post_emis(e, ins_x, ins_y, lxt, lyt, p, tot,
                                            fm)

@@ -190,4 +190,4 @@ def test_wrappers_reject_bad_inputs(pack):
                                       fm.transpose(1, 2), 256)
     with pytest.raises(ValueError):     # a group straddling the stripe
         t_striped.pairhmm_fwd_striped(*args, iy0, jy0, 256, 8)
-    t_striped.check_waits("cpu")        # no launch, no flag
+    t_striped.wavefront.check_waits("cpu")  # no launch, no flag

@@ -15,7 +15,7 @@ warm-up), at the long pair's shape (19000 x 18900 nt padded 19456 x
 first 64 G columns): the row time of a group with no hand-over; with
 --stages, each kernel's copy with a clock64() mark after every block
 barrier of its row loop and at the loop's top (built here, beside the
-kernels, by `stage_libs`) replaces it, and block 0's thread 0 prints
+kernels, by tools/stage_marks.py) replaces it, and block 0's thread 0 prints
 the mean cycles a row between consecutive marks (the stage that ends at
 each barrier, the slowest warp's). The
 backward pass writes its posterior over the forward's M lattice, so its
@@ -32,6 +32,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import chip_smoke as cs  # noqa: E402
 
@@ -53,7 +54,7 @@ def main() -> int:
     from muscle_tpu_torch.ops import pairhmm_cuda as pc
     from muscle_tpu_torch.ops import pairhmm_striped as ps
     if opts.rows_per_publish:
-        ps.ROWS_PER_PUBLISH = opts.rows_per_publish
+        ps.wavefront.ROWS_PER_PUBLISH = opts.rows_per_publish
     dev = torch.device("cuda")
     groups = [int(g) for g in opts.groups.split(",")]
     print(cs.card_line(), flush=True)
@@ -87,7 +88,7 @@ def main() -> int:
                                                fm2.clone(), w, g)
             d6 = max(float((post - post2).abs().max()),
                      float((mea - mea2).abs().max()))
-            ps.check_waits(dev)
+            ps.wavefront.check_waits(dev)
             print(f"G={g}: kernel 5 max |d| {d5:.3e}, kernel 6 max |d| "
                   f"{d6:.3e} {'equal' if d5 == d6 == 0 else 'FAIL'}",
                   flush=True)
@@ -112,14 +113,14 @@ def main() -> int:
         ms6 = cs.time_cuda(lambda: ps.pairhmm_bwd_striped(*args, tot, iy0b,
                                                           jy0b, fm, wg, g),
                            reps=3)
-        ps.check_waits(dev)
+        ps.wavefront.check_waits(dev)
         if opts.stages:
             for name in ps._KERNELS:
                 print(f"  {name}: cycles a row between marks "
                       f"{stage_cycles(ps, name, lx1)}", flush=True)
         print(f"B={b} By={byg} W={wg} G={g} ({geo.groups} groups a pair, "
               f"{b * geo.groups} blocks of {32 * g} threads, R "
-              f"{ps.ROWS_PER_PUBLISH}): kernel 5 {ms5:.3f} ms, kernel 6 "
+              f"{ps.wavefront.ROWS_PER_PUBLISH}): kernel 5 {ms5:.3f} ms, kernel 6 "
               f"{ms6:.3f} ms ({ms5 * 1e3 / lx1:.3f} / {ms6 * 1e3 / lx1:.3f} "
               "us a row)", flush=True)
         del fm
@@ -128,84 +129,26 @@ def main() -> int:
     return 0
 
 
-# the marks: after each block barrier of the row loop, and at its top
-_PROF_HEAD = """
-__device__ long long g_stage_cycles[8];
-#define STAGE_MARK(k)                                       \\
-  if (threadIdx.x == 0 && blockIdx.x == 0) {                \\
-    const long long t_ = clock64();                         \\
-    if (stage_last) stage_acc[k] += t_ - stage_last;        \\
-    stage_last = t_;                                        \\
-  }
-extern "C" int stage_cycles(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_stage_cycles, sizeof(g_stage_cycles));
-}
-"""
-
-
-def _instrument(src: str, loop_head: str) -> str:
-    """The kernel source with STAGE_MARKs (see _PROF_HEAD)."""
-    head, body = src.split(loop_head, 1)
-    kernel_end = body.index("\n}\n\nextern \"C\"")
-    loop, tail = body[:kernel_end], body[kernel_end:]
-    k = 1
-    while "__syncthreads();\n" in loop:
-        loop = loop.replace("__syncthreads();\n",
-                            f"__syncthreads(); STAGE_MARK({k});\n", 1)
-        k += 1
-    head = head.replace("using namespace ph;", "using namespace ph;\n"
-                        + _PROF_HEAD, 1)
-    head = head.replace("  extern __shared__ float smem[];",
-                        "  extern __shared__ float smem[];\n"
-                        "  long long stage_acc[8] = {0}, stage_last = 0;", 1)
-    dump = ("\n  if (threadIdx.x == 0 && blockIdx.x == 0)\n"
-            "    for (int k_ = 0; k_ < 8; ++k_) "
-            "g_stage_cycles[k_] = stage_acc[k_];")
-    return (head + loop_head + " STAGE_MARK(0);" + loop + dump + tail)
-
-
 def stage_libs(ps) -> None:
-    """Build the instrumented copies and load them in place of kernels
-    5 and 6 (same C entries and arguments)."""
-    import ctypes
-    import shutil
-    import subprocess
-    from muscle_tpu_torch.utils.build import (CUDA_FLAGS, build_dir, nvcc,
-                                              package_path)
-    out = os.path.join(build_dir(), "stages")
-    os.makedirs(out, exist_ok=True)
-    for h in ("pairhmm_common.cuh", "stripe_wavefront.cuh"):
-        shutil.copy(package_path("csrc", h), out)
+    """Build the marked copies (tools/stage_marks.py: the row loops of
+    csrc/pairhmm_wave.cuh, the kernels' body) and load them in place of
+    kernels 5 and 6 (same C entries and arguments)."""
+    import stage_marks
     heads = {"pairhmm_fwd_stripe": "for (int i = 0; i < lx; ++i) {",
              "pairhmm_bwd_stripe": "for (int u = u0; u < Lx; ++u) {"}
-    libs = {}
-    for name, loop_head in heads.items():
-        with open(package_path("csrc", f"{name}.cu")) as fh:
-            src = _instrument(fh.read(), loop_head)
-        cu = os.path.join(out, f"{name}.cu")
-        with open(cu, "w") as fh:
-            fh.write(src)
-        so = os.path.join(out, f"lib{name}.so")
-        subprocess.run([nvcc(), *CUDA_FLAGS, "-o", so, cu], check=True,
-                       capture_output=True)
-        libs[name] = ctypes.CDLL(so)
     ps._libs.clear()
     ps._lib("pairhmm_fwd_stripe")      # argtypes as the kernels'
-    for name, lib in libs.items():
-        fn = getattr(lib, name)
-        ref = getattr(ps._libs[name], name)
+    for name, loop_head in heads.items():
+        lib = stage_marks.variant_library(
+            name, "stages", {"pairhmm_wave.cuh": [stage_marks.mark(loop_head)]})
+        fn, ref = getattr(lib, name), getattr(ps._libs[name], name)
         fn.restype, fn.argtypes = ref.restype, ref.argtypes
-        lib.pairhmm_error_string.restype = ctypes.c_char_p
-        lib.pairhmm_error_string.argtypes = [ctypes.c_int]
-        lib.stage_cycles.argtypes = [ctypes.c_void_p]
         ps._libs[name] = lib
 
 
 def stage_cycles(ps, name, rows) -> list[float]:
-    import ctypes
-    buf = (ctypes.c_longlong * 8)()
-    ps._libs[name].stage_cycles(ctypes.cast(buf, ctypes.c_void_p))
-    return [round(v / rows, 1) for v in buf if v]
+    import stage_marks
+    return stage_marks.stage_cycles(ps._libs[name], rows)
 
 
 if __name__ == "__main__":
