@@ -18,7 +18,11 @@ Phases (each raises on failure, so the run exits non-zero):
    with its launch geometry, the ptxas registers and spills of kernels
    7/7L, and the time of the one-hot contraction that consumes the same
    half (DeviceJoiner._half's product, TF32 off; timed only); the MEA
-   direction DP at 768 x 768. Then the long-pair kernels, each required equal to
+   direction DP (a skewed wavefront over the rows) at 768 x 768 on a
+   random and a tie-heavy posterior and at the odd shapes
+   MEA_ODD_SHAPES, each random and tie-heavy, all required equal, its
+   time beside its time before the redesign and its dependency floor
+   (mea_floor_ms). Then the long-pair kernels, each required equal to
    its plain version: kernels A/B at Ly = 2176-10240 (2 pairs, Lx 192;
    every segment geometry S = 2..5 and every rung the long families
    launch them at) on both schedules (one block a pair; the wave, each
@@ -44,9 +48,10 @@ Phases (each raises on failure, so the run exits non-zero):
    3 and 4 on mega-long's chunk (8 x 12288², S = 6: 1E's first 128 rows
    of each pair against the plain version on those rows, 3's rows u <
    128 against the plain version on each pair's last 128 rows of x and
-   its rows u >= lx against zero, 4 on the whole posterior); their ptxas
-   registers and spills
-   and their times at those shapes; the fused route against the legacy
+   its rows u >= lx against zero, on the wave, 4 on the whole
+   posterior); their ptxas registers
+   and spills and their times at those shapes (3's beside its time
+   before the wave and its dependency floor); the fused route against the legacy
    route on 8 mega pairs at 2048, at the kernel gate; then the
    ensembles' kernels (phase_ensemble_kernels): 1M and 2M (per-pair
    tables) at B = 512, L = 512 with the packs of 4 perturbation seeds
@@ -60,10 +65,12 @@ Phases (each raises on failure, so the run exits non-zero):
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
    to 0 just before each call, read just after); the first HELD_GRID
-   kernel-7 launches of each device refine (n = 70, n = 200, mega-128,
-   synthetic-1000's Super4 clusters) held, as they happen, to the plain
-   version on their own inputs and timed there (GridKernelCheck), the
-   checks' time and memory kept out of the walls and peaks:
+   kernel-7 and mea_dirs launches of each device refine (n = 70, n =
+   200, mega-128, synthetic-1000's Super4 clusters) and the mea_dirs
+   launch of every PProg device join held, as they happen, to the plain
+   versions on their own inputs and timed there (GridKernelCheck,
+   MeaDirsCheck), the checks' time and memory kept out of the walls and
+   peaks; mea_dirs' launches counted by (cc1, cc2) rung:
    - every in-repo family (the degapped tests/goldens/BB1100*.seq.afa
      and tests/data/nt/nt*.fa), printing whether it is column-identical
      to its golden and its Q against it, requiring BB11001 to be
@@ -137,8 +144,10 @@ Phases (each raises on failure, so the run exits non-zero):
    card, held to kernels A/B at the kernel gate;
 5. print kernels 7L's and 7's times summed over their held main-path
    launches, then the kernels' JSON line (launch counts summed over
-   phase 3, kernels A/B's also by schedule, with their wave times and
-   bounds at 11264 x 10240; kernel 7L's times and bound at
+   phase 3, kernels A/B's and 3's also by schedule, with A/B's wave times
+   and bounds at 11264 x 10240 and 3's block time and floor at
+   mega-long's chunk; mea_dirs' by rung, with its held launches' summed
+   time; kernel 7L's times and bound at
    synthetic-1000's largest device join;
    each max |d| over phase 2 and the launches held in phase 3),
    then the card line and the final {"ok": true, ...} line.
@@ -149,6 +158,7 @@ Exits non-zero, printing no result, without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -263,6 +273,7 @@ def bounded_pass(fn, what, dev):
     return out
 
 
+@functools.cache
 def max_sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -290,12 +301,70 @@ def max_sm_clock_hz() -> float:
 # operation, 24 a shuffle, 30 a shared-memory round trip, 24 a barrier;
 # at the card's highest SM clock.
 ROW_FLOOR = {False: (224, 8, 4, 4), True: (255, 15, 4, 5)}
+# kernel 3's step (csrc/pairhmm_wave.cuh with kLegacy): the backward's
+# without the posterior and MEA row (~30 operations, 6 shuffles, a
+# shared-memory round trip and a barrier fewer)
+LEGACY_FLOOR = (225, 9, 4, 4)
 
 
-def row_floor_ms(rows, g, clock_hz, backward) -> float:
-    ops, shfl, smem, bars = ROW_FLOOR[backward]
+def row_floor_ms(rows, g, clock_hz, backward, counts=None) -> float:
+    ops, shfl, smem, bars = counts or ROW_FLOOR[backward]
     cycles = 4 * (ops + 22 * g) + 24 * shfl + 30 * smem + 24 * bars
     return rows * cycles / clock_hz * 1e3
+
+
+# The dependency floor of mea_dirs (csrc/mea_dirs.cu): lane t of band k
+# computes column j at band step j + t; at the start of each run of HAND
+# steps the warp takes the band above's next HAND columns, the last of
+# which lane 31 there wrote HAND + 30 steps later (so band k starts
+# HAND + 31 steps after band k - 1), or, for warp 0 in a later round,
+# from the link row, published every LINK_HAND columns and staged before
+# its first window (min(LINK_HAND, cc2) + 31 steps after the band
+# above); a warp starts its next band when its band before has run its
+# windows of steps. A step's chain: a shuffle (24 cycles) and three
+# dependent f32 operations (lane 0's select, two max: 4 each), at the
+# card's highest SM clock.
+MEA_STEP_CYCLES = 24 + 3 * 4
+
+
+def mea_floor_steps(cc1: int, cc2: int) -> int:
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    nb, w = -(-cc1 // 32), djc.mea_warps(cc1)
+    band_steps = -(-(cc2 + 31) // djc.MEA_CHUNK) * djc.MEA_CHUNK
+    start = [0]
+    for k in range(1, nb):
+        lag = (djc.MEA_HAND + 31 if k % w
+               else min(djc.MEA_LINK_HAND, cc2) + 31)
+        s = start[k - 1] + lag
+        if k >= w:
+            s = max(s, start[k - w] + band_steps)
+        start.append(s)
+    return start[-1] + band_steps
+
+
+def mea_floor_ms(cc1: int, cc2: int, clock_hz: float) -> float:
+    return mea_floor_steps(cc1, cc2) * MEA_STEP_CYCLES / clock_hz * 1e3
+
+
+def tie_heavy(shape, seed, dev):
+    """A posterior of mostly zeros with values from {0.25, 0.5}, like a
+    real summed column posterior: most cells tie (b = x = y), so the tie
+    order B, X, Y decides the path."""
+    import torch
+    rng = np.random.default_rng(seed)
+    vals = np.float32([0, 0, 0, 0, 0, 0, 0.25, 0.5])
+    return torch.as_tensor(rng.choice(vals, size=shape), device=dev)
+
+
+# mea_dirs' shapes held in phase 2 beside 768 x 768: one row, a row of
+# one word, odd widths, the bands of a 1100-row join wrapping past the
+# 16 warps (the link row)
+MEA_ODD_SHAPES = ((1, 33), (23, 16), (40, 57), (130, 150), (767, 769),
+                  (1100, 300))
+# mea_dirs and kernel 3 before their redesign (PERF.md, NVIDIA H100 80GB
+# HBM3 at 700 W): 768 x 768, one block a join; mega-long's chunk, one
+# block a pair
+MEA_WAS_MS, BWD_WAS_MS = 1.043, 596.4
 
 
 # calls between the events when timing kernels 7/7L and their yardsticks
@@ -437,18 +506,26 @@ def ptxas_lines(names) -> list[str]:
                        + ("GridRows" if "GridRows" in src else "ListRuns")
                        + ">")
                 continue
+            m = re.search(r"Compiling entry function '\w*mea_dirs_kernel"
+                          r"ILb([01])E", line)
+            if m:  # in an unnamed namespace: its mangling varies
+                cur = f"mea_dirs_kernel<{16 if m.group(1) == '1' else 4}" \
+                      "-byte copies>"
+                continue
             m = re.search(r"Compiling entry function '_Z(?:N2ph)?(\d+)(\w+)'",
                           line)
             if m:
                 cur = m.group(2)[:int(m.group(1))]
                 rest = m.group(2)[int(m.group(1)):]
                 t = re.match(r"ILi(\d+)E", rest)
-                w = re.search(r"Lb([01])E", rest)
+                w = re.findall(r"Lb([01])E", rest)
                 if "wave_kernel" in cur and w:  # pairhmm_wave.cuh
                     cur += ("<" + ("lattice" if "LatticeEmission" in rest
                                    else "letters") + ", row 0 "
-                            + ("in the launch" if w.group(1) == "1"
-                               else "given") + ">")
+                            + ("in the launch" if w[0] == "1"
+                               else "given")
+                            + (", kernel 3's layout" if w[1:] == ["1"]
+                               else "") + ">")
                 elif t:
                     arg = "S" if cur.startswith("pairhmm") else "UNITS"
                     src = (", lattice" if "LatticeEmission" in rest else
@@ -780,6 +857,7 @@ def phase_gram_join_kernels(dev) -> list[dict]:
     from muscle_tpu_torch.ops import consistency as cons
     from muscle_tpu_torch.ops import densify_cuda as dc
     from muscle_tpu_torch.ops import devjoin_cuda as djc
+    from muscle_tpu_torch.ops import wavefront
     from muscle_tpu_torch.ops.consistency import _tf32_off
     from muscle_tpu_torch.pipeline.posteriors import store_rows
 
@@ -899,33 +977,82 @@ def phase_gram_join_kernels(dev) -> list[dict]:
     del f, post, onehot, vals, cols
     torch.cuda.empty_cache()
 
-    # MEA direction DP at 768 x 768 (no single torch call computes it)
+    # MEA direction DP at 768 x 768 (no single torch call computes it):
+    # a random posterior (few ties) and a tie-heavy one (the common case
+    # of real posteriors), then the odd shapes, each random and
+    # tie-heavy; all required equal
     g = torch.Generator(device=dev).manual_seed(768)
     post = torch.rand((cc, cc), generator=g, device=dev) * 100.0
-    packed, scores = djc.mea_dirs(post)
-    want_p, want_s = djc.mea_dirs_plain(post)
-    torch.cuda.synchronize()
-    err = float((scores - want_s).abs().max())
-    same = torch.equal(packed, want_p) and torch.equal(scores, want_s)
-    ms = time_cuda(lambda: djc.mea_dirs(post))
+    ties = tie_heavy((cc, cc), cc, dev)
+    held = [(f"{cc} x {cc} random", post), (f"{cc} x {cc} tie-heavy", ties)]
+    held += [(f"{a} x {b} {kind}", make)
+             for a, b in MEA_ODD_SHAPES
+             for kind, make in (
+                 ("random", torch.rand((a, b), generator=g, device=dev)),
+                 ("tie-heavy", tie_heavy((a, b), a * b, dev)))]
+    err, same = 0.0, True
+    for what, p in held:
+        case = mea_dirs_case(p)
+        err = max(err, case["err"])
+        same &= case["same"]
+        print(f"mea_dirs vs plain on {what}: max |d| {case['err']:.3e}, "
+              f"directions {'equal' if case['same'] else 'FAIL'}",
+              flush=True)
+    wavefront.check_waits(dev)
+    ms = time_cuda(lambda: djc.mea_dirs(post), per=DR_PER)
+    ms_ties = time_cuda(lambda: djc.mea_dirs(ties), per=DR_PER)
     plain_ms = time_cuda(lambda: djc.mea_dirs_plain(post), reps=3)
-    # per cell: one add, the max of b and x, the running max, three
-    # compares for the direction
-    bnd = bound_ms(4 * cc * cc + 4 * cc * (cc // 16) + 4 * cc, 6 * cc * cc)
-    print(f"mea_dirs vs plain at {cc} x {cc}: max |d| {err:.3e}, "
-          f"directions {'equal' if same else 'FAIL'}; {ms:.3f} ms (plain "
-          f"{plain_ms:.1f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})",
+    bnd = mea_bound(cc, cc)
+    floor = mea_floor_ms(cc, cc, max_sm_clock_hz())
+    print(f"mea_dirs at {cc} x {cc} ({djc.mea_warps(cc)} warps, "
+          f"{mea_floor_steps(cc, cc)} dependent steps): {ms:.4f} ms random, "
+          f"{ms_ties:.4f} ms tie-heavy (was {MEA_WAS_MS} ms: "
+          f"{MEA_WAS_MS / ms:.1f}x; plain {plain_ms:.1f} ms, bound "
+          f"{bnd[0]:.5f} ms by {bnd[1]}, dependency floor {floor:.4f} ms)",
           flush=True)
     if not same:
         raise SmokeFailure("mea_dirs disagrees with its plain version")
     out.append({"name": "mea_dirs", "route": "cuda",
                 "source": "muscle_tpu_torch/csrc/mea_dirs.cu",
-                "replaces": "muscle_tpu/pipeline/devjoin.py:180",
+                "replaces": "muscle_tpu/pipeline/devjoin.py:181",
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None})
+                "bound_by": bnd[1], "library_ms": None,
+                "ms_tie_heavy": ms_ties})
+    del post, ties, held
     torch.cuda.empty_cache()
     return out
+
+
+def mea_bound(cc1: int, cc2: int) -> tuple[float, str]:
+    """mea_dirs' bound: the posterior read once, the packed codes and the
+    scores written once; per cell one add, the max of b and x, the
+    running max, three compares for the direction."""
+    return bound_ms(4 * cc1 * cc2 + 4 * cc1 * -(-cc2 // 16) + 4 * cc1,
+                    6 * cc1 * cc2)
+
+
+def mea_dirs_case(post, got=None) -> dict:
+    """mea_dirs' output `got` on `post` (launched here when not given)
+    against its plain version on the same posterior (directions and
+    scores equal required), and the kernel's time there (CUDA events
+    around DR_PER launches) with its bound and dependency floor. The
+    launches made here are not counted."""
+    import torch
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    before = djc.LAUNCHES["mea_dirs"]
+    if got is None:
+        got = djc.mea_dirs(post)
+    want = djc.mea_dirs_plain(post)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    err = float((got[1] - want[1]).abs().max())
+    ms = time_cuda(lambda: djc.mea_dirs(post), per=DR_PER)
+    djc.LAUNCHES["mea_dirs"] = before
+    cc1, cc2 = post.shape
+    return {"same": same, "err": err, "ms": ms, "shape": (cc1, cc2),
+            "bound": mea_bound(cc1, cc2),
+            "floor": mea_floor_ms(cc1, cc2, max_sm_clock_hz())}
 
 
 def geometry_text(cc: int) -> str:
@@ -1261,36 +1388,137 @@ class GridKernelCheck(HeldLaunches):
 GRID_CHECK = GridKernelCheck()
 
 
+class MeaDirsCheck(HeldLaunches):
+    """Stands in for mea_dirs in the device joins while the main path
+    runs: every launch is counted by its (cc1, cc2) rungs; the first
+    HELD_GRID launches of each DeviceJoiner (a device refine) and the
+    launch of each PProg device join are held against mea_dirs_plain on
+    the same posterior and timed there (mea_dirs_case); `held_since`
+    prints and requires them. `pprog_seconds` is the PProg checks'
+    share of `seconds`."""
+
+    def __init__(self):
+        super().__init__()
+        self._left = 0
+        self._pprog = False
+        self._saved = None
+        self.rungs: dict = {}
+        self.pprog_seconds = 0.0
+
+    def __call__(self, post):
+        from muscle_tpu_torch.ops import devjoin_cuda as djc
+        from muscle_tpu_torch.pipeline.devjoin import _cc_rung
+        out = djc.mea_dirs(post)
+        rung = tuple(_cc_rung(c) for c in post.shape)
+        self.rungs[rung] = self.rungs.get(rung, 0) + 1
+        if self._left > 0:
+            self._left -= 1
+            s0 = self.seconds
+            self.hold(mea_dirs_case, post, out)
+            self.cases[-1]["pprog"] = self._pprog
+            if self._pprog:
+                self.pprog_seconds += self.seconds - s0
+        return out
+
+    def __enter__(self):
+        from muscle_tpu_torch.pipeline import devjoin, pprog
+        init, sampled = devjoin.DeviceJoiner.__init__, pprog.align_sampled_device
+        self._saved = (devjoin.mea_dirs, init, sampled)
+
+        def held_init(joiner, *args, **kwargs):
+            self._left, self._pprog = HELD_GRID, False
+            init(joiner, *args, **kwargs)
+
+        def held_sampled(*args, **kwargs):
+            self._left, self._pprog = 1, True
+            try:
+                return sampled(*args, **kwargs)
+            finally:
+                self._left = 0
+        devjoin.mea_dirs = self
+        devjoin.DeviceJoiner.__init__ = held_init
+        pprog.align_sampled_device = held_sampled
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.pipeline import devjoin, pprog
+        (devjoin.mea_dirs, devjoin.DeviceJoiner.__init__,
+         pprog.align_sampled_device) = self._saved
+
+    def held_since(self, name: str, n_cases: int, launched: int) -> None:
+        """Print and require the cases held since there were `n_cases`:
+        at least one for a run that launched mea_dirs, each equal."""
+        new = self.cases[n_cases:]
+        for i, c in enumerate(new):
+            bnd = c["bound"]
+            print(f"mea_dirs vs plain on {name}'s held "
+                  f"{'PProg' if c['pprog'] else 'refine'} launch {i + 1} of "
+                  f"{len(new)} ({c['shape'][0]} x {c['shape'][1]}): max |d| "
+                  f"{c['err']:.3e} {'equal' if c['same'] else 'FAIL'}; "
+                  f"{c['ms']:.4f} ms (bound {bnd[0]:.5f} ms by {bnd[1]}, "
+                  f"dependency floor {c['floor']:.4f} ms)", flush=True)
+        if launched and not new:
+            raise SmokeFailure(f"{name}: {launched} mea_dirs launches, none "
+                               "held")
+        if not all(c["same"] for c in new):
+            raise SmokeFailure(f"{name}: a mea_dirs launch disagrees with its "
+                               "plain version")
+
+
+MEA_CHECK = MeaDirsCheck()
+
+
+def mea_rungs() -> dict:
+    """The main path's mea_dirs launches by (cc1, cc2) rung of the bucket
+    ladder: {rung: (launches, held launches, their summed ms)}."""
+    from muscle_tpu_torch.pipeline.devjoin import _cc_rung
+    out = {r: [n, 0, 0.0] for r, n in MEA_CHECK.rungs.items()}
+    for c in MEA_CHECK.cases:
+        row = out[tuple(_cc_rung(x) for x in c["shape"])]
+        row[1] += 1
+        row[2] += c["ms"]
+    return dict(sorted(out.items()))
+
+
+def print_mea_rungs() -> None:
+    for (r1, r2), (n, held, ms) in mea_rungs().items():
+        print(f"mea_dirs on the main path at rung {r1} x {r2}: {n} launches, "
+              f"{held} held, {ms:.4f} ms summed over the held", flush=True)
+
+
 def peak_bytes() -> int:
-    """Peak device memory since the last reset, the kernel-7 checks'
-    own memory left out."""
+    """Peak device memory since the last reset, the kernel-7 and
+    mea_dirs checks' own memory left out."""
     import torch
-    return max(torch.cuda.max_memory_allocated(), GRID_CHECK.peak)
+    return max(torch.cuda.max_memory_allocated(), GRID_CHECK.peak,
+               MEA_CHECK.peak)
 
 
 def run_path(name, seqs, dev, kernels, **kwargs):
     """One align() call of the main path: the launch counts are set to 0
     just before it and read just after; each kernel of `kernels` must
-    have launched. Held kernel-7 launches (GRID_CHECK) are printed and
-    their time taken out of the wall and the refine stage. Returns (msa,
-    wall s, stage walls, launches)."""
+    have launched. Held kernel-7 and mea_dirs launches (GRID_CHECK,
+    MEA_CHECK) are printed and their time taken out of the wall and the
+    refine stage. Returns (msa, wall s, stage walls, launches)."""
     import torch
     from muscle_tpu_torch import align
     from muscle_tpu_torch.utils import logging as mlog
     mlog.STAGE_TIMES.clear()
     n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
-    GRID_CHECK.peak = 0
+    m_cases, m0 = len(MEA_CHECK.cases), MEA_CHECK.seconds
+    GRID_CHECK.peak = MEA_CHECK.peak = 0
     reset_launches()
     t0 = time.perf_counter()
     msa = align(seqs, device=dev, **kwargs)
     torch.cuda.synchronize()
-    held = GRID_CHECK.seconds - s0
+    held = GRID_CHECK.seconds - s0 + MEA_CHECK.seconds - m0
     wall = time.perf_counter() - t0 - held
     got = count_main_path()
     missing = [k for k in kernels if got[k] <= 0]
     if missing:
         raise SmokeFailure(f"{name}: {missing} not launched")
     GRID_CHECK.held_since(name, n_cases, got["densify_reduce"])
+    MEA_CHECK.held_since(name, m_cases, got["mea_dirs"])
     check_alignment(seqs, msa, name)
     stages = {k: round(v - (held if k == "refine" else 0), 4)
               for k, v in mlog.STAGE_TIMES.items()}
@@ -1656,15 +1884,20 @@ def run_super5(name, seqs, dev, kernels):
     mlog.STAGE_TIMES.clear()
     torch.cuda.reset_peak_memory_stats()
     n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
-    GRID_CHECK.peak = 0
+    m_cases, m0 = len(MEA_CHECK.cases), MEA_CHECK.seconds
+    mp0 = MEA_CHECK.pprog_seconds
+    GRID_CHECK.peak = MEA_CHECK.peak = 0
     reset_launches()
     devjoin.densify_reduce_list = check
     try:
         t0 = time.perf_counter()
         msa = super5(seqs, device=dev)
         torch.cuda.synchronize()
-        grid_held = GRID_CHECK.seconds - s0
-        wall = time.perf_counter() - t0 - check.seconds - grid_held
+        mea_pprog = MEA_CHECK.pprog_seconds - mp0
+        grid_held = (GRID_CHECK.seconds - s0 + MEA_CHECK.seconds - m0
+                     - mea_pprog)
+        pprog_held = check.seconds + mea_pprog
+        wall = time.perf_counter() - t0 - pprog_held - grid_held
     finally:
         devjoin.densify_reduce_list = launch
     got = count_main_path()
@@ -1682,19 +1915,20 @@ def run_super5(name, seqs, dev, kernels):
         raise SmokeFailure(f"{name}: a kernel-7L launch disagrees with its "
                            "plain version")
     GRID_CHECK.held_since(name, n_cases, got["densify_reduce"])
+    MEA_CHECK.held_since(name, m_cases, got["mea_dirs"])
     check_alignment(seqs, msa, name)
-    stages = {k: round(v - (check.seconds if k in ("pprog", "super4") else 0)
+    stages = {k: round(v - (pprog_held if k in ("pprog", "super4") else 0)
                        - (grid_held if k in ("refine", "cluster_mpcs",
                                              "super4") else 0), 4)
               for k, v in mlog.STAGE_TIMES.items()}
-    if check.cases:
-        print(f"{name}: kernel-7L checks took {check.seconds:.2f}s, taken "
-              "out of the wall and of the pprog and super4 stages",
-              flush=True)
+    if pprog_held:
+        print(f"{name}: kernel-7L and PProg mea_dirs checks took "
+              f"{pprog_held:.2f}s, taken out of the wall and of the pprog "
+              "and super4 stages", flush=True)
     if grid_held:
-        print(f"{name}: kernel-7 checks took {grid_held:.2f}s, taken out of "
-              "the wall and of the refine, cluster_mpcs and super4 stages",
-              flush=True)
+        print(f"{name}: refine kernel-7 and mea_dirs checks took "
+              f"{grid_held:.2f}s, taken out of the wall and of the refine, "
+              "cluster_mpcs and super4 stages", flush=True)
     return msa, wall, stages, got, dict(LAST_RUN), peak, check.cases
 
 
@@ -2084,19 +2318,27 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     fm, fend = pe.pairhmm_fwd_emis(*largs)
     d1s, _ = hold_fwd(largs, fm)
     out["pairhmm_fwd_emis"] = (max(d1, d1s),) + out["pairhmm_fwd_emis"][1:]
-    rb = pe.pairhmm_bwd(*largs)
+    # kernel 3 on the wave (G = 4 at 12288), its launch bounded in wall
+    # time, held to the plain version
+    geo3 = pe.bwd_geometry(8, MEGA_LONG_PAD)
+    rb = bounded_pass(lambda: pe.pairhmm_bwd(*largs),
+                      "kernel 3 on mega-long's chunk, on the wave", dev)
     d3, plain3 = hold_bwd(largs, rb)
     print(f"kernels 1E and 3 (pairhmm_bwd) vs plain on mega-long's pairs at "
-          f"8 x 12288 x 12288 (S = 6), lx {int(lx.min())}-{int(lx.max())}: "
-          f"1E's first {HELD_ROWS} rows max |d| {d1s:.3e}; 3's rows u < "
-          f"{HELD_ROWS} (each pair's last {HELD_ROWS} rows of x) and rows "
-          f"u >= lx (zero) max |d| {d3:.3e} "
-          f"{'equal' if d1s == d3 == 0 else 'FAIL'}", flush=True)
+          f"8 x 12288 x 12288, lx {int(lx.min())}-{int(lx.max())}: 1E's "
+          f"first {HELD_ROWS} rows max |d| {d1s:.3e}; 3 on the wave (G = "
+          f"{geo3.g}, {geo3.groups} groups a pair): rows u < {HELD_ROWS} "
+          f"(each pair's last {HELD_ROWS} rows of x) and rows u >= lx (zero) "
+          f"max |d| {d3:.3e} {'equal' if d1s == d3 == 0 else 'FAIL'}",
+          flush=True)
     if d1s or d3:
         raise SmokeFailure("kernel 1E or 3 differs from its plain version "
                            "at Ly = 12288")
     ms1l = time_cuda(lambda: pe.pairhmm_fwd_emis(*largs), reps=3)
     ms3 = time_cuda(lambda: pe.pairhmm_bwd(*largs), reps=3)
+    pc.wavefront.check_waits(dev)
+    floor3 = row_floor_ms(int(lx.max()), geo3.g, max_sm_clock_hz(), True,
+                          LEGACY_FLOOR)
     post = pe.finish_posteriors(fm, rb, fend, lx, ly, params)
     del rb
     got = pe.mea_scores(post, lx)
@@ -2114,9 +2356,11 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
           flush=True)
     print(f"at mega-long's shape ({cells:.0f} real cells): kernel 1E "
           f"{ms1l:.3f} ms (bound {bnd1l[0]:.4f} ms by {bnd1l[1]}), kernel 3 "
-          f"{ms3:.3f} ms (plain {plain3:.1f} ms on {HELD_ROWS} rows, bound "
-          f"{bnd3[0]:.4f} ms by {bnd3[1]}), kernel 4 {ms4:.3f} ms (plain "
-          f"{plain4:.1f} ms, bound {bnd4[0]:.4f} ms by {bnd4[1]})", flush=True)
+          f"{ms3:.3f} ms on the wave (was {BWD_WAS_MS} ms: "
+          f"{BWD_WAS_MS / ms3:.1f}x; plain {plain3:.1f} ms on {HELD_ROWS} "
+          f"rows, bound {bnd3[0]:.4f} ms by {bnd3[1]}, dependency floor {floor3:.2f} ms), kernel 4 "
+          f"{ms4:.3f} ms (plain {plain4:.1f} ms, bound {bnd4[0]:.4f} ms by "
+          f"{bnd4[1]})", flush=True)
     if d4:
         raise SmokeFailure("kernel 4 differs from its plain version")
     out["pairhmm_bwd"] = (d3, ms3, plain3, bnd3,
@@ -2782,7 +3026,7 @@ def main() -> int:
                + phase_mega_kernels(dev, sets) + phase_ensemble_kernels(dev))
 
     t0 = time.perf_counter()
-    with GRID_CHECK:
+    with GRID_CHECK, MEA_CHECK:
         phase_families(dev)
         phase_synthetic(dev)
         phase_long_families(dev)
@@ -2791,7 +3035,9 @@ def main() -> int:
         ens = phase_ensembles(dev)
     print(f"main path: {time.perf_counter() - t0:.1f}s (kernel-7 checks "
           f"{GRID_CHECK.seconds:.2f}s, {len(GRID_CHECK.cases)} launches "
-          "held)", flush=True)
+          f"held; mea_dirs checks {MEA_CHECK.seconds:.2f}s, "
+          f"{len(MEA_CHECK.cases)} launches held)", flush=True)
+    print_mea_rungs()
     phase_scan_route(dev)
     # kernel 7L's entry: its times and bound at the main path's largest
     # device join, the error over every check
@@ -2821,6 +3067,7 @@ def main() -> int:
                    for e in errs[k]]
     held["pairhmm_bwd_codes"] = ens["legacy-BB11001"]["errs"]
     held["densify_reduce"] = [c["err"] for c in GRID_CHECK.cases]
+    held["mea_dirs"] = [c["err"] for c in MEA_CHECK.cases]
     for k in kernels:
         k["max_abs_err"] = max([k["max_abs_err"]] + held.get(k["name"], []))
     for k in kernels:
@@ -2837,6 +3084,18 @@ def main() -> int:
                  block_ms_10240=AB_WIDE["block_ms"][i],
                  bound_ms_10240=AB_WIDE["bound"][i],
                  max_abs_err=max(k["max_abs_err"], AB_WIDE["max_abs_err"]))
+    # kernel 3: its launches by schedule and width; mea_dirs: its
+    # launches by (cc1, cc2) rung and the held launches' summed times
+    k3 = next(k for k in kernels if k["name"] == "pairhmm_bwd")
+    k3["schedule"] = {f"{sched} {ly}": n for (name, sched, ly), n
+                      in sorted(MAIN_SCHEDULES.items())
+                      if name == "pairhmm_bwd"}
+    km = next(k for k in kernels if k["name"] == "mea_dirs")
+    rungs = mea_rungs()
+    km["schedule"] = {f"wave {r1} x {r2}": n for (r1, r2), (n, _, _)
+                      in rungs.items()}
+    km.update(held_launches=len(MEA_CHECK.cases),
+              held_ms_summed=sum(c["ms"] for c in MEA_CHECK.cases))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,9 +1,11 @@
 // Kernels 3 and 3K: the legacy pair-HMM backward pass over the reversed
-// sequences, one thread block per pair, templated on the emission source
-// (pairhmm_common.cuh): a precomputed emission lattice (kernel 3,
-// pairhmm_bwd.cu) or letters and their score tables (kernel 3K,
-// pairhmm_bwd_codes.cu). It writes the reversed backward M lattice RB_M
-// (B, Lx, Ly).
+// sequences. This header holds their layout and step and kernel 3K's
+// body, one thread block per pair, templated on the emission source
+// (pairhmm_common.cuh): letters and their score tables (kernel 3K,
+// pairhmm_bwd_codes.cu). Kernel 3 (a precomputed emission lattice,
+// pairhmm_bwd.cu) runs the same steps in the same layout on the wide
+// schedule (pairhmm_wave.cuh's backward body with kLegacy). Both write
+// the reversed backward M lattice RB_M (B, Lx, Ly).
 //
 // Replaces muscle_tpu/ops/pairhmm_pallas.py::_bwd_kernel (kernel 3:
 // kk=None, launched by _bwd_pallas, the emissions path's legacy route
@@ -18,8 +20,8 @@
 // as in the Pallas kernel, which reads per-pair roll-flipped inputs:
 // e_rev[b, i, j] = e[b, lx-1-i, ly-1-j] for the lattice, and for letters
 // the rolled codes xr = roll(x[::-1], lx - Lx), whose position k < lx is
-// x[lx-1-k] (likewise y). Those are the same table entries, so this
-// kernel reads its source through reversed indices (x position lx-u,
+// x[lx-1-k] (likewise y). Those are the same table entries, so the
+// kernels read their source through reversed indices (x position lx-u,
 // column ly-1-v), and neither e_rev (4.8 GB at 8 pairs of 12288) nor the
 // rolled codes exist. Lanes v >= ly take LOG_ZERO emissions and insert
 // scores: no lane v < ly depends on them (every dependence runs from
@@ -35,13 +37,12 @@
 // pairs of ~9,000 x 9,000 real cells in 12288 x 12288 lattices: ~1.5 ms
 // at 3.35 TB/s); kernel 3K reads only the codes and tables and writes
 // RB_M (4 bytes a cell). Against that, ~138 f32 operations per real cell
-// of the sequential recurrence (~1.3 ms at 67 TFLOP/s for the 8 pairs).
-// As in kernels A and B, the association-preserving scan does several
-// times those operations along a serial row chain, one block per pair:
-// 8 pairs occupy 8 of the 132 SMs, 512 pairs fill them. The state rows
-// stay in registers (S = 6 segments a warp at Ly = 12288, which spills;
-// ptxas's counts are printed by chip_smoke.py); 3K gathers its emissions
-// from the tables in shared memory, as kernel A does.
+// of the sequential recurrence. As in kernels A and B, the
+// association-preserving scan does several times those operations along
+// a serial row chain; kernel 3K's block body runs one block per pair (512
+// pairs fill the 132 SMs), its state rows in registers (S <= 5 segments a
+// warp at Ly <= 10240; ptxas's counts are printed by chip_smoke.py), its
+// emissions gathered from the tables in shared memory, as kernel A does.
 #pragma once
 
 #include "pairhmm_common.cuh"
@@ -252,8 +253,8 @@ static int launch_bwd(const Geometry& geo, int B, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch at the geometry of Ly: S = 1..MAX_S segments per warp.
-template <class Src, int MAX_S>
+// One launch at the geometry of Ly: S = 1..5 segments per warp.
+template <class Src>
 static int dispatch_bwd(int B, cudaStream_t st, const typename Src::Args& args,
                         const int* lxb, const int* lyb, const float* params,
                         int pstride, int Lx, int Ly, float* rbm) {
@@ -274,11 +275,6 @@ static int dispatch_bwd(int B, cudaStream_t st, const typename Src::Args& args,
     case 5:
       return launch_bwd<5, Src>(geo, B, st, args, lxb, lyb, params, pstride,
                                 Lx, Ly, rbm);
-    case 6:
-      if constexpr (MAX_S >= 6)
-        return launch_bwd<6, Src>(geo, B, st, args, lxb, lyb, params, pstride,
-                                  Lx, Ly, rbm);
-      [[fallthrough]];
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,7 @@
-// Kernel 3K: the legacy pair-HMM backward pass from letters (the kernel
-// is kernel 3's, pairhmm_bwd.cuh, with the letter source of kernel A:
-// codes read through reversed indices, tables in shared memory).
+// Kernel 3K: the legacy pair-HMM backward pass from letters (the block
+// body of pairhmm_bwd.cuh, whose steps kernel 3 runs on the wave, with
+// the letter source of kernel A: codes read through reversed indices,
+// tables in shared memory).
 //
 // Replaces muscle_tpu/ops/pairhmm_pallas.py::_bwd_kernel (kk=K, launched
 // by _bwd_pallas_fused): the letter path's legacy route, taken under
@@ -18,7 +19,7 @@ extern "C" int pairhmm_bwd_codes(const int* xb, const int* yb,
                                  void* stream) {
   const CodeEmission::Args args{xb, yb, match, insert, kk,
                                 per_pair ? kk * kk : 0, per_pair ? kk : 0};
-  return dispatch_bwd<CodeEmission, 5>(B, static_cast<cudaStream_t>(stream),
+  return dispatch_bwd<CodeEmission>(B, static_cast<cudaStream_t>(stream),
                                        args, lxb, lyb, params,
                                        per_pair ? 16 : 0, Lx, Ly, rbm);
 }

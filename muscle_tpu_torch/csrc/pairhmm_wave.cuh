@@ -10,7 +10,9 @@
 //   - pairhmm_bwd_wave_kernel: kernel B's backward + posterior + MEA
 //     (pairhmm_bwd_post.cuh), instantiated by kernel 6
 //     (pairhmm_bwd_stripe.cu) and by kernel B's wide schedule
-//     (pairhmm_bwd_post.cu).
+//     (pairhmm_bwd_post.cu); with kLegacy, kernel 3's legacy backward
+//     (pairhmm_bwd.cuh) on its wide schedule (pairhmm_bwd.cu): the same
+//     steps without the posterior and the MEA, in kernel 3's layout.
 //
 // Both are templated on the emission source (pairhmm_common.cuh) and on
 // where row 0 (the forward's IY/JY row 0, the backward's boundary row
@@ -314,7 +316,17 @@ inline size_t fwd_wave_smem(const typename Src::Args& args, int G) {
 
 // Backward + posterior + MEA. Lane q holds forward column By-1-q (kernel
 // B's flipped layout); lanes below By-ly are padding and carry the
-// column boundary chains. A block is one group: G warps, G segments of
+// column boundary chains.
+//
+// kLegacy (kernel 3, one stripe of the whole row, row 0 in the launch):
+// kernel 3's layout instead, lane v holding column ly-1-v, start-aligned
+// (lanes v >= ly take LOG_ZERO emissions and insert scores, and compute
+// the boundary row like the real lanes), steps u = 0..lx-1 reading x
+// position lx-u; each step writes row u of RB_M = post (B, Lx, By) as
+// shift_fill(M row, column-0 chain), the groups zero their lanes of rows
+// u >= lx, and the record's MEA slot is unused (tot, fm, mea_out are
+// not read). The steps are kernel 3's arithmetic in its association,
+// so the wave repeats the block kernel's bits. A block is one group: G warps, G segments of
 // pair b, which hand their right neighbour per step a wf::Rec8 [M, IY,
 // JY, MEA, IY carry, JY carry, 0, 0] of their last lane (at a stripe edge
 // the twin's boundary column). Each step combines the backward M row with
@@ -324,7 +336,7 @@ inline size_t fwd_wave_smem(const typename Src::Args& args, int G) {
 // lane, written by the pair's last group. iy0b/jy0b (B, By): the
 // boundary row B(lx, .) in flipped lanes, written here when kRow0 (with
 // row_tmp as for the forward).
-template <class Src, bool kRow0>
+template <class Src, bool kRow0, bool kLegacy = false>
 __global__ void __launch_bounds__(1024)
 pairhmm_bwd_wave_kernel(const typename Src::Args args,
                         const int* __restrict__ lxb,
@@ -362,16 +374,18 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
   const float tMM = pp[TMM], tMI = pp[TMI], tMJ = pp[TMJ];
   const float tII = pp[TII], tIM = pp[TIM], tJJ = pp[TJJ];
   const float tJM = pp[TJM];
-  const float totb = tot[b];
+  const float totb = kLegacy ? 0.0f : tot[b];
   const int lx = lxb[b], ly = lyb[b];
   const int q0 = By - ly;   // flipped lanes below q0 are padding
-  const float* fm_b = fm + (size_t)b * Lx * By;
+  const float* fm_b = kLegacy ? fm : fm + (size_t)b * Lx * By;
   float* post_b = post + (size_t)b * Lx * By;
   float* iy0_b = iy0b + (size_t)b * By;
   float* jy0_b = jy0b + (size_t)b * By;
   int* progress = sync + wf::PROGRESS + b * groups + gi;
   wf::Rec8* out = hand + ((size_t)b * groups + gi) * Lx;
-  const int u0 = Lx - lx;
+  // steps u0 .. uend-1; step u reads x position uend-u (u > u0)
+  const int u0 = kLegacy ? 0 : Lx - lx;
+  const int uend = kLegacy ? lx : Lx;
   wf::Window<wf::Rec8> win(has_left ? progress - 1 : progress,
                            has_left ? out - Lx : out, fault, wait_ns, u0);
   __syncthreads();  // the emission tables
@@ -380,7 +394,21 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
     // the boundary row B(lx, .): kernel B's rounds over the whole row,
     // prefix sums from the first real lane, by group 0; the others read
     // it once their left neighbour has published steps
-    if (!has_left) {
+    if (!has_left && kLegacy) {
+      // kernel 3's boundary row: prefix sums from lane 0, LOG_ZERO insert
+      // scores past ly
+      float* ti = row_tmp + (size_t)b * 2 * By;
+      row_cumsum2(
+          By, iy0_b, jy0_b, ti, ti + By,
+          [&](int v) {
+            const float ins =
+                v < ly ? src.insy(ly - 1 - v, src.tag(ly - 1 - v)) : LOG_ZERO;
+            return make_float2(__fadd_rn(ins, tII), __fadd_rn(ins, tJJ));
+          },
+          [&](int, float si, float sj) {
+            return make_float2(__fadd_rn(tSI, si), __fadd_rn(tSJ, sj));
+          });
+    } else if (!has_left) {
       float* ti = row_tmp + (size_t)b * 2 * By;
       row_cumsum2(
           By, iy0_b, jy0_b, ti, ti + By,
@@ -394,18 +422,20 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
                           : make_float2(__fadd_rn(tSI, si),
                                         __fadd_rn(tSJ, sj));
           });
-    } else if (lx > 0) {
-      if (g == 0) win.refill(u0, Lx, l);
+    } else if (uend > u0) {
+      if (g == 0) win.refill(u0, uend, l);
       __syncthreads();
     }
   }
 
   const int q = seg0 * 64 + g * 64 + 2 * l;  // flipped lanes q, q + 1
   // ... which are forward lanes By-1-q, By-2-q: one float2 at By-2-q
+  // (kLegacy: lanes q, q + 1 of RB_M, columns ly-1-q, ly-2-q)
   const int fcol = By - 2 - q;
-  // rows past lx of the posterior are zero
+  const int ocol = kLegacy ? q : fcol;
+  // rows past lx of the posterior (of RB_M) are zero
   for (int r = lx; r < Lx; ++r)
-    *reinterpret_cast<float2*>(post_b + (size_t)r * By + fcol) =
+    *reinterpret_cast<float2*>(post_b + (size_t)r * By + ocol) =
         make_float2(0.f, 0.f);
 
   int yc[2];
@@ -414,9 +444,10 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int gq = q + e;
-    yc[e] = src.tag(By - 1 - gq);
-    pad[e] = gq < q0;
-    insy[e] = pad[e] ? LOG_ZERO : src.insy(By - 1 - gq, yc[e]);
+    const int col = kLegacy ? ly - 1 - gq : By - 1 - gq;
+    pad[e] = kLegacy ? gq >= ly : gq < q0;
+    yc[e] = kLegacy && pad[e] ? 0 : src.tag(col);
+    insy[e] = pad[e] ? LOG_ZERO : src.insy(col, yc[e]);
     iy[e] = __ldcg(iy0_b + gq);
     jy[e] = __ldcg(jy0_b + gq);
     mea[e] = 0.0f;
@@ -440,9 +471,11 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
       const float mr =
           log_add<kBF>(__fadd_rn(__fadd_rn(tMI, shi[e]), insy[e]),
                        __fadd_rn(__fadd_rn(tMJ, shj[e]), insy[e]));
-      m[e] = pad[e] ? tSM : mr;
-      ix[e] = pad[e] ? tSI : LOG_ZERO;
-      jx[e] = pad[e] ? tSJ : LOG_ZERO;
+      // kernel B's padding lanes carry the column boundary chains
+      const bool chain = !kLegacy && pad[e];
+      m[e] = chain ? tSM : mr;
+      ix[e] = chain ? tSI : LOG_ZERO;
+      jx[e] = chain ? tSJ : LOG_ZERO;
     }
     if (l == 31) s_edge_m[g] = m[1];
   }
@@ -452,12 +485,12 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
   float h_m_prev = LOG_ZERO, h_mea_prev = 0.0f;
   __syncthreads();
 
-  for (int u = u0; u < Lx; ++u) {
+  for (int u = u0; u < uend; ++u) {
     // the left group's record of step u (warp 0 only)
     float h_m = LOG_ZERO, h_iy = LOG_ZERO, h_jy = LOG_ZERO, h_mea = NEG_BIG;
     float h_ci = NEG_BIG, h_cj = NEG_BIG;
     if (has_left && g == 0) {
-      if (u >= win.ready) win.refill(u, Lx, l);
+      if (u >= win.ready) win.refill(u, uend, l);
       const int s = u - win.base;
       h_m = wf::field(win.rec.v0, 0, s);
       h_iy = wf::field(win.rec.v0, 1, s);
@@ -468,16 +501,25 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
     }
     float car_i = NEG_BIG, car_j = NEG_BIG;  // leaving carries (owner)
     if (u > u0) {
-      src.row(Lx - u);
+      src.row(uend - u);
       const float insx = src.insx;
       const float fmv = has_left ? h_m_prev : m0;
       float nm[2], nix[2], njx[2], aI[2], cI[2], aJ[2], cJ[2];
       // (1) next-row terms, IX/JX, IY/JY segment scans
       {
         const float shm[2] = {left_of_even(m[1], fmv, s_edge_m, g, l), m[0]};
-        // lanes q, q+1 are columns By-1-q, By-2-q
-        const float2 ev = src.emit2(fcol, yc[1], yc[0]);
-        const float emit[2] = {ev.y, ev.x};
+        // lanes q, q+1 are columns By-1-q, By-2-q (kLegacy: ly-1-q,
+        // ly-2-q, read one at a time: ly is any length)
+        float emit[2];
+        if (kLegacy) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            emit[e] = pad[e] ? LOG_ZERO : src.emit1(ly - 1 - q - e, yc[e]);
+        } else {
+          const float2 ev = src.emit2(fcol, yc[1], yc[0]);
+          emit[0] = ev.y;
+          emit[1] = ev.x;
+        }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float er = pad[e] ? LOG_ZERO : emit[e];
@@ -565,6 +607,20 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
       __syncthreads();
     }
 
+    if constexpr (kLegacy) {
+      // (5) row u of RB_M: the M row shifted one lane, the left group's
+      // last lane (group 0: the column-0 chain) in lane 0
+      const float lo = left_of_even(m[1], has_left ? h_m : m0, s_edge_m, g, l);
+      *reinterpret_cast<float2*>(post_b + (size_t)u * By + q) =
+          make_float2(lo, m[0]);
+      if (owner && has_right) {
+        wf::stcg(out + u, wf::Rec8{make_float4(m[1], iy[1], jy[1], 0.f),
+                                   make_float4(car_i, car_j, 0.f, 0.f)});
+        wf::publish(progress, u, u0, uend, R);
+      }
+      h_m_prev = h_m;
+      continue;
+    }
     // (5) posterior row Lx-1-u from the forward M there; MEA row
     const int pf = Lx - 1 - u;
     float p[2];
@@ -616,7 +672,7 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
     h_m_prev = h_m;
     h_mea_prev = h_mea;
   }
-  if (owner && !has_right) mea_out[b] = mea[1];
+  if (!kLegacy && owner && !has_right) mea_out[b] = mea[1];
 }
 
 // Shared memory of a backward wave block, bytes.
@@ -672,6 +728,31 @@ inline int launch_bwd_wave(int B, cudaStream_t st,
       args, lxb, lyb, params, pstride, tot, row0, row0 + n, row0 + 2 * n, B,
       Lx, Ly, Ly, G, R, wait_ns, sync, fault,
       reinterpret_cast<wf::Rec8*>(hand), fm, post, mea);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 3 on the wide schedule: one stripe of the whole row, the
+// boundary row computed in the launch (row0 as for kernel B), RB_M
+// written to rbm (B, Lx, Ly).
+template <class Src>
+inline int launch_bwd_legacy_wave(int B, cudaStream_t st,
+                                  const typename Src::Args& args,
+                                  const int* lxb, const int* lyb,
+                                  const float* params, int pstride, int Lx,
+                                  int Ly, int G, int R, long long wait_ns,
+                                  int* sync, int* fault, float* hand,
+                                  float* row0, float* rbm) {
+  if (!wave_ok(B, Ly, Ly, G, R)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_wave_smem<Src>(args, G);
+  const cudaError_t e =
+      allow_smem(pairhmm_bwd_wave_kernel<Src, true, true>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t n = (size_t)B * Ly;
+  pairhmm_bwd_wave_kernel<Src, true, true>
+      <<<B * (Ly / (64 * G)), G * 32, smem, st>>>(
+          args, lxb, lyb, params, pstride, nullptr, row0, row0 + n,
+          row0 + 2 * n, B, Lx, Ly, Ly, G, R, wait_ns, sync, fault,
+          reinterpret_cast<wf::Rec8*>(hand), nullptr, rbm, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,11 @@
   its shared-memory tile. The kernels take the store's contract: the
   valid slots of a row come first (ops/sparse.sparsify's order).
 * `mea_dirs` (csrc/mea_dirs.cu) replaces devjoin._mea_dirs, the MEA
-  direction DP (an XLA scan in the JAX package) with its 2-bit packing.
+  direction DP (an XLA scan in the JAX package) with its 2-bit packing:
+  a skewed wavefront over the rows, one row a lane, bands of 32 rows a
+  warp handing their last row down through shared memory
+  (`mea_warps` picks the warps; `mea_dirs_wave_plain` runs the kernel's
+  schedule on the CPU).
 
 Beside each is its plain torch version (`densify_reduce_plain`, a loop
 over t; `densify_reduce_list_plain`, a loop over the entry rank within
@@ -34,6 +38,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 LAUNCHES = {"densify_reduce": 0, "densify_reduce_list": 0, "mea_dirs": 0}
@@ -47,9 +52,19 @@ _DR_ROWS_PER_WARP = 2
 _DR_MAX_WARPS = 8
 _DR_STAGE = (2 * 32 * _DR_MAX_WARPS + _DR_MAX_WARPS) * 4
 _DR_TILE_AIM = 228 * 1024 // 4 - _DR_STAGE - 1024
-# mea_dirs: 16 * wpt columns per thread, at most 1024 threads, one
-# (threads * 16 * wpt + 1) f32 row in shared memory (227 KB per block)
-_MEA_SMEM = 232448 - 128
+# mea_dirs (csrc/mea_dirs.cu, whose constants these repeat): chunks of
+# CHUNK columns staged SLOTS to a warp's ring (slot 0 kept twice), AHEAD
+# in flight; inside a round of bands, the band above's row handed over
+# through a ring of RING (value, position) slots, waited on and counted
+# every HAND columns; from a round's last warp to warp 0 of the next, a
+# row in device memory published every LINK_HAND columns; one warp a
+# band of 32 rows, at most MAX_WARPS (13.4 KB of shared memory a warp)
+MEA_CHUNK, MEA_SLOTS, MEA_AHEAD, MEA_HAND, MEA_RING = 16, 5, 2, 16, 128
+MEA_LINK_HAND = 128
+MEA_MAX_WARPS = 16
+# a wait on a neighbour warp past this many SM cycles (~10 s) is a
+# deadlock: the kernel sets the device's fault flag and runs on
+MEA_WAIT_CYCLES = 20_000_000_000
 
 _fns: dict = {}
 
@@ -100,7 +115,8 @@ def _kernel(name: str):
                     + [vp] + [ci] * 4 + [vp, vp],
                     "densify_reduce_list": [vp, vp] + [ci] * 4 + [vp, ci]
                     + [vp] * 3 + [ci] * 5 + [vp, vp],
-                    "mea_dirs": [vp] + [ci] * 4 + [vp] * 3}[name]
+                    "mea_dirs": [vp] + [ci] * 3 + [ctypes.c_longlong]
+                    + [vp] * 5}[name]
         spec = next(s for s in kernel_specs() if s.name == name)
         _fns[name] = load_kernel(spec, argtypes)
     return _fns[name]
@@ -277,9 +293,192 @@ def mea_dirs_plain(post: torch.Tensor):
     return _pack(dirs), scores
 
 
+def mea_warps(cc1: int) -> int:
+    """Warps of a mea_dirs launch, as its C entry derives them: one a
+    band of 32 rows, at most MEA_MAX_WARPS (more bands go round-robin)."""
+    return max(1, min(-(-cc1 // 32), MEA_MAX_WARPS))
+
+
+class _MeaWarp:
+    """One warp of the kernel's schedule: its band, round and step, its
+    stage ring (32 rows and the link row, slot 0 also past the last, and
+    the link positions it holds) and its lanes' registers (one row a
+    lane)."""
+
+    def __init__(self, w: int):
+        self.w, self.band, self.r = w, w, 0
+        cols = MEA_CHUNK * (MEA_SLOTS + 1)
+        self.stage = np.zeros((33, cols), np.float32)
+        self.stage_pos = np.full(cols, -1, np.int64)
+        self.start_band()
+
+    def start_band(self):
+        self.s = 0
+        self.next_chunk = 0
+        # columns -31 .. -1 (the last two slots) read as zeros
+        ring_cols = MEA_CHUNK * MEA_SLOTS
+        self.stage[:32, ring_cols - 2 * MEA_CHUNK:ring_cols] = 0.0
+        self.cur = np.zeros(32, np.float32)
+        self.oldj = np.zeros(32, np.float32)
+        self.bits = np.zeros(32, np.int64)
+        lanes = np.arange(32)
+        self.jm = np.where(lanes == 0, 0, ring_cols - lanes)
+
+
+def mea_dirs_wave_plain(post: torch.Tensor):
+    """The kernel's schedule on the CPU (csrc/mea_dirs.cu), numpy: warps
+    of 32 lanes taking bands round-robin, lane t of band k computing row
+    32k + t's column s - t at band step s from lane t-1's values of the
+    step before, on every step (zeros before its row starts and after it
+    ends, so its last value is the score); lane 0 from the band above,
+    the warp taking HAND columns at a time through warp w-1's ring
+    inside a round (waiting while a slot holds another position) or the
+    link row from the round before (each read checks that it has the
+    position it wants: never read before written, never overwritten
+    before read); the posterior through the stage ring's slots; the
+    codes shifted into a word a lane, stored at its 16th column and,
+    the last partial word, after the band. Every warp takes
+    one step a tick when its waits allow (the ring's slots and
+    back-pressure, the link's count at each chunk's staging); a tick
+    where none can is a deadlock and raises. Returns (packed, scores) as
+    mea_dirs_plain."""
+    p = post.detach().cpu().numpy().astype(np.float32, copy=False)
+    cc1, cc2 = p.shape
+    nb = -(-cc1 // 32)
+    nw = mea_warps(cc1)
+    words = -(-cc2 // 16)
+    ring_cols = MEA_CHUNK * MEA_SLOTS
+    steps = cc2 + 31
+    windows = -(-steps // MEA_CHUNK)
+    packed = np.zeros((cc1, words), np.int64)
+    scores = np.zeros(cc1, np.float32)
+    ring = np.zeros((nw, MEA_RING), np.float32)
+    ring_pos = np.full((nw, MEA_RING), -1, np.int64)
+    taken = np.zeros(nw, np.int64)
+    cc2r = -(-cc2 // MEA_CHUNK) * MEA_CHUNK
+    link = np.zeros(cc2r, np.float32)
+    link_pos = np.full(cc2r, -1, np.int64)
+    link_count = [0]
+    lanes = np.arange(32)
+    kst = (lanes + MEA_CHUNK - 1) % MEA_CHUNK
+
+    def stage_chunk(wp: _MeaWarp, c: int, link_in: bool, base: int) -> bool:
+        """Chunk c into its slot (slot 0 also past the last), zeros past
+        cc1 and cc2; False (nothing staged) while the link row's count is
+        short of it."""
+        col0 = c * MEA_CHUNK
+        if (link_in and col0 < cc2
+                and link_count[0] < base + min(col0 + MEA_CHUNK, cc2)):
+            return False
+        blk = np.zeros((32, MEA_CHUNK), np.float32)
+        part = p[wp.band * 32:wp.band * 32 + 32, col0:col0 + MEA_CHUNK]
+        blk[:part.shape[0], :part.shape[1]] = part
+        slot = (c % MEA_SLOTS) * MEA_CHUNK
+        for at in ((slot, ring_cols) if slot == 0 else (slot,)):
+            wp.stage[:32, at:at + MEA_CHUNK] = blk
+            if link_in and col0 < cc2:
+                wp.stage[32, at:at + MEA_CHUNK] = link[col0:col0 + MEA_CHUNK]
+                wp.stage_pos[at:at + MEA_CHUNK] = link_pos[col0:col0
+                                                           + MEA_CHUNK]
+        return True
+
+    def step(wp: _MeaWarp) -> bool:
+        """Band step s of warp wp; False when a wait holds it."""
+        w, s, r = wp.w, wp.s, wp.r
+        has_out = wp.band + 1 < nb
+        ring_in, link_in = wp.band > 0 and w > 0, wp.band > 0 and w == 0
+        ring_out, link_out = has_out and w < nw - 1, has_out and w == nw - 1
+        in_base = (r if w > 0 else r - 1) * cc2
+        out_base = r * cc2
+        s0, k = s - s % MEA_CHUNK, s % MEA_CHUNK
+        while wp.next_chunk <= s0 // MEA_CHUNK + MEA_AHEAD:
+            if not stage_chunk(wp, wp.next_chunk, link_in, in_base):
+                return False
+            wp.next_chunk += 1
+        kin = cc2 - 1 - s0
+        jm0 = wp.jm[0]      # lane 0's column s0 in the stage ring
+        n = max(0, min(MEA_HAND, kin - k + 1))
+        if k % MEA_HAND == 0:
+            # the band above's next n columns, all slots written, or wait
+            want = in_base + s + np.arange(n)
+            wp.hcol = np.zeros(MEA_HAND, np.float32)
+            if ring_in and n:
+                slot = want % MEA_RING
+                if (ring_pos[w - 1, slot] != want).any():
+                    return False
+                wp.hcol[:n] = ring[w - 1, slot]
+                taken[w - 1] = want[-1] + 1
+            if link_in and n:
+                at = jm0 + k + np.arange(n)
+                if (wp.stage_pos[at] != want).any():
+                    raise RuntimeError(f"mea_dirs schedule: band {wp.band} "
+                                       f"wants link positions {want}, its "
+                                       f"slots hold {wp.stage_pos[at]}")
+                wp.hcol[:n] = wp.stage[32, at]
+        j31 = s - 31
+        pos = out_base + j31
+        last31 = min(s + MEA_HAND - 1 - 31, cc2 - 1)
+        if (ring_out and k % MEA_HAND == 0 and last31 >= 0
+                and taken[w] < out_base + last31 + 1 - MEA_RING):
+            return False            # lane 31 waits on the ring's room
+        hin = wp.hcol[k % MEA_HAND]
+        x = np.roll(wp.cur, 1)
+        x[0] = hin
+        b = wp.oldj + wp.stage[lanes, wp.jm + k]
+        nw_ = np.maximum(wp.cur, np.maximum(b, x))
+        d = np.where(b == nw_, 0, np.where(x == nw_, 1, 2))
+        j = s - lanes
+        wp.bits = np.where(j <= cc2 - 1, (wp.bits >> 2) | (d << 30), wp.bits)
+        jw = s0 + kst - lanes
+        rows = wp.band * 32 + lanes
+        store = (k == kst) & (jw >= 0) & (jw < cc2) & (rows < cc1)
+        packed[rows[store], jw[store] >> 4] = wp.bits[store]
+        wp.cur = nw_.astype(np.float32)
+        wp.oldj = x
+        if 0 <= j31 < cc2:
+            if ring_out:
+                ring[w, pos % MEA_RING] = nw_[31]
+                ring_pos[w, pos % MEA_RING] = pos
+            if link_out:
+                link[j31], link_pos[j31] = nw_[31], pos
+        linked = min(max(s0 + MEA_CHUNK - 31, 0), cc2)
+        if (link_out and k == MEA_CHUNK - 1 and linked > 0
+                and ((s0 // MEA_CHUNK) % (MEA_LINK_HAND // MEA_CHUNK)
+                     == MEA_LINK_HAND // MEA_CHUNK - 1
+                     or (linked == cc2 and s0 - 31 < cc2))):
+            link_count[0] = out_base + linked
+        wp.s += 1
+        if k == MEA_CHUNK - 1:
+            wp.jm = (wp.jm + MEA_CHUNK) % ring_cols
+        if wp.s == windows * MEA_CHUNK:
+            real = rows < cc1
+            scores[rows[real]] = wp.cur[real]
+            if cc2 % 16:
+                packed[rows[real], words - 1] = (
+                    wp.bits[real] >> (2 * (16 - cc2 % 16)))
+            wp.band += nw
+            wp.r += 1
+            wp.start_band()
+        return True
+
+    warps = [_MeaWarp(w) for w in range(nw)]
+    while any(wp.band < nb for wp in warps):
+        if not any([step(wp) for wp in warps if wp.band < nb]):
+            raise RuntimeError("mea_dirs schedule: deadlock")
+    return (_pack_words(packed),
+            torch.from_numpy(scores).to(post.device))
+
+
+def _pack_words(words: np.ndarray) -> torch.Tensor:
+    """Unsigned 32-bit words as int32 (two's complement)."""
+    return torch.from_numpy(
+        np.where(words >= 2 ** 31, words - 2 ** 32, words).astype(np.int32))
+
+
 def mea_dirs(post: torch.Tensor):
     """The MEA direction kernel on a CUDA posterior; the plain version
-    on a CPU one."""
+    on a CPU one. A hand-over that waited past MEA_WAIT_CYCLES flags the
+    device (ops/wavefront.check_waits raises on it)."""
     if post.device.type == "cpu":
         return mea_dirs_plain(post)
     if post.device.type != "cuda":
@@ -288,15 +487,18 @@ def mea_dirs(post: torch.Tensor):
             or not post.is_contiguous()):
         raise ValueError("post: contiguous (cc1, cc2) float32")
     cc1, cc2 = post.shape
-    w = -(-cc2 // 16)
-    wpt = next((p for p in (1, 2, 4) if -(-w // p) <= 1024), 4)
-    threads = 32 * -(-w // (32 * wpt))
-    if (cc1 < 1 or cc2 < 1 or threads > 1024
-            or (threads * 16 * wpt + 1) * 4 > _MEA_SMEM):
+    if cc1 < 1 or cc2 < 1:
         raise ValueError(f"mea_dirs: {cc1} x {cc2} posterior out of range")
+    from .wavefront import fault_flag
+    w = -(-cc2 // 16)
+    vec = cc2 % 4 == 0 and post.data_ptr() % 16 == 0
     packed = torch.empty((cc1, w), dtype=torch.int32, device=post.device)
     scores = torch.empty(cc1, dtype=torch.float32, device=post.device)
-    _launch("mea_dirs", post.data_ptr(), cc1, cc2, threads, wpt,
-            packed.data_ptr(), scores.data_ptr(),
+    # the link row (whole columns chunks) and its count
+    link = torch.empty(-(-cc2 // MEA_CHUNK) * MEA_CHUNK + 4,
+                       dtype=torch.float32, device=post.device)
+    _launch("mea_dirs", post.data_ptr(), cc1, cc2, int(vec),
+            MEA_WAIT_CYCLES, fault_flag(post.device).data_ptr(),
+            link.data_ptr(), packed.data_ptr(), scores.data_ptr(),
             torch.cuda.current_stream(post.device).cuda_stream)
     return packed, scores

@@ -70,7 +70,8 @@ MAX_LY = 10240
 
 LAUNCHES = {"pairhmm_fwd": 0, "pairhmm_bwd_post": 0, "pairhmm_fwd_multi": 0,
             "pairhmm_bwd_post_multi": 0, "pairhmm_bwd_codes": 0}
-# kernel launches of LAUNCHES' names by (name, schedule, Ly)
+# kernel launches of LAUNCHES' names, and of kernel 3
+# (ops/pairhmm_emis_cuda.py, "pairhmm_bwd"), by (name, schedule, Ly)
 SCHEDULES: Counter = Counter()
 
 # the fused route (kernel B: backward, posterior and MEA in one pass);
@@ -202,10 +203,9 @@ def _shift_fill(x, fill):
 _SEG = 64   # segment width of the two-level within-row scan
 
 
-def _affine_scan_seg(a, c):
-    """Inclusive scan of T_j(u) = LOG_ADD_p(u + a_j, c_j), u_0 = -inf:
-    Hillis-Steele rounds inside 64-lane segments, a sequential carry
-    chain over the segment totals, one combine per lane."""
+def _seg_rounds(a, c):
+    """The Hillis-Steele rounds of the affine scan inside each 64-lane
+    segment (the kernels' seg_scan): (a, c) after them."""
     width = a.shape[1]
     seg = min(_SEG, width)
     seg_pos = (torch.arange(width, device=a.device) % seg)[None, :]
@@ -217,6 +217,16 @@ def _affine_scan_seg(a, c):
         c = _log_add_p(c_prev + a, c)
         a = a + a_prev
         k *= 2
+    return a, c
+
+
+def _affine_scan_seg(a, c):
+    """Inclusive scan of T_j(u) = LOG_ADD_p(u + a_j, c_j), u_0 = -inf:
+    Hillis-Steele rounds inside 64-lane segments, a sequential carry
+    chain over the segment totals, one combine per lane."""
+    width = a.shape[1]
+    seg = min(_SEG, width)
+    a, c = _seg_rounds(a, c)
     n_seg = width // seg
     if n_seg <= 1:
         return c

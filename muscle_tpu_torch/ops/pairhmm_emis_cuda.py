@@ -17,6 +17,11 @@ the padded lane width Ly, at the JAX package's FUSED_MAX_LY:
   `_finish_posteriors`), kernel 4, `mea_scores` (csrc/mea_scores.cu,
   replaces `_mea_kernel`).
 
+Kernel 3 runs on kernels A and B's wide schedule (`bwd_geometry`):
+each pair's row as a skewed wavefront of groups of G segments across
+SMs (csrc/pairhmm_wave.cuh's backward body in kernel 3's layout;
+`bwd_wave_plain` is its twin).
+
 Kernels 1E and 2E are kernels A and B (ops/pairhmm_cuda.py) with the
 lattice as their emission source (csrc/pairhmm_common.cuh); fed the
 letter lattice match[x_i, y_j] they give kernels A and B's bits.
@@ -34,11 +39,15 @@ import ctypes
 
 import torch
 
+from . import wavefront
+from .logspace import LOG_ZERO
 from .pairhmm import MIN_SPARSE_SCORE
-from .pairhmm_cuda import (_on_card, _ptr, _raise_on, _shift_fill, _stream,
-                           _total_prob, bwd_post_rows, bwd_rows, fwd_rows,
-                           load_libs, params_vec,
-                           reversed_lanes)  # noqa: F401 (tests, chip_smoke)
+from .pairhmm_cuda import (NEG_BIG, SCHEDULES, _cumsum_lanes, _log_add,
+                           _log_add5, _log_add_p, _on_card, _ptr, _raise_on,
+                           _seg_rounds, _shift_fill, _stream, _total_prob,
+                           _unpack, _wave_args, ab_geometry, bwd_post_rows,
+                           bwd_rows, fwd_rows, load_libs, params_vec,
+                           reversed_lanes)
 
 # lane-axis cap of the fused route, the JAX package's value (there, the
 # fused backward's VMEM scratch); the legacy route takes wider pads
@@ -95,6 +104,91 @@ def bwd_plain(e, ins_x, ins_y, lxb, lyb, params):
                     lxb, lyb, params, e.shape[1])
 
 
+def _group_scan(a, c, carry):
+    """The IY/JY scan of one group of the wave: the rounds inside each
+    64-lane segment, then the carry chain over the group's segments
+    continued from `carry` (the chain leaving the left group, NEG_BIG
+    for group 0). Returns (scanned c, the carry leaving the group)."""
+    a, c = _seg_rounds(a, c)
+    out = []
+    for k in range(0, a.shape[1], 64):
+        seg = slice(k, k + 64)
+        out.append(_log_add_p(carry + a[:, seg], c[:, seg]))
+        carry = _log_add_p(carry + a[:, k + 63:k + 64], c[:, k + 63:k + 64])
+    return torch.cat(out, dim=1), carry
+
+
+def bwd_wave_plain(e, ins_x, ins_y, lxb, lyb, params, g: int):
+    """Twin of kernel 3's wide schedule (csrc/pairhmm_wave.cuh's
+    backward body, kLegacy): each pair's row cut into groups of g
+    64-lane segments, run here group after group, each step of a group
+    taking from its left neighbour's record of that step what the block
+    kernel reads across the edge: the last lane's M (of the step before,
+    for the M shift; of the step, for RB_M's shift), IY and JY, and the
+    IY/JY carries leaving it (the chain continued in segment order);
+    group 0 the column-0 chains. The boundary row comes from the
+    launch's full-width rounds (`_cumsum_lanes`, as row_cumsum2).
+    Returns RB_M as bwd_plain."""
+    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
+    b, n_rows, width = e.shape
+    dev = e.device
+    ar = torch.arange(b, device=dev)
+    lx = lxb.long()
+    insy_all = reversed_lanes(ins_y, lyb)
+    iy0 = tSI + _cumsum_lanes(insy_all + tII)
+    jy0 = tSJ + _cumsum_lanes(insy_all + tJJ)
+    gw = 64 * g
+    rbm = torch.empty((b, n_rows, width), dtype=torch.float32, device=dev)
+    col = torch.zeros((b, 1), dtype=torch.float32, device=dev)
+    left = None     # the left group's records, (B, n_rows) each
+    for g0 in range(0, width, gw):
+        sl = slice(g0, g0 + gw)
+        insy = insy_all[:, sl]
+        fill_i = iy0[:, g0 - 1:g0] if left else tSI
+        fill_j = jy0[:, g0 - 1:g0] if left else tSJ
+        m = _log_add(tMI + _shift_fill(iy0[:, sl], fill_i) + insy,
+                     tMJ + _shift_fill(jy0[:, sl], fill_j) + insy)
+        lz = torch.full((b, gw), LOG_ZERO, dtype=torch.float32, device=dev)
+        ix, jx, iy, jy = lz, lz, iy0[:, sl], jy0[:, sl]
+        ix0, jx0, m0 = col + tSI, col + tSJ, col + tSM
+        rec = {k: torch.empty((b, n_rows), dtype=torch.float32, device=dev)
+               for k in ("m", "iy", "jy", "ci", "cj")}
+
+        def edge(k, u, own):
+            return left[k][:, u:u + 1] if left else own
+
+        rbm[:, 0, sl] = _shift_fill(m, edge("m", 0, m0))
+        rec["m"][:, 0], rec["iy"][:, 0], rec["jy"][:, 0] = (
+            m[:, -1], iy[:, -1], jy[:, -1])
+        rec["ci"][:, 0] = rec["cj"][:, 0] = NEG_BIG
+        for u in range(1, n_rows):
+            xi = (lx - u).clamp(min=0)
+            e_row = reversed_lanes(e[ar, xi], lyb)[:, sl]
+            insx = ins_x[ar, xi][:, None]
+            next_m = _shift_fill(m, edge("m", u - 1, m0)) + e_row
+            next_ix = ix + insx
+            next_jx = jx + insx
+            ix = _log_add(tII + next_ix, tIM + next_m)
+            jx = _log_add(tJJ + next_jx, tJM + next_m)
+            m0 = _log_add(tMI + ix0 + insx, tMJ + jx0 + insx)
+            ix0, jx0 = tII + ix0 + insx, tJJ + jx0 + insx
+            iy, ci = _group_scan(insy + tII, tIM + next_m,
+                                 edge("ci", u, NEG_BIG))
+            jy, cj = _group_scan(insy + tJJ, tJM + next_m,
+                                 edge("cj", u, NEG_BIG))
+            next_iy = _shift_fill(iy, edge("iy", u, LOG_ZERO)) + insy
+            next_jy = _shift_fill(jy, edge("jy", u, LOG_ZERO)) + insy
+            m = _log_add5(tMM + next_m, tMI + next_ix, tMJ + next_jx,
+                          tMI + next_iy, tMJ + next_jy)
+            rbm[:, u, sl] = _shift_fill(m, edge("m", u, m0))
+            rec["m"][:, u], rec["iy"][:, u], rec["jy"][:, u] = (
+                m[:, -1], iy[:, -1], jy[:, -1])
+            rec["ci"][:, u], rec["cj"][:, u] = ci[:, 0], cj[:, 0]
+        left = rec
+    rows = torch.arange(n_rows, device=dev)[None, :, None]
+    return torch.where(rows < lx[:, None, None], rbm, 0.0)
+
+
 def mea_scores_plain(post):
     """Plain version of kernel 4 (the Pallas `_mea_kernel`): the MEA row
     scan over every row of post (B, Lx, Ly); the score is the last lane.
@@ -129,7 +223,8 @@ def _lib(name: str):
                   {"pairhmm_fwd_emis": [vp] * 6 + [ci] * 4 + [vp] * 3,
                    "pairhmm_bwd_post_emis": [vp] * 6 + [ci] + [vp]
                    + [ci] * 3 + [vp] * 4,
-                   "pairhmm_bwd": [vp] * 6 + [ci] * 4 + [vp] * 2},
+                   "pairhmm_bwd": [vp] * 6 + [ci] * 6
+                   + [ctypes.c_longlong] + [vp] * 6},
                   _libs)
         from ..utils.build import load_kernel
         _libs["mea_scores"] = load_kernel(specs[3], [vp] * 2 + [ci] * 3
@@ -205,19 +300,31 @@ def pairhmm_bwd_post_emis(e, ins_x, ins_y, lxb, lyb, params, tot, fm):
     return post, mea
 
 
+def bwd_geometry(b: int, ly: int):
+    """Kernel 3's wave at width Ly: groups of the largest divisor of the
+    Ly / 64 segments up to AB_GROUP_SEGMENTS, as kernels A and B's wide
+    schedule (`pairhmm_cuda.ab_geometry`)."""
+    return ab_geometry(b, ly, "wave")
+
+
 def pairhmm_bwd(e, ins_x, ins_y, lxb, lyb, params):
-    """Kernel 3 (legacy backward: RB_M (B, Lx, Ly), rows >= lx zero).
-    CPU tensors run `bwd_plain`."""
+    """Kernel 3 (legacy backward: RB_M (B, Lx, Ly), rows >= lx zero), on
+    the wave of `bwd_geometry`. CPU tensors run `bwd_plain`. The launch's
+    hand-over is checked by the caller (`wavefront.check_waits`, as
+    `emissions_path_legacy` does)."""
     if not _on_card(e):
         return bwd_plain(e, ins_x, ins_y, lxb, lyb, params)
     b, lx, ly = _check(e, ins_x, ins_y, lxb, lyb, params, MAX_LY)
+    geo = bwd_geometry(b, ly)
     rbm = torch.empty((b, lx, ly), dtype=torch.float32, device=e.device)
     lib = _lib("pairhmm_bwd")
+    wave, _bufs = _wave_args(geo, b, lx, ly, "bwd", e.device)
     rc = lib.pairhmm_bwd(_ptr(e), _ptr(ins_x), _ptr(ins_y), _ptr(lxb),
                          _ptr(lyb), _ptr(params), _per_pair(params), b, lx, ly,
-                         _ptr(rbm), _stream(e))
+                         *wave, _ptr(rbm), _stream(e))
     _raise_on(lib, rc, "pairhmm_bwd")
     LAUNCHES["pairhmm_bwd"] += 1
+    SCHEDULES[("pairhmm_bwd", "wave", ly)] += 1
     return rbm
 
 
@@ -286,6 +393,8 @@ def emissions_path_legacy(e, ins_x, ins_y, lxb, lyb, params):
     (post (B, Lx, Ly), ea (B,))."""
     fm, fend = pairhmm_fwd_emis(e, ins_x, ins_y, lxb, lyb, params)
     rbm = pairhmm_bwd(e, ins_x, ins_y, lxb, lyb, params)
+    if _on_card(e):
+        wavefront.check_waits(e.device)    # raises on a stuck hand-over
     post = finish_posteriors(fm, rbm, fend, lxb, lyb, params)
     del rbm
     return post, mea_scores(post, lxb) / torch.minimum(lxb, lyb).float()
@@ -301,7 +410,7 @@ def batch_posteriors_emissions_cuda(e, ins_x, ins_y, lxb, lyb, pack):
     if ly > MAX_LY:
         raise NotImplementedError(
             f"Muscle-3D pads beyond {MAX_LY} (chains over {MAX_LY} residues) "
-            "are not ported yet: ROADMAP.md, queue 1, item 10")
+            "are not ported yet: ROADMAP.md, queue 1, item 4")
     params = params_vec(pack, e.device)
     lxb = lxb.to(torch.int32).contiguous()
     lyb = lyb.to(torch.int32).contiguous()

@@ -41,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import wavefront
 from ..ops.consistency import _tf32_off
 from ..ops.devjoin_cuda import densify_reduce, densify_reduce_list, mea_dirs
 from ..sequence import MultiSequence
@@ -139,6 +140,7 @@ class DeviceJoiner:
                           cc2, cc1)
         packed, scores = mea_dirs((out + out2.T).contiguous())
         score = float(scores[cc1 - 1])
+        wavefront.check_waits(packed.device)   # raises on a stuck hand-over
         return score, _walk(packed.cpu().numpy(), cc1, cc2)
 
 
@@ -242,4 +244,5 @@ def align_sampled_device(store_v, store_c, sampled, msa1, msa2,
             post += a.reshape(-1, cc1).T @ f.reshape(-1, cc2)
     packed, scores = mea_dirs(post)
     score = float(scores[cc1 - 1]) if cc1 else 0.0
+    wavefront.check_waits(packed.device)       # raises on a stuck hand-over
     return score, _walk(packed.cpu().numpy(), cc1, cc2)

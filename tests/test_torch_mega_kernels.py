@@ -303,7 +303,7 @@ def test_entry_point_routes_and_limits(case, monkeypatch):
     want = t_emis.emissions_path_legacy(e, ins_x, ins_y, lxt, lyt, params)
     assert torch.equal(post, want[0]) and torch.equal(ea, want[1])
     wide = torch.zeros((1, 128, t_emis.MAX_LY + 128))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 4$"):
         t_emis.batch_posteriors_emissions_cuda(
             wide, torch.zeros((1, 128)), torch.zeros((1, wide.shape[2])),
             lxt[:1], lyt[:1], tp)
