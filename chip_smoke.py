@@ -12,8 +12,10 @@ Phases (each raises on failure, so the run exits non-zero):
    main path's shapes, and time kernel, plain version and (where one
    exists) the one torch call computing the same function with CUDA
    events: pair-HMM forward and backward+posterior at B = 512 ragged
-   amino pairs padded to 512; densify on one z-tile of the n = 200 Gram
-   panel (blk = 16, L = 512, K = 24) in f32 and bf16; densify-reduce
+   amino pairs padded to 512; densify (one shared-memory tile a block,
+   written once) on one z-tile of the n = 200 Gram panel (blk = 16, L =
+   512, K = 24) and on one of long mixed's f32 panel (n = 6, L = 12288,
+   one sequence a block), each in f32 and bf16; densify-reduce
    (kernel 7) on a 100 x 100 join grid (L = 512, k2 = 24, cc = 768),
    with its launch geometry, the ptxas registers and spills of kernels
    7/7L, and the time of the one-hot contraction that consumes the same
@@ -44,14 +46,15 @@ Phases (each raises on failure, so the run exits non-zero):
    join over a random store (L = 384, k2 = 24, cc = 600), required
    equal; then the Muscle-3D kernels (ops/pairhmm_emis_cuda.py), each
    required equal to its plain version: 1E and 2E at mega-128's bucket
-   (256 pairs at 384), and on a letter lattice equal to kernels A/B; 1E,
-   3 and 4 on mega-long's chunk (8 x 12288², S = 6: 1E's first 128 rows
-   of each pair against the plain version on those rows, 3's rows u <
-   128 against the plain version on each pair's last 128 rows of x and
-   its rows u >= lx against zero, on the wave, 4 on the whole
-   posterior); their ptxas registers
-   and spills and their times at those shapes (3's beside its time
-   before the wave and its dependency floor); the fused route against the legacy
+   (256 pairs at 384), and on a letter lattice equal to kernels A/B (at
+   384, one block a pair, and at 4096, 1E and A on the wave, every real
+   cell of fm); 1E, 3 and 4 on mega-long's chunk (8 x 12288², 1E and 3
+   on the wave: 1E's first 128 rows of each pair against the plain
+   version on those rows, 3's rows u < 128 against the plain version on
+   each pair's last 128 rows of x and its rows u >= lx against zero, 4
+   on the whole posterior); their ptxas registers and spills and their
+   times at those shapes (1E's and 3's beside their times before the
+   wave and their dependency floors); the fused route against the legacy
    route on 8 mega pairs at 2048, at the kernel gate; then the
    ensembles' kernels (phase_ensemble_kernels): 1M and 2M (per-pair
    tables) at B = 512, L = 512 with the packs of 4 perturbation seeds
@@ -122,7 +125,9 @@ Phases (each raises on failure, so the run exits non-zero):
      residues, pad 12288: the legacy route, kernels 1E/3/4, refine cut to
      MEGA_LONG_REFINE_ITERS; each launch of 1E, 3 and 4 held, as it
      happens, to the plain versions on its own inputs as in phase 2, the
-     checks' time and memory kept out of the wall and the peak), each
+     checks' time and memory kept out of the wall and the peak; the
+     sha256 of its FASTA text required to be MEGA_LONG_SHA256, the text
+     before 1E ran on the wave), each
      route counted and required, Q against the construction's true
      alignment printed;
    - the ensembles through `pipeline.ensemble.run_align_command`, the
@@ -144,9 +149,10 @@ Phases (each raises on failure, so the run exits non-zero):
    card, held to kernels A/B at the kernel gate;
 5. print kernels 7L's and 7's times summed over their held main-path
    launches, then the kernels' JSON line (launch counts summed over
-   phase 3, kernels A/B's and 3's also by schedule, with A/B's wave times
-   and bounds at 11264 x 10240 and 3's block time and floor at
-   mega-long's chunk; mea_dirs' by rung, with its held launches' summed
+   phase 3, kernels A/B's, 1E's and 3's also by schedule and width,
+   with A/B's wave times and bounds at 11264 x 10240 and 1E's time,
+   bound and floor at mega-long's chunk; kernel 8's times and bounds on
+   the long tile; mea_dirs' by rung, with its held launches' summed
    time; kernel 7L's times and bound at
    synthetic-1000's largest device join;
    each max |d| over phase 2 and the launches held in phase 3),
@@ -243,6 +249,21 @@ def time_cuda(fn, reps: int = 5, per: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e) / per)
     return statistics.median(times)
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events around that one call): the plain
+    versions, host-bound loops of seconds, are timed on the call that
+    the kernel is held to (no repeat)."""
+    import torch
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
 
 
 # a striped pass (kernels 5, 6) that has not ended after this many
@@ -401,7 +422,8 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
 
     fm, fend = pc.pairhmm_fwd(x, y, lxt, lyt, match, insert, params)
     torch.cuda.synchronize()
-    fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, match, insert, params)
+    (fm2, fend2), plain_a = timed_once(
+        lambda: pc.fwd_plain(x, y, lxt, lyt, match, insert, params))
     rows = torch.arange(width, device=dev)[None, :, None] < lxt[:, None, None]
     cols = torch.arange(width, device=dev)[None, None, :] < lyt[:, None, None]
     valid = rows & cols
@@ -418,8 +440,9 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
     post, mea = pc.pairhmm_bwd_post(x, y, lxt, lyt, match, insert, params,
                                     tot, fm)
     torch.cuda.synchronize()
-    post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, match, insert, params,
-                                    tot, fm)
+    (post2, mea2), plain_b = timed_once(
+        lambda: pc.bwd_post_plain(x, y, lxt, lyt, match, insert, params, tot,
+                                  fm))
     nmin = torch.minimum(lxt, lyt).float()
     d = (post - post2).abs()
     # tests/test_pallas_fused.py:62-69: cells at the 0.01 threshold may
@@ -443,11 +466,6 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
     ms_b = time_cuda(lambda: pc.pairhmm_bwd_post(x, y, lxt, lyt, match,
                                                  insert, params, tot, fm),
                      per=5)
-    plain_a = time_cuda(lambda: pc.fwd_plain(x, y, lxt, lyt, match, insert,
-                                             params), reps=3)
-    plain_b = time_cuda(lambda: pc.bwd_post_plain(x, y, lxt, lyt, match,
-                                                  insert, params, tot, fm),
-                        reps=3)
     # bytes this run's pairs need: the real codes, both lengths and the
     # tables in; kernel A writes the M lattice's real cells (rows past lx
     # and lanes past ly are never read) and the final states, kernel B
@@ -520,7 +538,9 @@ def ptxas_lines(names) -> list[str]:
                 t = re.match(r"ILi(\d+)E", rest)
                 w = re.findall(r"Lb([01])E", rest)
                 if "wave_kernel" in cur and w:  # pairhmm_wave.cuh
-                    cur += ("<" + ("lattice" if "LatticeEmission" in rest
+                    cur += ("<" + ("lattice read a row ahead"
+                                   if "LatticeAhead" in rest else "lattice"
+                                   if "LatticeEmission" in rest
                                    else "letters") + ", row 0 "
                             + ("in the launch" if w[0] == "1"
                                else "given")
@@ -849,13 +869,79 @@ def synthetic_store(dev, p1, l, k, seed):
             torch.where(valid, cols, -1).to(torch.int32).contiguous())
 
 
+# kernel 8 before its redesign (PERF.md, NVIDIA H100 80GB HBM3 at 700 W):
+# the n = 200 bf16 z-tile, one block a slab
+DENSIFY_WAS_MS = 1.428
+
+
+def densify_case(vals, cols, pids, flags, dump, what) -> dict:
+    """Kernel 8 on one z-tile held to its plain version in f32 and bf16
+    (equal required) and timed (CUDA events), beside the plain version
+    (bf16), one torch.scatter of the same slots and the bound of each
+    dtype."""
+    import torch
+    from muscle_tpu_torch.ops import consistency as cons
+    from muscle_tpu_torch.ops import densify_cuda as dc
+    l = vals.shape[1]
+    errs, same, ms, bnd = [], True, {}, {}
+    ids = pids.reshape(-1).long()
+    real = flags.reshape(-1) != cons.FLAG_EYE
+    slots = float((cols[ids][real & (ids != dump)] >= 0).sum())
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        # timed first, after 20 launches: right after the plain version (a
+        # host-bound loop) the first ~20 launches ran 10-20 % slower;
+        # 5 launches between the events keep the wrapper's host time out
+        for _ in range(20):
+            dc.densify_panel(vals, cols, pids, flags, dtype)
+        ms[name] = time_cuda(lambda: dc.densify_panel(vals, cols, pids, flags,
+                                                      dtype), per=5)
+        got = dc.densify_panel(vals, cols, pids, flags, dtype)
+        want = dc.densify_panel_plain(vals, cols, pids, flags, dtype)
+        torch.cuda.synchronize()
+        errs.append(float((got.float() - want.float()).abs().max()))
+        same = same and torch.equal(got, want)
+        del got, want
+        torch.cuda.empty_cache()
+        # the panel written once, each real slot (value, column) and the
+        # tile's maps read once
+        size = torch.empty((), dtype=dtype).element_size()
+        bnd[name] = bound_ms(size * pids.numel() * l * l + 8 * slots
+                             + 8 * pids.numel(), 0)
+    plain_ms = time_cuda(lambda: dc.densify_panel_plain(
+        vals, cols, pids, flags, torch.bfloat16), reps=3)
+    torch.cuda.empty_cache()
+    # one torch call for the same expansion: an out-of-place scatter of
+    # the tile's slots onto a zero (m, L, L + 1) f32 template, empty slots
+    # sent to the spare column (no orientation, no panel layout); it
+    # writes its whole output, as the kernel does
+    v, c = vals[ids], cols[ids]
+    idx = torch.where(c >= 0, c, l).long()
+    buf = torch.zeros((ids.numel(), l, l + 1), device=vals.device)
+    lib_ms = time_cuda(lambda: torch.scatter(buf, 2, idx, v))
+    del buf, idx, v, c
+    torch.cuda.empty_cache()
+    tiles = {d: dc.tile_shape(l, getattr(torch, t)) for d, t in
+             (("f32", "float32"), ("bf16", "bfloat16"))}
+    print(f"densify (kernel 8) vs plain on {what}: max |d| f32 "
+          f"{errs[0]:.3e}, bf16 {errs[1]:.3e} {'equal' if same else 'FAIL'}; "
+          f"bf16 {ms['bf16']:.3f} ms (bound {bnd['bf16'][0]:.3f} ms by "
+          f"{bnd['bf16'][1]}), f32 {ms['f32']:.3f} ms (bound "
+          f"{bnd['f32'][0]:.3f} ms); plain {plain_ms:.1f} ms, scatter "
+          f"{lib_ms:.3f} ms; tiles (R x C) {tiles}; one block a slab "
+          f"before: {DENSIFY_WAS_MS} ms bf16 on the n = 200 tile", flush=True)
+    if not same:
+        raise SmokeFailure(f"densify disagrees with its plain version on "
+                           f"{what}")
+    return {"err": max(errs), "ms": ms, "bound": bnd, "plain_ms": plain_ms,
+            "lib_ms": lib_ms}
+
+
 def phase_gram_join_kernels(dev) -> list[dict]:
     """Kernel 8 (densify), kernel 7 (densify-reduce) and the MEA
     direction DP against their plain versions at the n = 200 family's
     shapes; each must be equal (max |d| = 0)."""
     import torch
     from muscle_tpu_torch.ops import consistency as cons
-    from muscle_tpu_torch.ops import densify_cuda as dc
     from muscle_tpu_torch.ops import devjoin_cuda as djc
     from muscle_tpu_torch.ops import wavefront
     from muscle_tpu_torch.ops.consistency import _tf32_off
@@ -876,48 +962,34 @@ def phase_gram_join_kernels(dev) -> list[dict]:
     pid, flag = cons._block_maps(n, nbp, dump)
     pids = torch.as_tensor(pid[6 * blk:7 * blk], device=dev)
     flags = torch.as_tensor(flag[6 * blk:7 * blk], device=dev)
-    errs, same = [], True
-    for dtype in (torch.float32, torch.bfloat16):
-        got = dc.densify_panel(vals, cols, pids, flags, dtype)
-        want = dc.densify_panel_plain(vals, cols, pids, flags, dtype)
-        torch.cuda.synchronize()
-        errs.append(float((got.float() - want.float()).abs().max()))
-        same = same and torch.equal(got, want)
-        del got, want
-    ms = time_cuda(lambda: dc.densify_panel(vals, cols, pids, flags,
-                                            torch.bfloat16))
-    ms_f32 = time_cuda(lambda: dc.densify_panel(vals, cols, pids, flags))
-    plain_ms = time_cuda(lambda: dc.densify_panel_plain(
-        vals, cols, pids, flags, torch.bfloat16), reps=3)
-    # one torch call for the same expansion: an out-of-place scatter of
-    # the tile's slots onto a zero (m, L, L + 1) f32 template, empty slots
-    # sent to the spare column (no orientation, no panel layout); it
-    # writes its whole output, as the kernel does
-    ids = pids.reshape(-1).long()
-    v, c = vals[ids], cols[ids]
-    idx = torch.where(c >= 0, c, l).long()
-    buf = torch.zeros((ids.numel(), l, l + 1), device=dev)
-    lib_ms = time_cuda(lambda: torch.scatter(buf, 2, idx, v))
-    real = flags.reshape(-1) != cons.FLAG_EYE
-    slots = float((c[real & (ids != dump)] >= 0).sum())
-    # the bf16 panel written once, each real slot (value, column) and the
-    # tile's maps read once
-    panel_cells = pids.numel() * l * l
-    bnd = bound_ms(2 * panel_cells + 8 * slots + 8 * pids.numel(), 0)
-    print(f"densify (kernel 8) vs plain on a 16 x {nbp} z-tile at L={l}, "
-          f"K={k}: max |d| f32 {errs[0]:.3e}, bf16 {errs[1]:.3e} "
-          f"{'equal' if same else 'FAIL'}; bf16 {ms:.3f} ms, f32 "
-          f"{ms_f32:.3f} ms (plain {plain_ms:.1f} ms, scatter {lib_ms:.3f} "
-          f"ms, bound {bnd[0]:.3f} ms by {bnd[1]})", flush=True)
-    if not same:
-        raise SmokeFailure("densify disagrees with its plain version")
+    tile = densify_case(vals, cols, pids, flags, dump,
+                        f"a 16 x {nbp} z-tile of n = {n} at L={l}, K={k}")
+    # the long families' f32 panel: long mixed's n = 6 at pad 12288, one
+    # sequence a block (z-tile 3: FLAG_TRANS, FLAG_EYE and FLAG_STORE
+    # slabs), a store of 16 rows
+    n6, l6 = len(LONG_MIXED), 12288
+    v6, c6 = synthetic_store(dev, store_rows(n6 * (n6 - 1) // 2), l6, k,
+                             seed=6)
+    pid6, flag6 = cons._block_maps(n6, n6, v6.shape[0] - 1)
+    long_tile = densify_case(
+        v6, c6, torch.as_tensor(pid6[3:4], device=dev),
+        torch.as_tensor(flag6[3:4], device=dev), v6.shape[0] - 1,
+        f"long mixed's 1 x {n6} z-tile at L={l6}, K={k}")
+    del v6, c6
+    torch.cuda.empty_cache()
     out.append({"name": "densify", "route": "cuda",
                 "source": "muscle_tpu_torch/csrc/densify.cu",
                 "replaces": "muscle_tpu/ops/sparse.py:152",
-                "launches": 0, "max_abs_err": max(errs), "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": lib_ms})
-    del buf, idx, v, c
+                "launches": 0,
+                "max_abs_err": max(tile["err"], long_tile["err"]),
+                "ms": tile["ms"]["bf16"], "plain_ms": tile["plain_ms"],
+                "bound_ms": tile["bound"]["bf16"][0],
+                "bound_by": tile["bound"]["bf16"][1],
+                "library_ms": tile["lib_ms"], "ms_f32": tile["ms"]["f32"],
+                "long_tile_ms": long_tile["ms"],
+                "long_tile_bound_ms": {d: b[0] for d, b in
+                                       long_tile["bound"].items()},
+                "long_tile_library_ms": long_tile["lib_ms"]})
 
     # densify-reduce: one half of a refine join of the n = 200 family, a
     # random 100 / 100 split; pos->col maps into 768 columns
@@ -2004,9 +2076,22 @@ MEGA_LONG = (4, 8300, 9800, 4)
 # their pads (the bucket ladder's), and the width at which the fused and
 # the legacy routes are held against each other
 MEGA_128_PAD, MEGA_LONG_PAD, ROUTES_PAD = 384, 12288, 2048
+# the wave width at which kernels 1E/2E are held to kernels A/B on a
+# letter lattice
+LETTER_WAVE_PAD = 4096
+# kernel 1E on mega-long's chunk before the wave (PERF.md, NVIDIA H100
+# 80GB HBM3 at 700 W): one block a pair, S = 6
+FWD_EMIS_WAS_MS = 378.3
+# kernel 1E on mega-long's chunk (phase 2): ms, bound, dependency floor
+WIDE_1E: dict = {}
 # host refine of mega-long, cut as "long mixed"'s: a join of ~9,000-column
 # profiles costs ~0.35 s on the host
 MEGA_LONG_REFINE_ITERS = 20
+# sha256 of mega-long's FASTA text on the H100 at commit 3a0d2bf, before
+# kernel 1E ran on the wave (tools/torch_long_family_sha.py --family
+# mega-long): the wave keeps every bit, so the text must not move
+MEGA_LONG_SHA256 = (
+    "e525e7b9a48271f82f116fe6fbaccfcdeb209197b88b0ddc0a6975b0365a2800")
 
 
 def mega_set(n, lo, hi, seed):
@@ -2235,14 +2320,14 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     e, ins_x, ins_y, lx, ly = mega_batch(ms128, pairs, MEGA_128_PAD, dev)
     args = (e, ins_x, ins_y, lx, ly, params)
     fm, fend = pe.pairhmm_fwd_emis(*args)
-    fm2, fend2 = pe.fwd_emis_plain(*args)
+    (fm2, fend2), plain1 = timed_once(lambda: pe.fwd_emis_plain(*args))
     d1 = max(float((real_cells(fm, lx, ly) - real_cells(fm2, lx, ly)).abs()
                     .max()),
              float((fend - fend2).abs().max()))
     tot = pc._total_prob(fend, params)
     post, mea = pe.pairhmm_bwd_post_emis(*args, tot, fm)
-    post2, mea2 = pe.bwd_post_emis_plain(*args, tot, fm)
-    torch.cuda.synchronize()
+    (post2, mea2), plain2 = timed_once(
+        lambda: pe.bwd_post_emis_plain(*args, tot, fm))
     d2 = max(float((post - post2).abs().max()), float((mea - mea2).abs().max()))
     print(f"kernel 1E pairhmm_fwd_emis vs plain at mega-128's bucket (256 "
           f"pairs, 384 x 384): max |d| {d1:.3e} "
@@ -2253,8 +2338,6 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
         raise SmokeFailure("kernel 1E or 2E differs from its plain version")
     ms1 = time_cuda(lambda: pe.pairhmm_fwd_emis(*args))
     ms2 = time_cuda(lambda: pe.pairhmm_bwd_post_emis(*args, tot, fm))
-    plain1 = time_cuda(lambda: pe.fwd_emis_plain(*args), reps=3)
-    plain2 = time_cuda(lambda: pe.bwd_post_emis_plain(*args, tot, fm), reps=3)
     cells = cells_of(lx, ly)
     b = len(pairs)
     # 1E: the lattice's real cells, insert scores, lengths and params in;
@@ -2302,6 +2385,38 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
         raise SmokeFailure("kernels 1E/2E differ from kernels A/B on a "
                            "letter lattice")
     del el, largs, fma, fme, posta, poste
+    # the same at a wave width: 1E on the wave against kernel A on the
+    # wave, every real cell of fm (every row < lx), and 2E (one block a
+    # pair) against kernel B (the wave)
+    xb, yb, lxn, lyn = ragged_batch(8, LETTER_WAVE_PAD // 3, LETTER_WAVE_PAD,
+                                    LETTER_WAVE_PAD, seed=4096)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(dev) for a in (xb, yb, lxn, lyn))
+    fma, fenda = pc.pairhmm_fwd(x, y, lxt, lyt, match, insert, params)
+    tota = pc._total_prob(fenda, params)
+    posta, meaa = pc.pairhmm_bwd_post(x, y, lxt, lyt, match, insert, params,
+                                      tota, fma)
+    el = match[x.long()[:, :, None], y.long()[:, None, :]].contiguous()
+    largs = (el, insert[x.long()].contiguous(), insert[y.long()].contiguous(),
+             lxt, lyt, params)
+    fme, fende = bounded_pass(lambda: pe.pairhmm_fwd_emis(*largs),
+                              "kernel 1E on the wave (letter lattice)", dev)
+    poste, meae = pe.pairhmm_bwd_post_emis(*largs, tota, fma)
+    torch.cuda.synchronize()
+    pc.wavefront.check_waits(dev)
+    same = (torch.equal(real_cells(fma, lxt, lyt), real_cells(fme, lxt, lyt))
+            and torch.equal(fenda, fende) and torch.equal(posta, poste)
+            and torch.equal(meaa, meae))
+    geo = pc.ab_geometry(8, LETTER_WAVE_PAD)
+    print(f"kernel 1E on the wave (G = {geo.g}, {geo.groups} groups a pair) "
+          f"vs kernel A on the wave, and 2E (one block a pair) vs B (the "
+          f"wave), on the letter lattice (8 amino pairs, {LETTER_WAVE_PAD} x "
+          f"{LETTER_WAVE_PAD}, lx {int(lxt.min())}-{int(lxt.max())}; every "
+          f"real cell of fm): {'equal' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise SmokeFailure("kernel 1E on the wave differs from kernel A on "
+                           "the wave on a letter lattice")
+    del el, largs, fma, fme, posta, poste
+    torch.cuda.empty_cache()
 
     # 3 and 4 at mega-long's shape: its 6 pairs and 2 copies of the first
     # (the main path's chunk), 8 x 12288 x 12288
@@ -2315,7 +2430,9 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     # the full-shape launches held to the plain versions (hold_fwd,
     # hold_bwd: the first / last HELD_ROWS rows of each pair), kernel 4's
     # on the whole posterior
-    fm, fend = pe.pairhmm_fwd_emis(*largs)
+    geo1 = pc.ab_geometry(8, MEGA_LONG_PAD)
+    fm, fend = bounded_pass(lambda: pe.pairhmm_fwd_emis(*largs),
+                            "kernel 1E on mega-long's chunk, on the wave", dev)
     d1s, _ = hold_fwd(largs, fm)
     out["pairhmm_fwd_emis"] = (max(d1, d1s),) + out["pairhmm_fwd_emis"][1:]
     # kernel 3 on the wave (G = 4 at 12288), its launch bounded in wall
@@ -2325,7 +2442,8 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
                       "kernel 3 on mega-long's chunk, on the wave", dev)
     d3, plain3 = hold_bwd(largs, rb)
     print(f"kernels 1E and 3 (pairhmm_bwd) vs plain on mega-long's pairs at "
-          f"8 x 12288 x 12288, lx {int(lx.min())}-{int(lx.max())}: 1E's "
+          f"8 x 12288 x 12288, lx {int(lx.min())}-{int(lx.max())}: 1E on the "
+          f"wave (G = {geo1.g}, {geo1.groups} groups a pair): its "
           f"first {HELD_ROWS} rows max |d| {d1s:.3e}; 3 on the wave (G = "
           f"{geo3.g}, {geo3.groups} groups a pair): rows u < {HELD_ROWS} "
           f"(each pair's last {HELD_ROWS} rows of x) and rows u >= lx (zero) "
@@ -2337,16 +2455,15 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     ms1l = time_cuda(lambda: pe.pairhmm_fwd_emis(*largs), reps=3)
     ms3 = time_cuda(lambda: pe.pairhmm_bwd(*largs), reps=3)
     pc.wavefront.check_waits(dev)
+    floor1 = row_floor_ms(int(lx.max()), geo1.g, max_sm_clock_hz(), False)
     floor3 = row_floor_ms(int(lx.max()), geo3.g, max_sm_clock_hz(), True,
                           LEGACY_FLOOR)
     post = pe.finish_posteriors(fm, rb, fend, lx, ly, params)
     del rb
     got = pe.mea_scores(post, lx)
-    want = pe.mea_scores_plain(post)
-    torch.cuda.synchronize()
+    want, plain4 = timed_once(lambda: pe.mea_scores_plain(post))
     d4 = float((got - want).abs().max())
     ms4 = time_cuda(lambda: pe.mea_scores(post, lx))
-    plain4 = time_cuda(lambda: pe.mea_scores_plain(post), reps=3)
     ins_bytes = 4 * (float(lx.sum()) + float(ly.sum()) + 2 * 8 + 16)
     bnd3 = bound_ms(ins_bytes + 8 * cells, cells * BWD_OPS_PER_CELL)
     bnd4 = bound_ms(4 * cells + 4 * 8 + 4 * 8, cells * MEA_OPS_PER_CELL)
@@ -2355,7 +2472,9 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
           f"12288 x 12288): max |d| {d4:.3e} {'equal' if d4 == 0 else 'FAIL'}",
           flush=True)
     print(f"at mega-long's shape ({cells:.0f} real cells): kernel 1E "
-          f"{ms1l:.3f} ms (bound {bnd1l[0]:.4f} ms by {bnd1l[1]}), kernel 3 "
+          f"{ms1l:.3f} ms on the wave (was {FWD_EMIS_WAS_MS} ms one block a "
+          f"pair: {FWD_EMIS_WAS_MS / ms1l:.1f}x; bound {bnd1l[0]:.4f} ms by "
+          f"{bnd1l[1]}, dependency floor {floor1:.2f} ms), kernel 3 "
           f"{ms3:.3f} ms on the wave (was {BWD_WAS_MS} ms: "
           f"{BWD_WAS_MS / ms3:.1f}x; plain {plain3:.1f} ms on {HELD_ROWS} "
           f"rows, bound {bnd3[0]:.4f} ms by {bnd3[1]}, dependency floor {floor3:.2f} ms), kernel 4 "
@@ -2363,6 +2482,7 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
           f"{bnd4[1]})", flush=True)
     if d4:
         raise SmokeFailure("kernel 4 differs from its plain version")
+    WIDE_1E.update(ms=ms1l, bound=bnd1l[0])
     out["pairhmm_bwd"] = (d3, ms3, plain3, bnd3,
                           "muscle_tpu_torch/csrc/pairhmm_bwd.cu",
                           "muscle_tpu/ops/pairhmm_pallas.py:443")
@@ -2427,6 +2547,8 @@ def phase_mega(dev, sets) -> dict:
     kernel 1E, 3 and 4 launches held to the plain versions on its own
     inputs, LegacyKernelCheck). Each must be a valid alignment through the
     kernels of its branch; Q against the construction's truth printed."""
+    import hashlib
+
     import torch
     from muscle_tpu_torch import align
     from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
@@ -2466,6 +2588,13 @@ def phase_mega(dev, sets) -> dict:
               f"refine_iters={iters} launches={json.dumps(got)}", flush=True)
         if got_routes != routes:
             raise SmokeFailure(f"{name}: routes {got_routes}, want {routes}")
+        if name == "mega-long":
+            digest = hashlib.sha256(msa.to_fasta_text().encode()).hexdigest()
+            same = digest == MEGA_LONG_SHA256
+            print(f"mega-long: sha256 {digest} ({'the same as' if same else 'NOT'}"
+                  " the text before kernel 1E ran on the wave)", flush=True)
+            if not same:
+                raise SmokeFailure("mega-long: the alignment's text moved")
         if name == "mega-8":
             t0 = time.perf_counter()
             cpu = align(seqs, mega=ms, device="cpu")
@@ -2575,14 +2704,14 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
     kk = i.shape[1]
 
     fm, fend = pc.pairhmm_fwd(*args)
-    fm2, fend2 = pc.fwd_plain(*args)
+    (fm2, fend2), plain1 = timed_once(lambda: pc.fwd_plain(*args))
     d1 = max(float((real_cells(fm, lxt, lyt)
                     - real_cells(fm2, lxt, lyt)).abs().max()),
              float((fend - fend2).abs().max()))
     tot = pc._total_prob(fend, p)
     post, mea = pc.pairhmm_bwd_post(*args, tot, fm)
-    post2, mea2 = pc.bwd_post_plain(*args, tot, fm)
-    torch.cuda.synchronize()
+    (post2, mea2), plain2 = timed_once(lambda: pc.bwd_post_plain(*args, tot,
+                                                                 fm))
     d2 = max(float((post - post2).abs().max()), float((mea - mea2).abs().max()))
     lane1, lane2 = hold_multi_fwd(args, fm, fend), \
         hold_multi_bwd(args, tot, fm, post, mea)
@@ -2620,8 +2749,7 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
     del el, ins_x, ins_y, fme, poste
 
     rb = pc.pairhmm_bwd_codes(*args)
-    rb2 = pc.bwd_codes_plain(*args)
-    torch.cuda.synchronize()
+    rb2, plain3 = timed_once(lambda: pc.bwd_codes_plain(*args))
     d3 = float((rb - rb2).abs().max())
     print(f"kernel 3K pairhmm_bwd_codes vs plain (per-pair tables, {b} pairs, "
           f"{width} x {width}): max |d| {d3:.3e} "
@@ -2648,9 +2776,6 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
     ms1 = time_cuda(lambda: pc.pairhmm_fwd(*args))
     ms2 = time_cuda(lambda: pc.pairhmm_bwd_post(*args, tot, fm))
     ms3 = time_cuda(lambda: pc.pairhmm_bwd_codes(*args))
-    plain1 = time_cuda(lambda: pc.fwd_plain(*args), reps=1)
-    plain2 = time_cuda(lambda: pc.bwd_post_plain(*args, tot, fm), reps=1)
-    plain3 = time_cuda(lambda: pc.bwd_codes_plain(*args), reps=1)
     # bytes this run's pairs need: the real codes, both lengths and each
     # pair's tables and params in; 1M writes the M lattice's real cells
     # and the final states; 2M reads those cells and the totals and
@@ -3086,10 +3211,15 @@ def main() -> int:
                  max_abs_err=max(k["max_abs_err"], AB_WIDE["max_abs_err"]))
     # kernel 3: its launches by schedule and width; mea_dirs: its
     # launches by (cc1, cc2) rung and the held launches' summed times
-    k3 = next(k for k in kernels if k["name"] == "pairhmm_bwd")
-    k3["schedule"] = {f"{sched} {ly}": n for (name, sched, ly), n
-                      in sorted(MAIN_SCHEDULES.items())
-                      if name == "pairhmm_bwd"}
+    for name in ("pairhmm_bwd", "pairhmm_fwd_emis"):
+        k = next(k for k in kernels if k["name"] == name)
+        k["schedule"] = {f"{sched} {ly}": n for (kn, sched, ly), n
+                         in sorted(MAIN_SCHEDULES.items()) if kn == name}
+    # kernel 1E: its time and bound on mega-long's chunk (the wave); its
+    # dependency floor, a model and not a measurement, stays in the
+    # printed line
+    next(k for k in kernels if k["name"] == "pairhmm_fwd_emis").update(
+        ms_12288=WIDE_1E["ms"], bound_ms_12288=WIDE_1E["bound"])
     km = next(k for k in kernels if k["name"] == "mea_dirs")
     rungs = mea_rungs()
     km["schedule"] = {f"wave {r1} x {r2}": n for (r1, r2), (n, _, _)

@@ -10,6 +10,7 @@ points run on the GPU unless `device="cpu"` is passed.
 Top-level API:
     align(seqs, **opts)    -> aligned MultiSequence  (reference: -align)
     super5(seqs, **opts)   -> aligned MultiSequence  (reference: -super5)
+    qscore(test, ref)      -> (Q, TC)                (reference: -qscore)
 Ensembles and the EFA tools: pipeline/ensemble.py (run_align_command,
 Ensemble) and the CLI (cli.py).
 """
@@ -17,6 +18,9 @@ Ensemble) and the CLI (cli.py).
 __version__ = "0.1.0"
 
 from .sequence import Sequence, MultiSequence  # noqa: F401
+# bound at import (host code, numpy only): a later import of the
+# submodule muscle_tpu_torch.qscore then cannot shadow the function
+from .qscore import qscore  # noqa: F401
 
 
 def align(*args, **kwargs):

@@ -18,7 +18,8 @@ the `mega` header, or any input with -mega, is read as Muscle-3D
 structure profiles (reference: LoadInput, src/loadinput.cpp:3-13). The
 pair-HMM and consistency run on the card unless -device cpu is given;
 the EFA tools are host code (-eesort runs the pair-HMM EA, on the card
-too).
+too). Options are parsed as muscle_tpu.cli parses them, and unused
+ones are warned about after the command in the same words.
 """
 
 from __future__ import annotations
@@ -70,54 +71,108 @@ Options:
   -device cuda|cpu   Where the pair-HMM and consistency run (default cuda)
   -threads N         (accepted for compatibility)
   -quiet / -log FILE
+
+Options are parsed as muscle_tpu's CLI parses them: -tree_order,
+-verbose, -reseek, -scaledist and -eadist are flags, any other option
+takes a value, and an option the command did not read is reported after
+it ("WARNING: option -X was not used by -cmd"). The JAX package's
+commands that are not ported yet (-super6, -muscle3, ...) stop with an
+error.
 """
 
-_BOOL_OPTS = {"nt", "amino", "mega", "quiet", "help", "version",
-              "stratified", "diversified", "input_order", "bysequence"}
-_VALUE_OPTS = {"output", "perm", "perturb", "consiters", "refineiters",
-               "device", "log", "minsuper", "replicates", "hmmin", "hmmout",
-               "guidetreein", "guidetreeout", "ref", "prefix", "randseed",
-               "html", "jalview", "minconf", "max_gap_fract", "maxcols",
-               "db", "tsvout", "threads"}
-_COMMANDS = ("align", "super5", "qscore", "efastats", "disperse", "maxcc",
-             "resample", "efa_explode", "fa2efa", "addconfseq",
-             "letterconf", "efa_bestconf", "efa_bestcols", "colscore_efa",
-             "qscore_efa", "trimtoref_efa", "eesort", "cmp_msa")
+# the JAX package's command flags (muscle_tpu/cli.py::parse_args): any
+# of them starts a command, and those the port has no handler for stop
+# with "not ported yet" instead of being read as value options
+JAX_COMMANDS = frozenset({
+    "align", "super5", "super6", "super7", "uclustpd", "protdists",
+    "qscore", "disperse", "maxcc", "testfb",
+    "resample", "efa_explode", "fa2efa", "addconfseq", "letterconf",
+    "efa_bestconf", "efa_bestcols", "colscore_efa", "qscore_efa",
+    "trimtoref_efa", "eesort", "cmp_msa", "cmp_ref_msas", "upgma5",
+    "bench", "bench_blosums", "sweep", "spatter",
+    "consseq", "guide_tree", "efastats", "msastats",
+    "eadistmx", "kmerdist", "muscle3",
+    "m3ensemble", "m3select", "m3refine",
+    "strip_gappy_cols", "strip_gappy_rows", "relabel", "trimtoref",
+    "make_a2m", "squeeze_inserts", "core_blocks",
+    "derep", "uclust", "transaln", "shrub", "swdistmx", "hmmdump",
+    "perturbhmm", "masm_train", "masm_stats", "swmasm",
+})
+# flags (no value); every other option name takes the next argument
+BOOL_OPTS = frozenset({"stratified", "diversified", "quiet", "nt", "amino",
+                       "input_order", "tree_order", "verbose", "bysequence",
+                       "version", "help", "mega", "reseek", "scaledist",
+                       "eadist"})
+# options read by the harness, not by a command: never warned about
+# (-device is the port's own)
+HARNESS_OPTS = frozenset({"log", "quiet", "threads", "help", "version",
+                          "fa2efa_files", "device"})
 
 
-def parse_args(argv: list[str]) -> tuple[str | None, str | None, dict]:
-    """-> (command or None, its input path, {option: value}); -fa2efa's
-    input files are opts["fa2efa_files"]."""
+class OptDict(dict):
+    """The options by name, recording which ones a command read (get,
+    [] or `in`), so that main() can warn about the rest, as the JAX
+    package does (reference: src/myutils.h:364-371, src/main.cpp:68)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.used: set[str] = set()
+
+    def get(self, k, d=None):
+        self.used.add(k)
+        return super().get(k, d)
+
+    def __getitem__(self, k):
+        self.used.add(k)
+        return super().__getitem__(k)
+
+    def __contains__(self, k):
+        self.used.add(k)
+        return super().__contains__(k)
+
+    def unused(self) -> list[str]:
+        return sorted(k for k in self.keys()
+                      if k not in self.used and k not in HARNESS_OPTS)
+
+
+def parse_args(argv: list[str]) -> tuple[str | None, str | None, OptDict]:
+    """-> (command or None, its input path or None, the options), parsed
+    as muscle_tpu.cli.parse_args parses: BOOL_OPTS are flags, any other
+    option takes a value; -fa2efa's input files are
+    opts["fa2efa_files"]. A JAX command the port has no handler for
+    raises SystemExit."""
     cmd = path = None
-    opts: dict[str, object] = {}
+    opts = OptDict()
     i = 0
     while i < len(argv):
         a = argv[i]
         if not a.startswith("-"):
             raise SystemExit(f"unexpected argument {a!r}")
         name = a.lstrip("-")
-        if name in _COMMANDS:
-            if i + 1 >= len(argv) or argv[i + 1].startswith("-"):
-                raise SystemExit(f"-{name} requires an input file")
+        if name in JAX_COMMANDS:
+            if name not in _HANDLERS:
+                raise SystemExit(f"-{name} is not ported to muscle_tpu_torch "
+                                 "yet (ROADMAP.md, queue 1); the JAX package "
+                                 "runs it: python -m muscle_tpu.cli")
             if cmd is not None:
-                raise SystemExit(f"-{cmd} and -{name} both given")
-            cmd, path = name, argv[i + 1]
-            i += 1
+                raise SystemExit("only one command flag allowed")
+            cmd = name
+            if i + 1 < len(argv) and not argv[i + 1].startswith("-"):
+                path = argv[i + 1]
+                i += 1
             if name == "fa2efa":
-                files = [path]
+                files = [path] if path else []
                 while i + 1 < len(argv) and not argv[i + 1].startswith("-"):
                     files.append(argv[i + 1])
                     i += 1
                 opts["fa2efa_files"] = files
-        elif name in _BOOL_OPTS:
+        elif name in BOOL_OPTS:
             opts[name] = True
-        elif name in _VALUE_OPTS:
+        else:
             if i + 1 >= len(argv):
                 raise SystemExit(f"option -{name} requires a value")
             opts[name] = argv[i + 1]
             i += 1
-        else:
-            raise SystemExit(f"unknown option -{name}")
         i += 1
     return cmd, path, opts
 
@@ -129,7 +184,7 @@ def main(argv: list[str] | None = None) -> int:
         from . import __version__
         print(f"muscle_tpu_torch {__version__}")
         return 0
-    if opts.get("help") or path is None:
+    if cmd is None or path is None or opts.get("help"):
         print(USAGE)
         return 0 if opts.get("help") or not argv else 1
 
@@ -137,6 +192,8 @@ def main(argv: list[str] | None = None) -> int:
     mlog.configure(log_path=opts.get("log"), quiet=bool(opts.get("quiet")))
     mlog.log("muscle_tpu_torch %s", " ".join(argv))
     rc = _HANDLERS[cmd](cmd, path, opts)
+    for name in opts.unused():
+        mlog.progress("WARNING: option -%s was not used by -%s", name, cmd)
     mlog.finish()
     return rc
 

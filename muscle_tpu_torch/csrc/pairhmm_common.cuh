@@ -228,10 +228,13 @@ __device__ __forceinline__ void block_cumsum(float v[S][2], float* row,
 // its x insert score `insx`, `emit2(j, t, u)` gives the emissions of
 // columns j and j + 1 of that row (tags t and u; j even), `emit1(j, t)`
 // that of column j alone (the legacy backward, which reads columns in
-// reverse), and `insy(j, t)` the y insert score of column j. Both sources give the
-// same numbers for the same scores: fed the letter lattice
-// match[x_i, y_j] with insert[x_i], insert[y_j], the lattice source
-// reproduces the letter source bit for bit.
+// reverse), and `insy(j, t)` the y insert score of column j. The wave's
+// forward body calls `prefetch(i, j)` for row i + 1 right after `row(i)`:
+// a source that reads device memory a row may start row i + 1's loads
+// there, off the row's dependent chain (LatticeAhead); the others do
+// nothing. All sources give the same numbers for the same scores: fed
+// the letter lattice match[x_i, y_j] with insert[x_i], insert[y_j], the
+// lattice sources reproduce the letter source bit for bit.
 
 // Letters: codes and the (K+1)^2 match / (K+1) insert tables, copied into
 // shared memory (kernels A and B, and 3K). The tables are shared by every
@@ -281,6 +284,7 @@ struct CodeEmission {
     return make_float2(mrow[t], mrow[u]);
   }
   __device__ float emit1(int, int t) const { return mrow[t]; }
+  __device__ void prefetch(int, int) {}
 };
 
 // A precomputed (B, Lx, Ly) f32 emission lattice with (B, Lx) x and
@@ -313,10 +317,41 @@ struct LatticeEmission {
     return *reinterpret_cast<const float2*>(erow + j);
   }
   __device__ float emit1(int j, int) const { return erow[j]; }
+  __device__ void prefetch(int, int) {}
+};
+
+// The lattice read one DP row ahead (kernel 1E on the wave): the row's
+// emissions do not depend on the DP, so `prefetch(i, j)` starts the loads
+// of row i's lanes j, j + 1 and its x insert score into registers while
+// row i - 1 runs, and `row(i)` takes them. Read at the row, as
+// LatticeEmission reads it, each row's load latency sits on the row's
+// dependent chain, between the fold and the M row. Measured at
+// mega-long's chunk on an H100 80GB HBM3 at 700 W
+// (tools/torch_fwd_densify_probe.py --variants): 32.0-32.6 ms, against
+// 32.7-33.3 read at the row and 30.0-31.2 with no loads at all, so the
+// loads cost the wave 2-7 %; what sets its row is the instruction
+// throughput of SMs that hold ~3 of its blocks each (--diagnose).
+struct LatticeAhead : LatticeEmission {
+  float2 e_next, e_cur;
+  float insx_next;
+
+  __device__ LatticeAhead(const Args& a, int b, int Lx, int Ly_, float* sm)
+      : LatticeEmission(a, b, Lx, Ly_, sm) {}
+  __device__ void prefetch(int i, int j) {
+    e_next = __ldg(reinterpret_cast<const float2*>(e_b + (size_t)i * Ly + j));
+    insx_next = __ldg(insx_b + i);
+  }
+  __device__ void row(int) {
+    e_cur = e_next;
+    insx = insx_next;
+  }
+  __device__ float2 emit2(int, int, int) const { return e_cur; }
+  // forward only: the base's erow is never set here
+  float emit1(int, int) const = delete;
 };
 
 // Launch geometry shared by kernels A and B: S segments per warp, at
-// most 32 warps (S = 5, 160 segments, at Ly = 10240; S = 6 at 12288).
+// most 32 warps (S = 5, 160 segments, at Ly = 10240).
 struct Geometry {
   int nseg, S, W;
   size_t smem;

@@ -230,7 +230,7 @@ static int launch_fwd(const Geometry& geo, int B, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch at the geometry of Ly: S = 1..MAX_S segments per warp.
+// One launch at the geometry of Ly: S = 1..MAX_S (<= 5) segments per warp.
 template <class Src, int MAX_S>
 static int dispatch_fwd(int B, cudaStream_t st, const typename Src::Args& args,
                         const int* lxb, const int* lyb, const float* params,
@@ -240,16 +240,20 @@ static int dispatch_fwd(int B, cudaStream_t st, const typename Src::Args& args,
     case 1:
       return launch_fwd<1, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
     case 2:
-      return launch_fwd<2, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
+      if constexpr (MAX_S >= 2)
+        return launch_fwd<2, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
+      [[fallthrough]];
     case 3:
-      return launch_fwd<3, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
+      if constexpr (MAX_S >= 3)
+        return launch_fwd<3, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
+      [[fallthrough]];
     case 4:
-      return launch_fwd<4, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
+      if constexpr (MAX_S >= 4)
+        return launch_fwd<4, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
+      [[fallthrough]];
     case 5:
-      return launch_fwd<5, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
-    case 6:
-      if constexpr (MAX_S >= 6)
-        return launch_fwd<6, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
+      if constexpr (MAX_S >= 5)
+        return launch_fwd<5, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx, Ly, fm, fend);
       [[fallthrough]];
     default:
       return static_cast<int>(cudaErrorInvalidValue);

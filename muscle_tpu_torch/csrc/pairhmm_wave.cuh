@@ -5,8 +5,9 @@
 //
 //   - pairhmm_fwd_wave_kernel: kernel A's forward recurrence
 //     (pairhmm_fwd.cuh), instantiated by kernel 5 (pairhmm_fwd_stripe.cu,
-//     the row cut into stripes of W lanes) and by kernel A's wide
-//     schedule (pairhmm_fwd.cu, one stripe of the whole row);
+//     the row cut into stripes of W lanes), by kernel A's wide schedule
+//     (pairhmm_fwd.cu, one stripe of the whole row) and by kernel 1E's
+//     (pairhmm_fwd_emis.cu, the lattice read a row ahead: LatticeAhead);
 //   - pairhmm_bwd_wave_kernel: kernel B's backward + posterior + MEA
 //     (pairhmm_bwd_post.cuh), instantiated by kernel 6
 //     (pairhmm_bwd_stripe.cu) and by kernel B's wide schedule
@@ -183,6 +184,7 @@ pairhmm_fwd_wave_kernel(const typename Src::Args args,
   const bool owner = g == G - 1 && l == 31;  // holds the group's last lane
 
   float ix0 = LOG_ZERO, jx0 = LOG_ZERO;  // column-0 chains (group 0)
+  if (lx > 0) src.prefetch(0, j);
   for (int i = 0; i < lx; ++i) {
     // the left group's record of row i: fold edge, M edge, carries or
     // last column's IY/JY (warp 0 only)
@@ -196,6 +198,7 @@ pairhmm_fwd_wave_kernel(const typename Src::Args args,
       h_j = wf::field(win.rec.v, 3, s);
     }
     src.row(i);
+    if (i + 1 < lx) src.prefetch(i + 1, j);  // off the chain (LatticeAhead)
     const float insx = src.insx;
     float comb[2], ixn[2], jxn[2], mn[2], aI[2], cI[2], aJ[2], cJ[2];
 

@@ -17,10 +17,14 @@ the padded lane width Ly, at the JAX package's FUSED_MAX_LY:
   `_finish_posteriors`), kernel 4, `mea_scores` (csrc/mea_scores.cu,
   replaces `_mea_kernel`).
 
-Kernel 3 runs on kernels A and B's wide schedule (`bwd_geometry`):
-each pair's row as a skewed wavefront of groups of G segments across
-SMs (csrc/pairhmm_wave.cuh's backward body in kernel 3's layout;
-`bwd_wave_plain` is its twin).
+Kernel 1E runs on kernel A's two schedules (`pairhmm_cuda.ab_geometry`):
+one block a pair up to WAVE_MIN_LY = 2048 lanes, beyond it each pair's
+row as a skewed wavefront of groups of G segments across SMs
+(csrc/pairhmm_wave.cuh's forward body, the lattice read a row ahead;
+`fwd_wave_plain` is its twin). Kernel 3 runs on the wave at every width
+(`bwd_geometry`: the backward body in kernel 3's layout;
+`bwd_wave_plain` is its twin). A caller runs `wavefront.check_waits`
+after a wave launch, as both routes do.
 
 Kernels 1E and 2E are kernels A and B (ops/pairhmm_cuda.py) with the
 lattice as their emission source (csrc/pairhmm_common.cuh); fed the
@@ -52,8 +56,10 @@ from .pairhmm_cuda import (NEG_BIG, SCHEDULES, _cumsum_lanes, _log_add,
 # lane-axis cap of the fused route, the JAX package's value (there, the
 # fused backward's VMEM scratch); the legacy route takes wider pads
 FUSED_MAX_LY = 9856
-# lane-axis cap of kernels 1E and 3 (S = 6 segments a warp): the
-# legacy route's rung 12288, chains of up to 12288 residues
+# lane-axis cap of the emissions path: the legacy route's rung 12288,
+# chains of up to 12288 residues. Kernels 1E and 3 run wider rows on the
+# wave; what stops wider pads is the sparsify's whole-row sort
+# (ops/sparse.py; ROADMAP.md, queue 1, item 4)
 MAX_LY = 12288
 
 LAUNCHES = {"pairhmm_fwd_emis": 0, "pairhmm_bwd_post_emis": 0,
@@ -102,6 +108,73 @@ def bwd_plain(e, ins_x, ins_y, lxb, lyb, params):
     ar = torch.arange(e.shape[0], device=e.device)
     return bwd_rows(lambda xi: (e[ar, xi], ins_x[ar, xi][:, None]), ins_y,
                     lxb, lyb, params, e.shape[1])
+
+
+def fwd_wave_plain(e, ins_x, ins_y, lxb, lyb, params, g: int):
+    """Twin of kernel 1E's wide schedule (csrc/pairhmm_wave.cuh's
+    forward body with the lattice source): each pair's row cut into
+    groups of g 64-lane segments, run here group after group, each row
+    of a group taking from its left neighbour's record of that row what
+    the block kernel reads across the edge: the fold's last lane (left
+    of the M shift), the M row's last lane (left of the scans' M shift)
+    and the IY/JY carries leaving it (the chain continued in segment
+    order); group 0 the column-0 chains. Row 0's IY/JY come from the
+    launch's full-width rounds (`_cumsum_lanes`, as row_cumsum2).
+    Returns (fm, fend) as fwd_emis_plain (fm on the real cells)."""
+    (tSM, tSI, tSJ, tMM, tMI, tMJ, tII, tIM, tJJ, tJM) = _unpack(params)
+    b, n_rows, width = e.shape
+    dev = e.device
+    ar = torch.arange(b, device=dev)
+    iy0 = tSI - tII + _cumsum_lanes(ins_y + tII)
+    jy0 = tSJ - tJJ + _cumsum_lanes(ins_y + tJJ)
+    gw = 64 * g
+    fm = torch.empty((b, n_rows, width), dtype=torch.float32, device=dev)
+    fend = torch.full((b, 5), LOG_ZERO, dtype=torch.float32, device=dev)
+    lx = lxb.long()
+    left = None     # the left group's records, (B, n_rows) each
+    for g0 in range(0, width, gw):
+        sl = slice(g0, g0 + gw)
+        insy = ins_y[:, sl]
+        lz = torch.full((b, gw), LOG_ZERO, dtype=torch.float32, device=dev)
+        m, ix, jx, iy, jy = lz, lz, lz, iy0[:, sl], jy0[:, sl]
+        ix0 = jx0 = torch.full((b, 1), LOG_ZERO, dtype=torch.float32,
+                               device=dev)
+        rec = {k: torch.empty((b, n_rows), dtype=torch.float32, device=dev)
+               for k in ("c", "m", "ci", "cj")}
+        col = lyb.long() - 1 - g0
+        holds = (col >= 0) & (col < gw)
+        col = col.clamp(0, gw - 1)
+        for i in range(n_rows):
+            e_row, insx = e[:, i, sl], ins_x[:, i:i + 1]
+            comb = _log_add5(m + tMM, ix + tIM, jx + tJM, iy + tIM, jy + tJM)
+            fill = (left["c"][:, i:i + 1] if left
+                    else _log_add(ix0 + tIM, jx0 + tJM))
+            m_new = _shift_fill(comb, fill) + e_row
+            if left is None and i == 0:
+                m_new[:, :1] = tSM + e_row[:, :1]
+            ix_new = _log_add(ix + tII, m + tMI) + insx
+            jx_new = _log_add(jx + tJJ, m + tMJ) + insx
+            if i == 0:
+                ix0, jx0 = tSI + insx, tSJ + insx
+            else:
+                ix0, jx0 = ix0 + tII + insx, jx0 + tJJ + insx
+            m_sh = _shift_fill(m_new, left["m"][:, i:i + 1] if left
+                               else LOG_ZERO)
+            iy, ci = _group_scan(insy + tII, m_sh + tMI + insy,
+                                 left["ci"][:, i:i + 1] if left else NEG_BIG)
+            jy, cj = _group_scan(insy + tJJ, m_sh + tMJ + insy,
+                                 left["cj"][:, i:i + 1] if left else NEG_BIG)
+            m, ix, jx = m_new, ix_new, jx_new
+            fm[:, i, sl] = m
+            rec["c"][:, i], rec["m"][:, i] = comb[:, -1], m[:, -1]
+            rec["ci"][:, i], rec["cj"][:, i] = ci[:, 0], cj[:, 0]
+            last = holds & (lx == i + 1)
+            if bool(last.any()):
+                vals = torch.stack([r[ar, col] for r in (m, ix, iy, jx, jy)],
+                                   dim=1)
+                fend = torch.where(last[:, None], vals, fend)
+        left = rec
+    return fm, fend
 
 
 def _group_scan(a, c, carry):
@@ -220,7 +293,8 @@ def _lib(name: str):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         specs = kernel_specs()
         load_libs(specs[:3],
-                  {"pairhmm_fwd_emis": [vp] * 6 + [ci] * 4 + [vp] * 3,
+                  {"pairhmm_fwd_emis": [vp] * 6 + [ci] * 6
+                   + [ctypes.c_longlong] + [vp] * 7,
                    "pairhmm_bwd_post_emis": [vp] * 6 + [ci] + [vp]
                    + [ci] * 3 + [vp] * 4,
                    "pairhmm_bwd": [vp] * 6 + [ci] * 6
@@ -257,21 +331,27 @@ def _per_pair(params) -> int:
     return int(params.dim() == 2)
 
 
-def pairhmm_fwd_emis(e, ins_x, ins_y, lxb, lyb, params):
-    """Kernel 1E (forward from the lattice). CPU tensors run
-    `fwd_emis_plain`. Returns (fm (B, Lx, Ly), rows >= lx unwritten;
-    fend (B, 5))."""
+def pairhmm_fwd_emis(e, ins_x, ins_y, lxb, lyb, params,
+                     schedule: str | None = None, g: int | None = None):
+    """Kernel 1E (forward from the lattice), on the schedule
+    `ab_geometry(B, Ly, schedule, g)` picks: one block a pair up to
+    WAVE_MIN_LY, the wave beyond (the caller then runs
+    `wavefront.check_waits`). CPU tensors run `fwd_emis_plain`. Returns
+    (fm (B, Lx, Ly), rows >= lx unwritten; fend (B, 5))."""
+    geo = ab_geometry(e.shape[0], e.shape[2], schedule, g)
     if not _on_card(e):
         return fwd_emis_plain(e, ins_x, ins_y, lxb, lyb, params)
     b, lx, ly = _check(e, ins_x, ins_y, lxb, lyb, params, MAX_LY)
     fm = torch.empty((b, lx, ly), dtype=torch.float32, device=e.device)
     fend = torch.empty((b, 5), dtype=torch.float32, device=e.device)
     lib = _lib("pairhmm_fwd_emis")
+    wave, _bufs = _wave_args(geo, b, lx, ly, "fwd", e.device)
     rc = lib.pairhmm_fwd_emis(_ptr(e), _ptr(ins_x), _ptr(ins_y), _ptr(lxb),
                               _ptr(lyb), _ptr(params), _per_pair(params), b,
-                              lx, ly, _ptr(fm), _ptr(fend), _stream(e))
+                              lx, ly, *wave, _ptr(fm), _ptr(fend), _stream(e))
     _raise_on(lib, rc, "pairhmm_fwd_emis")
     LAUNCHES["pairhmm_fwd_emis"] += 1
+    SCHEDULES[("pairhmm_fwd_emis", geo.schedule, ly)] += 1
     return fm, fend
 
 
@@ -359,6 +439,8 @@ def emissions_path_fused(e, ins_x, ins_y, lxb, lyb, params):
     """Kernel 1E, the total-probability fold, kernel 2E (JAX
     `_emissions_path_fused`). Returns (post (B, Lx, Ly), ea (B,))."""
     fm, fend = pairhmm_fwd_emis(e, ins_x, ins_y, lxb, lyb, params)
+    if _on_card(e) and ab_geometry(e.shape[0], e.shape[2]).schedule == "wave":
+        wavefront.check_waits(e.device)    # raises on a stuck hand-over
     tot = _total_prob(fend, params)
     post, mea = pairhmm_bwd_post_emis(e, ins_x, ins_y, lxb, lyb, params, tot,
                                       fm)

@@ -262,14 +262,22 @@ def align(seqs: MultiSequence, *,
           tree_perm: str | None = None,
           consistency_iters: int = DEFAULT_CONSISTENCY_ITERS,
           refine_iters: int = DEFAULT_REFINE_ITERS,
+          hmm_params: HMMParams | None = None,
+          guide_tree_in: Tree | None = None,
+          input_order: bool = False,
           device=None,
           mega=None) -> MultiSequence:
     """Align a set of unaligned sequences (reference: -align, src/align.cpp).
 
-    With `mega` (io/mega.MegaProfileSet: Muscle-3D structure profiles,
-    its chains labelled as `seqs`) the emissions come from the profiles.
-    Runs on the GPU unless `device="cpu"` is given; raises when no GPU
-    is present and no device was asked for.
+    As muscle_tpu.align: `hmm_params` replaces the default HMM (perturbed
+    in place when perturb_seed > 0), `guide_tree_in` replaces UPGMA5 and
+    the permutation, and `input_order` returns the rows in the input's
+    order instead of the tree's. With `mega` (io/mega.MegaProfileSet:
+    Muscle-3D structure profiles, its chains labelled as `seqs`) the
+    emissions come from the profiles. Runs on the GPU unless
+    `device="cpu"` is given; raises when no GPU is present and no device
+    was asked for. (The JAX package's `batch_size` has no counterpart:
+    the port's pair batch is PAIR_BATCH.)
     """
     device = resolve_device(device)
     if mega is not None:
@@ -278,11 +286,17 @@ def align(seqs: MultiSequence, *,
         nucleo = guess_is_nucleo(seqs, MwcRng(1))
     alpha = ALPHA_NUCLEO if nucleo else ALPHA_AMINO
 
-    hp = HMMParams.from_defaults(nucleo=nucleo)
+    hp = hmm_params or HMMParams.from_defaults(nucleo=nucleo)
     if perturb_seed > 0:
         hp.perturb(perturb_seed)
 
     mpc = MPC(consistency_iters=consistency_iters,
               refine_iters=refine_iters, tree_perm=tree_perm,
-              device=device, mega=mega)
-    return mpc.run(seqs, hp, alpha)
+              device=device, guide_tree_in=guide_tree_in,
+              input_order=input_order, mega=mega)
+    msa = mpc.run(seqs, hp, alpha)
+    if input_order:
+        by_label = {s.label: s for s in msa}
+        msa = MultiSequence([by_label[s.label] for s in seqs
+                             if s.label in by_label])
+    return msa
