@@ -52,18 +52,25 @@ Phases (each raises on failure, so the run exits non-zero):
    on the wave: 1E's first 128 rows of each pair against the plain
    version on those rows, 3's rows u < 128 against the plain version on
    each pair's last 128 rows of x and its rows u >= lx against zero, 4
-   on the whole posterior); their ptxas registers and spills and their
-   times at those shapes (1E's and 3's beside their times before the
-   wave and their dependency floors); the fused route against the legacy
+   (a wavefront of row bands, a round of bands a block) on the whole
+   posterior); their ptxas registers and spills and their times at
+   those shapes (1E's, 3's and 4's beside their times before the wave
+   and their dependency floors); the fused route against the legacy
    route on 8 mega pairs at 2048, at the kernel gate; then the
    ensembles' kernels (phase_ensemble_kernels): 1M and 2M (per-pair
    tables) at B = 512, L = 512 with the packs of 4 perturbation seeds
    mixed lane by lane, each against its plain version and each lane
    against kernels A/B on its pack, 1E/2E with per-pair params on the
    per-pair lattice against 1M/2M, 3K (the letter path's legacy
-   backward) against its plain version, all required equal, and the
+   backward; one block a pair at 512) against its plain version on the
+   real cells and the zero rows u >= lx, all required equal, the
    legacy letter route (1M, 3K, finish_posteriors, 4) against the fused
-   one at the kernel gate; their ptxas lines, times and bounds;
+   one at the kernel gate, and kernel 4 on that route's posteriors
+   against its plain version; then 3K on the wave (BWD_CODES_WIDE: 4
+   pairs at 4096) held as kernel 3 is (hold_bwd_codes); their ptxas
+   lines, times (kernels 4 and 3K steady: steady_ms, beside their times
+   one block a pair before, MEA_SCORES_WAS_MS and BWD_CODES_WAS_MS) and
+   bounds;
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
@@ -143,16 +150,17 @@ Phases (each raises on failure, so the run exits non-zero):
      and memory kept out), every replicate required to be an alignment
      of its input, -maxcc, -disperse and -efastats of each EFA printed;
      legacy-BB11001 (align() under the legacy letter route, fused=False:
-     kernels A, 3K and 4; each 3K launch held to its plain version;
-     whether its text equals the fused route's printed);
+     kernels A, 3K and 4; each 3K and 4 launch held to its plain
+     version; whether its text equals the fused route's printed);
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
 5. print kernels 7L's and 7's times summed over their held main-path
    launches, then the kernels' JSON line (launch counts summed over
-   phase 3, kernels A/B's, 1E's and 3's also by schedule and width,
-   with A/B's wave times and bounds at 11264 x 10240 and 1E's time,
-   bound and floor at mega-long's chunk; kernel 8's times and bounds on
-   the long tile; mea_dirs' by rung, with its held launches' summed
+   phase 3, kernels A/B's, 1E's, 3's and 3K's also by schedule and
+   width, with A/B's wave times and bounds at 11264 x 10240, 1E's time
+   and bound at mega-long's chunk, 3K's on the wave at 4 x 4096 and 4's
+   at 512 x 512² beside mega-long's chunk; kernel 8's times and bounds
+   on the long tile; mea_dirs' by rung, with its held launches' summed
    time; kernel 7L's times and bound at
    synthetic-1000's largest device join;
    each max |d| over phase 2 and the launches held in phase 3),
@@ -249,6 +257,15 @@ def time_cuda(fn, reps: int = 5, per: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e) / per)
     return statistics.median(times)
+
+
+def steady_ms(fn) -> float:
+    """ms of one call at steady state: 20 calls first, then time_cuda
+    with 5 calls between the events (the method of the redesigned
+    kernels' times and of their parents' *_WAS_MS)."""
+    for _ in range(20):
+        fn()
+    return time_cuda(fn, per=5)
 
 
 def timed_once(fn):
@@ -367,6 +384,40 @@ def mea_floor_ms(cc1: int, cc2: int, clock_hz: float) -> float:
     return mea_floor_steps(cc1, cc2) * MEA_STEP_CYCLES / clock_hz * 1e3
 
 
+# The dependency floor of kernel 4 (csrc/mea_scores.cu): as mea_dirs'
+# chain, each warp one band: band k starts HAND + 31 steps after band k -
+# 1 inside a block; warp 0 of the next round (another block) once the
+# link row's count covers the chunks it stages before its first window's
+# steps ((AHEAD + 1) CHUNK columns, published every LINK_HAND columns),
+# so that many steps of the band above later; the last band then runs
+# its ly + 31 steps (whole windows).
+def mea_scores_floor_steps(lx: int, ly: int, warps: int) -> int:
+    from muscle_tpu_torch.ops import devjoin_cuda as djc
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    cw = djc.MEA_CHUNK
+    need = min((djc.MEA_AHEAD + 1) * cw, ly)
+    s0 = 0
+    while True:   # the producer's window that publishes `need` columns
+        linked = min(max(s0 + cw - 31, 0), ly)
+        if linked >= need and ((s0 // cw) % (pe.MEA_SCORES_LINK_HAND // cw)
+                               == pe.MEA_SCORES_LINK_HAND // cw - 1
+                               or (linked == ly and s0 - 31 < ly)):
+            break
+        s0 += cw
+    nb = -(-lx // 32)
+    lags = sum(djc.MEA_HAND + 31 if k % warps else s0 + cw
+               for k in range(1, nb))
+    return lags + -(-(ly + 31) // cw) * cw
+
+
+def mea_scores_floor_ms(lxb, lyb, warps: int, clock_hz: float) -> float:
+    """The largest floor over the launch's pairs, at MEA_STEP_CYCLES a
+    step and the card's highest SM clock."""
+    steps = max(mea_scores_floor_steps(a, b, warps)
+                for a, b in zip(lxb.tolist(), lyb.tolist()))
+    return steps * MEA_STEP_CYCLES / clock_hz * 1e3
+
+
 def tie_heavy(shape, seed, dev):
     """A posterior of mostly zeros with values from {0.25, 0.5}, like a
     real summed column posterior: most cells tie (b = x = y), so the tie
@@ -386,6 +437,13 @@ MEA_ODD_SHAPES = ((1, 33), (23, 16), (40, 57), (130, 150), (767, 769),
 # HBM3 at 700 W): 768 x 768, one block a join; mega-long's chunk, one
 # block a pair
 MEA_WAS_MS, BWD_WAS_MS = 1.043, 596.4
+# kernels 4 and 3K before their redesign (one block a pair), at the shapes
+# phases 2 times them (mega-long's chunk and B = 512 at 512; 512 pairs at
+# 512 and 4 at 4096), steady_ms in the same call as the redesign
+# (tools/torch_mea_bwd_probe.py --time --parent, NVIDIA H100 80GB HBM3 at
+# 700 W)
+MEA_SCORES_WAS_MS = {12288: 16.17, 512: 0.371}
+BWD_CODES_WAS_MS = {512: 3.483, 4096: 81.37}
 
 
 # calls between the events when timing kernels 7/7L and their yardsticks
@@ -530,6 +588,10 @@ def ptxas_lines(names) -> list[str]:
                 cur = f"mea_dirs_kernel<{16 if m.group(1) == '1' else 4}" \
                       "-byte copies>"
                 continue
+            if re.search(r"Compiling entry function '\w*mea_scores_kernel",
+                         line):  # kernel 4, in an unnamed namespace too
+                cur = "mea_scores_kernel"
+                continue
             m = re.search(r"Compiling entry function '_Z(?:N2ph)?(\d+)(\w+)'",
                           line)
             if m:
@@ -547,10 +609,9 @@ def ptxas_lines(names) -> list[str]:
                             + (", kernel 3's layout" if w[1:] == ["1"]
                                else "") + ">")
                 elif t:
-                    arg = "S" if cur.startswith("pairhmm") else "UNITS"
                     src = (", lattice" if "LatticeEmission" in rest else
                            ", letters" if "CodeEmission" in rest else "")
-                    cur += f"<{arg}={t.group(1)}{src}>"
+                    cur += f"<S={t.group(1)}{src}>"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
@@ -2269,9 +2330,9 @@ class LegacyKernelCheck:
         self._held("pairhmm_bwd", lambda: hold_bwd(args, rb)[0])
         return rb
 
-    def mea(self, post, lxb):
+    def mea(self, post, lxb, lyb):
         from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
-        got = self.saved["mea_scores"](post, lxb)
+        got = self.saved["mea_scores"](post, lxb, lyb)
         self._held("mea_scores", lambda: float(
             (got - pe.mea_scores_plain(post)).abs().max()))
         return got
@@ -2460,13 +2521,18 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
                           LEGACY_FLOOR)
     post = pe.finish_posteriors(fm, rb, fend, lx, ly, params)
     del rb
-    got = pe.mea_scores(post, lx)
+    got = pe.mea_scores(post, lx, ly)
     want, plain4 = timed_once(lambda: pe.mea_scores_plain(post))
     d4 = float((got - want).abs().max())
-    ms4 = time_cuda(lambda: pe.mea_scores(post, lx))
+    ms4 = steady_ms(lambda: pe.mea_scores(post, lx, ly))
+    pc.wavefront.check_waits(dev)
+    warps4 = pe.mea_scores_warps(
+        8, MEGA_LONG_PAD, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    floor4 = mea_scores_floor_ms(lx, ly, warps4, max_sm_clock_hz())
     ins_bytes = 4 * (float(lx.sum()) + float(ly.sum()) + 2 * 8 + 16)
     bnd3 = bound_ms(ins_bytes + 8 * cells, cells * BWD_OPS_PER_CELL)
-    bnd4 = bound_ms(4 * cells + 4 * 8 + 4 * 8, cells * MEA_OPS_PER_CELL)
+    bnd4 = bound_ms(4 * cells + 3 * 4 * 8, cells * MEA_OPS_PER_CELL)
     bnd1l = bound_ms(ins_bytes + 8 * cells + 20 * 8, cells * FWD_OPS_PER_CELL)
     print(f"kernel 4 (mea_scores) vs plain on mega-long's posteriors (8 x "
           f"12288 x 12288): max |d| {d4:.3e} {'equal' if d4 == 0 else 'FAIL'}",
@@ -2477,9 +2543,13 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
           f"{bnd1l[1]}, dependency floor {floor1:.2f} ms), kernel 3 "
           f"{ms3:.3f} ms on the wave (was {BWD_WAS_MS} ms: "
           f"{BWD_WAS_MS / ms3:.1f}x; plain {plain3:.1f} ms on {HELD_ROWS} "
-          f"rows, bound {bnd3[0]:.4f} ms by {bnd3[1]}, dependency floor {floor3:.2f} ms), kernel 4 "
-          f"{ms4:.3f} ms (plain {plain4:.1f} ms, bound {bnd4[0]:.4f} ms by "
-          f"{bnd4[1]})", flush=True)
+          f"rows, bound {bnd3[0]:.4f} ms by {bnd3[1]}, dependency floor "
+          f"{floor3:.2f} ms), kernel 4 {ms4:.3f} ms on the wave of row bands "
+          f"({warps4} warps a block, {pe.mea_scores_rounds(MEGA_LONG_PAD, warps4)}"
+          f" rounds a pair; was {MEA_SCORES_WAS_MS[MEGA_LONG_PAD]} ms one "
+          f"block a pair: {MEA_SCORES_WAS_MS[MEGA_LONG_PAD] / ms4:.1f}x; "
+          f"plain {plain4:.1f} ms, bound {bnd4[0]:.4f} ms by {bnd4[1]}, "
+          f"dependency floor {floor4:.3f} ms)", flush=True)
     if d4:
         raise SmokeFailure("kernel 4 differs from its plain version")
     WIDE_1E.update(ms=ms1l, bound=bnd1l[0])
@@ -2750,9 +2820,10 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
 
     rb = pc.pairhmm_bwd_codes(*args)
     rb2, plain3 = timed_once(lambda: pc.bwd_codes_plain(*args))
-    d3 = float((rb - rb2).abs().max())
+    d3 = rbm_err(rb, rb2, lxt, lyt)
     print(f"kernel 3K pairhmm_bwd_codes vs plain (per-pair tables, {b} pairs, "
-          f"{width} x {width}): max |d| {d3:.3e} "
+          f"{width} x {width}, {pc.bwd_codes_geometry(b, width).schedule}; "
+          f"the real cells and rows u >= lx): max |d| {d3:.3e} "
           f"{'equal' if d3 == 0 else 'FAIL'}", flush=True)
     if d3:
         raise SmokeFailure("kernel 3K differs from its plain version")
@@ -2771,11 +2842,33 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
     if not ok:
         raise SmokeFailure("the legacy letter route disagrees with the fused "
                            "route")
+    # kernel 4 on that route's posterior, the route's own shape
+    got4 = pe.mea_scores(post_l, lxt, lyt)
+    want4, plain4 = timed_once(lambda: pe.mea_scores_plain(post_l))
+    d4 = float((got4 - want4).abs().max())
+    ms4 = steady_ms(lambda: pe.mea_scores(post_l, lxt, lyt))
+    pc.wavefront.check_waits(dev)
+    warps4 = pe.mea_scores_warps(
+        b, width, torch.cuda.get_device_properties(dev).multi_processor_count)
+    bnd4 = bound_ms(4 * cells + 3 * 4 * b, cells * MEA_OPS_PER_CELL)
+    floor4 = mea_scores_floor_ms(lxt, lyt, warps4, max_sm_clock_hz())
+    print(f"kernel 4 (mea_scores) vs plain on the legacy letter route's "
+          f"posteriors ({b} x {width} x {width}, {warps4} warps a block, "
+          f"{pe.mea_scores_rounds(width, warps4)} round(s) a pair): max |d| "
+          f"{d4:.3e} {'equal' if d4 == 0 else 'FAIL'}; {ms4:.4f} ms (was "
+          f"{MEA_SCORES_WAS_MS[width]} ms one block a pair: "
+          f"{MEA_SCORES_WAS_MS[width] / ms4:.2f}x; plain {plain4:.1f} ms, "
+          f"bound {bnd4[0]:.4f} ms by {bnd4[1]}, dependency floor "
+          f"{floor4:.4f} ms)", flush=True)
+    if d4:
+        raise SmokeFailure("kernel 4 differs from its plain version on the "
+                           "legacy letter route's posteriors")
+    MEA_512.update(ms=ms4, bound=bnd4[0], err=d4)
     del post_l
 
     ms1 = time_cuda(lambda: pc.pairhmm_fwd(*args))
     ms2 = time_cuda(lambda: pc.pairhmm_bwd_post(*args, tot, fm))
-    ms3 = time_cuda(lambda: pc.pairhmm_bwd_codes(*args))
+    ms3 = steady_ms(lambda: pc.pairhmm_bwd_codes(*args))
     # bytes this run's pairs need: the real codes, both lengths and each
     # pair's tables and params in; 1M writes the M lattice's real cells
     # and the final states; 2M reads those cells and the totals and
@@ -2790,12 +2883,16 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
     print(f"kernel 1M {ms1:.3f} ms (plain {plain1:.1f} ms, bound "
           f"{bnd1[0]:.4f} ms by {bnd1[1]}); kernel 2M {ms2:.3f} ms (plain "
           f"{plain2:.1f} ms, bound {bnd2[0]:.4f} ms by {bnd2[1]}); kernel 3K "
-          f"{ms3:.3f} ms (plain {plain3:.1f} ms, bound {bnd3[0]:.4f} ms by "
-          f"{bnd3[1]}); {b} pairs, {cells:.0f} real cells", flush=True)
+          f"{ms3:.3f} ms ({pc.bwd_codes_geometry(b, width).schedule}; was "
+          f"{BWD_CODES_WAS_MS[width]} ms: "
+          f"{BWD_CODES_WAS_MS[width] / ms3:.2f}x; plain {plain3:.1f} ms, "
+          f"bound {bnd3[0]:.4f} ms by {bnd3[1]}); {b} pairs, {cells:.0f} "
+          f"real cells", flush=True)
     del fm, post, rb
     torch.cuda.empty_cache()
+    d3w, ms3w, bnd3w = bwd_codes_wide(dev)
     rep = "muscle_tpu/ops/pairhmm_pallas.py"
-    return [{"name": name, "route": "cuda",
+    out = [{"name": name, "route": "cuda",
              "source": f"muscle_tpu_torch/csrc/{src}", "replaces": f"{rep}:{ln}",
              "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
              "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
@@ -2804,8 +2901,99 @@ def phase_ensemble_kernels(dev, b=512, width=512) -> list[dict]:
                  ms1, plain1, bnd1),
                 ("pairhmm_bwd_post_multi", "pairhmm_bwd_post.cu", 565,
                  max(d2, lane2), ms2, plain2, bnd2),
-                ("pairhmm_bwd_codes", "pairhmm_bwd_codes.cu", 443, d3, ms3,
-                 plain3, bnd3))]
+                ("pairhmm_bwd_codes", "pairhmm_bwd_codes.cu", 443,
+                 max(d3, d3w), ms3, plain3, bnd3))]
+    # 3K's wide launch on the wave beside its main-path shape
+    out[-1].update(ms_4096=ms3w, bound_ms_4096=bnd3w[0])
+    return out
+
+
+# kernel 3K's wide launch, held and timed in phase 2: pairs, width
+BWD_CODES_WIDE = (4, 4096)
+# kernel 4 on the legacy letter route's 512 x 512^2 (phase 2): ms, bound
+MEA_512: dict = {}
+
+
+def rbm_err(rb, want, lx, ly) -> float:
+    """Max |d| of a kernel-3K RB_M against its plain version on the real
+    cells (rows u < lx, lanes v < ly: all that finish_posteriors reads;
+    the block body leaves its segments past ly unwritten), and of its
+    rows u >= lx against 0."""
+    import torch
+    rows = torch.arange(rb.shape[1], device=rb.device)[None, :, None]
+    return max(float((real_cells(rb, lx, ly)
+                      - real_cells(want, lx, ly)).abs().max()),
+               float(rb.where(rows >= lx[:, None, None], 0.0).abs().max()))
+
+
+def tail_codes(args, r):
+    """Kernel 3K's inputs cut to the last r real rows of x of each pair
+    (lx = r): its rows u < r read x positions lx-r..lx-1 only."""
+    import torch
+    xb, yb, lx, ly, match, insert, params = args
+    if int(lx.min()) < r:
+        raise SmokeFailure(f"tail_codes: a pair has fewer than {r} rows")
+    ar = torch.arange(xb.shape[0], device=xb.device)[:, None]
+    idx = lx.long()[:, None] - r + torch.arange(r, device=xb.device)[None, :]
+    return (xb[ar, idx].contiguous(), yb, torch.full_like(lx, r), ly, match,
+            insert, params)
+
+
+def hold_bwd_codes(args, rb, r=HELD_ROWS):
+    """A launch of kernel 3K on `args` held as hold_bwd holds kernel 3:
+    max |d| of its rows u < r against bwd_codes_plain on each pair's last
+    r rows of x, and of its rows u >= lx against 0; the plain version's
+    ms."""
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    tail = tail_codes(args, r)
+    want, ms = timed_once(lambda: pc.bwd_codes_plain(*tail))
+    d = float((real_cells(rb[:, :r], tail[2], tail[3])
+               - real_cells(want, tail[2], tail[3])).abs().max())
+    for k, lx in enumerate(args[2].tolist()):
+        d = max(d, float(rb[k, lx:].abs().max()) if lx < rb.shape[1] else 0.0)
+    return d, ms
+
+
+def bwd_codes_wide(dev):
+    """Kernel 3K on the wave: BWD_CODES_WIDE pairs of random amino codes
+    (lengths as ragged_batch) with per-pair tables, held to its plain
+    version (hold_bwd_codes) and timed (steady_ms) beside its time one
+    block a pair before the wave. Returns (max |d|, ms, bound)."""
+    import torch
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    b, width = BWD_CODES_WIDE
+    xb, yb, lx, ly = ragged_batch(b, width // 3, width, width, seed=4096)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(dev) for a in (xb, yb, lx, ly))
+    _, (m, i, s, t) = ensemble_tables(dev, [k % len(ENSEMBLE_SEEDS)
+                                            for k in range(b)])
+    args = (x, y, lxt, lyt, m.contiguous(), i.contiguous(),
+            pc.params_rows(s, t))
+    geo = pc.bwd_codes_geometry(b, width)
+    rb = bounded_pass(lambda: pc.pairhmm_bwd_codes(*args),
+                      f"kernel 3K on the wave at {width}", dev)
+    d, plain = hold_bwd_codes(args, rb)
+    ms = steady_ms(lambda: pc.pairhmm_bwd_codes(*args))
+    pc.wavefront.check_waits(dev)
+    cells = float(np.sum(lx.astype(np.int64) * ly.astype(np.int64)))
+    kk = i.shape[1]
+    bnd = bound_ms(4 * (float(lx.sum()) + float(ly.sum()) + 2 * b
+                        + b * (kk * kk + kk + 16)) + 4 * cells,
+                   cells * BWD_OPS_PER_CELL)
+    print(f"kernel 3K pairhmm_bwd_codes on the wave (G = {geo.g}, "
+          f"{geo.groups} groups a pair; {b} pairs at {width}, lx "
+          f"{int(lx.min())}-{int(lx.max())}, per-pair tables) vs plain: rows "
+          f"u < {HELD_ROWS} (each pair's last {HELD_ROWS} rows of x) and "
+          f"rows u >= lx (zero) max |d| {d:.3e} "
+          f"{'equal' if d == 0 else 'FAIL'}; {ms:.3f} ms (was "
+          f"{BWD_CODES_WAS_MS[width]} ms one block a pair: "
+          f"{BWD_CODES_WAS_MS[width] / ms:.1f}x; plain {plain:.1f} ms on "
+          f"{HELD_ROWS} rows, bound {bnd[0]:.4f} ms by {bnd[1]})", flush=True)
+    if d:
+        raise SmokeFailure("kernel 3K on the wave differs from its plain "
+                           "version")
+    del rb
+    torch.cuda.empty_cache()
+    return d, ms, bnd
 
 
 MULTI_KERNELS = ("pairhmm_fwd_multi", "pairhmm_bwd_post_multi")
@@ -2902,35 +3090,50 @@ class MultiKernelCheck:
 
 
 class LetterLegacyCheck:
-    """Stands in for kernel 3K's wrapper while the legacy letter route
-    runs: each launch held, as it happens, to its plain version on the
-    same inputs; the checks' time kept out of the wall."""
+    """Stands in for kernels 3K's and 4's wrappers while the legacy letter
+    route runs: each launch held, as it happens, to its plain version on
+    the same inputs; the checks' time kept out of the wall."""
 
     def __init__(self):
         self.errs: list[float] = []
+        self.mea_errs: list[float] = []
         self.seconds = 0.0
-        self.saved = None
+        self.saved = {}
 
-    def __call__(self, *args):
+    def _held(self, errs, check):
         import torch
-        from muscle_tpu_torch.ops import pairhmm_cuda as pc
-        rb = self.saved(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        self.errs.append(float((rb - pc.bwd_codes_plain(*args)).abs().max()))
+        errs.append(check())
         torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
+
+    def bwd(self, *args, **kwargs):
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        rb = self.saved["bwd"](*args, **kwargs)
+        self._held(self.errs, lambda: rbm_err(
+            rb, pc.bwd_codes_plain(*args), args[2], args[3]))
         return rb
+
+    def mea(self, post, *args, **kwargs):
+        from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+        got = self.saved["mea"](post, *args, **kwargs)
+        self._held(self.mea_errs, lambda: float(
+            (got - pe.mea_scores_plain(post)).abs().max()))
+        return got
 
     def __enter__(self):
         from muscle_tpu_torch.ops import pairhmm_cuda as pc
-        self.saved = pc.pairhmm_bwd_codes
-        pc.pairhmm_bwd_codes = self
+        from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+        self.saved = {"bwd": pc.pairhmm_bwd_codes, "mea": pe.mea_scores}
+        pc.pairhmm_bwd_codes, pe.mea_scores = self.bwd, self.mea
         return self
 
     def __exit__(self, *exc):
         from muscle_tpu_torch.ops import pairhmm_cuda as pc
-        pc.pairhmm_bwd_codes = self.saved
+        from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+        pc.pairhmm_bwd_codes = self.saved["bwd"]
+        pe.mea_scores = self.saved["mea"]
 
 
 def efa_blocks(path):
@@ -3113,14 +3316,19 @@ def phase_ensembles(dev) -> dict:
     same = msa.to_fasta_text() == fused.to_fasta_text()
     gold = MultiSequence.from_fasta(os.path.join(ROOT, FAMILIES[0][3]))
     print(f"{name}: the legacy letter route (fused=False): wall={wall:.2f}s "
-          f"launches={json.dumps(got)}; {len(check.errs)} kernel-3K "
-          f"launch(es) held to the plain version: max |d| "
-          f"{max(check.errs or [0.0]):.3e}; text equal to the fused route's: "
-          f"{same}; Q vs golden {q_score(msa, gold):.4f}", flush=True)
-    if len(check.errs) != got["pairhmm_bwd_codes"] or any(check.errs):
-        raise SmokeFailure(f"{name}: a kernel-3K launch unheld or different "
-                           "from its plain version")
-    out[name] = {"wall_s": wall, "errs": check.errs}
+          f"launches={json.dumps(got)}; {len(check.errs)} kernel-3K and "
+          f"{len(check.mea_errs)} kernel-4 launch(es) held to the plain "
+          f"versions: max |d| {max(check.errs or [0.0]):.3e}, "
+          f"{max(check.mea_errs or [0.0]):.3e}; text equal to the fused "
+          f"route's: {same}; Q vs golden {q_score(msa, gold):.4f}",
+          flush=True)
+    if (len(check.errs) != got["pairhmm_bwd_codes"] or any(check.errs)
+            or len(check.mea_errs) != got["mea_scores"]
+            or any(check.mea_errs)):
+        raise SmokeFailure(f"{name}: a kernel-3K or kernel-4 launch unheld "
+                           "or different from its plain version")
+    out[name] = {"wall_s": wall, "errs": check.errs,
+                 "mea_errs": check.mea_errs}
     return out
 
 
@@ -3191,6 +3399,8 @@ def main() -> int:
                    for errs in (ens[run]["errs"], ens[run]["plain_errs"])
                    for e in errs[k]]
     held["pairhmm_bwd_codes"] = ens["legacy-BB11001"]["errs"]
+    held["mea_scores"] = (held.get("mea_scores", [])
+                          + ens["legacy-BB11001"]["mea_errs"])
     held["densify_reduce"] = [c["err"] for c in GRID_CHECK.cases]
     held["mea_dirs"] = [c["err"] for c in MEA_CHECK.cases]
     for k in kernels:
@@ -3211,7 +3421,7 @@ def main() -> int:
                  max_abs_err=max(k["max_abs_err"], AB_WIDE["max_abs_err"]))
     # kernel 3: its launches by schedule and width; mea_dirs: its
     # launches by (cc1, cc2) rung and the held launches' summed times
-    for name in ("pairhmm_bwd", "pairhmm_fwd_emis"):
+    for name in ("pairhmm_bwd", "pairhmm_fwd_emis", "pairhmm_bwd_codes"):
         k = next(k for k in kernels if k["name"] == name)
         k["schedule"] = {f"{sched} {ly}": n for (kn, sched, ly), n
                          in sorted(MAIN_SCHEDULES.items()) if kn == name}
@@ -3220,6 +3430,11 @@ def main() -> int:
     # printed line
     next(k for k in kernels if k["name"] == "pairhmm_fwd_emis").update(
         ms_12288=WIDE_1E["ms"], bound_ms_12288=WIDE_1E["bound"])
+    # kernel 4: its time and bound at the legacy letter route's 512 x 512^2
+    # beside mega-long's chunk
+    k4 = next(k for k in kernels if k["name"] == "mea_scores")
+    k4.update(ms_512=MEA_512["ms"], bound_ms_512=MEA_512["bound"],
+              max_abs_err=max(k4["max_abs_err"], MEA_512["err"]))
     km = next(k for k in kernels if k["name"] == "mea_dirs")
     rungs = mea_rungs()
     km["schedule"] = {f"wave {r1} x {r2}": n for (r1, r2), (n, _, _)

@@ -56,14 +56,9 @@
 //     overwrites a column only after warp 0 read it (the next round's
 //     last band reaches column c only after warp 0's band passed c +
 //     31 and waited for its copies).
-// The posterior reaches a lane through a stage ring in shared memory:
-// chunks of CW columns of the band's 32 rows, copied by cp.async AHEAD
-// chunks ahead of the window of CW steps that reads them (zeros past
-// cc1 and cc2); a lane reads column j of its row at stage[t][j mod
-// RING_COLS], where the first slot is kept twice, at its place and past
-// the last slot, so that a window's 16 reads are at offsets 0..15 from
-// one address; rows are ROW floats apart, a multiple of 32, so the 32
-// lanes (rows t, columns s - t) hit 32 different banks. The step is
+// The posterior reaches a lane through a stage ring in shared memory
+// (mea_wave.cuh, shared with kernel 4, mea_scores.cu, as are the ring's
+// takes and waits and the link's staging). The step is
 // short because a warp issues it 32 rows at a time and up to 16 warps
 // share the SM's issue slots: a lane shifts each code into its word (a
 // funnel shift, stopped after column cc2 - 1) and stores the word at
@@ -76,175 +71,15 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "mea_wave.cuh"
+
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int CW = 16;               // columns a staged chunk, steps a window
-constexpr int NCH = 5;               // chunks in a warp's stage ring
-constexpr int RING_COLS = CW * NCH;  // columns of the stage ring
-constexpr int ROW = RING_COLS + CW;  // floats a stage row: ring + slot 0 again
-constexpr int AHEAD = 2;             // chunks in flight past the window's
-constexpr int HC = 16;               // columns a take, a wait and a count
-constexpr int RING = 128;            // hand-over ring, slots a warp
+using namespace mw;
+
 constexpr int LINK_HC = 128;         // columns a publication of the link row
 constexpr int MAX_WARPS = 16;
-constexpr unsigned SLEEP_NS = 32;    // a waiting lane's nap
-// a window reads columns s0 - 31 .. s0 + CW - 1: three chunks; the two
-// in flight take the other slots. The last two are zero when a band
-// starts: its lanes read columns -31 .. -1 there before those chunks
-// arrive
-static_assert(NCH >= AHEAD + 3 && ROW % 32 == 0 && CW % HC == 0 &&
-                  RING % HC == 0 && LINK_HC % CW == 0,
-              "ring sizes");
-
-// stage rows a warp: its band's 32 and the link row
-constexpr int STAGE_ROWS = 33;
-// an empty ring slot: a position no column has
-constexpr unsigned long long EMPTY = 0xffffffff00000000ull;
-
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// A wait that has run past `limit` cycles sets the fault flag and gives
-// up; after that (alive false) no wait of the thread waits.
-__device__ __forceinline__ bool timed_out(long long t0, long long limit,
-                                          int* fault, bool& alive) {
-  if (clock64() - t0 <= limit) return false;
-  atomicExch(fault, 1);
-  alive = false;
-  return true;
-}
-
-// The warp's next n <= HC ring slots: lane q < n the slot of position
-// first + q (its value in the low word, its position in the high word)
-// once it holds that position, the whole warp napping meanwhile.
-__device__ __forceinline__ unsigned long long take_slots(
-    const volatile unsigned long long* ring, int first, int n, int lane,
-    long long limit, int* fault, bool& alive) {
-  const bool mine = lane < n;
-  const int want = first + lane;
-  const volatile unsigned long long* slot = ring + (want & (RING - 1));
-  unsigned long long v = mine ? *slot : 0ull;
-  if (__any_sync(FULL, mine && (int)(v >> 32) != want) &&
-      __all_sync(FULL, alive)) {
-    const long long t0 = clock64();
-    do {
-      __nanosleep(SLEEP_NS);
-      if (mine) v = *slot;
-      if (__any_sync(FULL, clock64() - t0 > limit)) {
-        if (lane == 0) atomicExch(fault, 1);
-        alive = false;
-        break;
-      }
-    } while (__any_sync(FULL, mine && (int)(v >> 32) != want));
-  }
-  return v;
-}
-
-// The warp waits, napping, until the consumer has read position
-// `need` - 1.
-__device__ __forceinline__ void wait_taken(const volatile int* taken,
-                                           int need, int lane,
-                                           long long limit, int* fault,
-                                           bool& alive) {
-  if (!__any_sync(FULL, *taken < need) || !__all_sync(FULL, alive)) return;
-  const long long t0 = clock64();
-  while (__any_sync(FULL, *taken < need)) {
-    if (__any_sync(FULL, clock64() - t0 > limit)) {
-      if (lane == 0) atomicExch(fault, 1);
-      alive = false;
-      break;
-    }
-    __nanosleep(SLEEP_NS);
-  }
-}
-
-// Chunk c (columns CW c ..) of rows row0 .. row0 + 31 into its slot of
-// the stage ring (slot 0 also past the last slot), zeros past cc1 and
-// cc2; kVec: 16-byte copies (cc2 a multiple of 4, post 16-byte
-// aligned). With `link`, lane 0 also stages the link row's chunk c
-// (positions base + CW c ..) as row 32, once the count says it is
-// written.
-template <bool kVec>
-__device__ __forceinline__ void stage_chunk(
-    float* stage, const float* __restrict__ post, int row0, int cc1, int cc2,
-    int c, int lane, const float* link, const int* link_count, int base,
-    int& known, long long limit, int* fault, bool& alive) {
-  const int col0 = c * CW;
-  const int slot = (c % NCH) * CW;
-  const int copies = slot == 0 ? 2 : 1;
-  for (int m = 0; m < copies; ++m) {
-    float* dst = stage + (m ? RING_COLS : slot);
-    if (kVec) {
-#pragma unroll
-      for (int k = 0; k < 32 * CW / 4 / 32; ++k) {
-        const int e = lane + 32 * k;
-        const int r = e / (CW / 4), q = e % (CW / 4) * 4;
-        const bool ok = row0 + r < cc1 && col0 + q < cc2;
-        cp_async16(dst + r * ROW + q,
-                   post + (ok ? (size_t)(row0 + r) * cc2 + col0 + q : 0), ok);
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        const int e = lane + 32 * k;
-        const int r = e / CW, q = e % CW;
-        const bool ok = row0 + r < cc1 && col0 + q < cc2;
-        cp_async(dst + r * ROW + q,
-                 post + (ok ? (size_t)(row0 + r) * cc2 + col0 + q : 0), ok);
-      }
-    }
-    if (link != nullptr && lane == 0 && col0 < cc2) {
-      // `known`: the count lane 0 last read (the producer is far ahead:
-      // one read covers many chunks)
-      const int need = base + min(col0 + CW, cc2);
-      if (m == 0 && known < need && alive) {
-        const long long t0 = clock64();
-        while ((known = ld_acquire(link_count)) < need) {
-          if (timed_out(t0, limit, fault, alive)) break;
-          __nanosleep(SLEEP_NS);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < CW; q += 4)
-        cp_async16(dst + 32 * ROW + q, link + col0 + q, true);
-    }
-  }
-}
+static_assert(LINK_HC % CW == 0, "link publication");
 
 template <bool kVec>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
@@ -293,8 +128,9 @@ mea_dirs_kernel(const float* __restrict__ post, int cc1, int cc2,
     for (int q = RING_COLS - 2 * CW; q < RING_COLS; ++q) stage[lane * ROW + q] = 0.0f;
 #pragma unroll
     for (int c = 0; c < AHEAD; ++c) {
-      stage_chunk<kVec>(stage, post, row0, cc1, cc2, c, lane, lk, link_count,
-                        in_base, known, wait_cycles, fault, alive);
+      stage_chunk<kVec>(stage, post, row0, cc1, cc2, cc2, c, lane, lk,
+                        link_count, in_base, known, wait_cycles, fault,
+                        alive);
       cp_commit();
     }
     float cur = 0.0f;   // new(i, j)
@@ -303,9 +139,9 @@ mea_dirs_kernel(const float* __restrict__ post, int cc1, int cc2,
     int jm = lane == 0 ? 0 : RING_COLS - lane;  // (s0 - lane) mod RING_COLS
     for (int s0 = 0; s0 < steps; s0 += CW) {
       __syncwarp();  // the window before is read: its first slot is free
-      stage_chunk<kVec>(stage, post, row0, cc1, cc2, s0 / CW + AHEAD, lane,
-                        lk, link_count, in_base, known, wait_cycles, fault,
-                        alive);
+      stage_chunk<kVec>(stage, post, row0, cc1, cc2, cc2, s0 / CW + AHEAD,
+                        lane, lk, link_count, in_base, known, wait_cycles,
+                        fault, alive);
       cp_commit();
       cp_wait<AHEAD>();
       __syncwarp();  // every lane's copies of this window's chunk landed
@@ -379,12 +215,6 @@ mea_dirs_kernel(const float* __restrict__ post, int cc1, int cc2,
     cp_wait<0>();
     __syncwarp();
   }
-}
-
-// Dynamic shared memory of a launch of `warps` warps, bytes.
-size_t smem_bytes(int warps) {
-  return (size_t)warps * (sizeof(float) * STAGE_ROWS * ROW +
-                          sizeof(unsigned long long) * RING + sizeof(int));
 }
 
 template <bool kVec>

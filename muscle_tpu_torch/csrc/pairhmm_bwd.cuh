@@ -1,10 +1,12 @@
 // Kernels 3 and 3K: the legacy pair-HMM backward pass over the reversed
 // sequences. This header holds their layout and step and kernel 3K's
-// body, one thread block per pair, templated on the emission source
-// (pairhmm_common.cuh): letters and their score tables (kernel 3K,
-// pairhmm_bwd_codes.cu). Kernel 3 (a precomputed emission lattice,
-// pairhmm_bwd.cu) runs the same steps in the same layout on the wide
-// schedule (pairhmm_wave.cuh's backward body with kLegacy). Both write
+// block body, one thread block per pair, templated on the emission
+// source (pairhmm_common.cuh): letters and their score tables (kernel
+// 3K, pairhmm_bwd_codes.cu, where ops/pairhmm_cuda.py::bwd_codes_geometry
+// picks it, at most 2048 lanes: S = 1 segment a warp). The same steps in
+// the same layout run on the wide schedule (pairhmm_wave.cuh's backward
+// body with kLegacy): kernel 3 (a precomputed emission lattice,
+// pairhmm_bwd.cu) at every width, kernel 3K elsewhere. All write
 // the reversed backward M lattice RB_M (B, Lx, Ly).
 //
 // Replaces muscle_tpu/ops/pairhmm_pallas.py::_bwd_kernel (kernel 3:
@@ -26,7 +28,9 @@
 // rolled codes exist. Lanes v >= ly take LOG_ZERO emissions and insert
 // scores: no lane v < ly depends on them (every dependence runs from
 // lower lanes to higher), and _finish_posteriors reads only rows u < lx
-// and lanes v < ly. Rows u >= lx are written as zeros. Step u > 0 is
+// and lanes v < ly. Rows u >= lx are written as zeros; the block body
+// does no work on the 64-lane segments past ly in rows u < lx and leaves
+// them unwritten, as kernel A does. Step u > 0 is
 // kernel B's backward step (pairhmm_bwd_post.cuh) without its padding
 // lanes; each step writes shift_fill(M row, column-0 chain) as row u, as
 // the Pallas kernel does. The params row is pair b's (pstride 16) or
@@ -40,9 +44,13 @@
 // of the sequential recurrence. As in kernels A and B, the
 // association-preserving scan does several times those operations along
 // a serial row chain; kernel 3K's block body runs one block per pair (512
-// pairs fill the 132 SMs), its state rows in registers (S <= 5 segments a
-// warp at Ly <= 10240; ptxas's counts are printed by chip_smoke.py), its
-// emissions gathered from the tables in shared memory, as kernel A does.
+// pairs fill the 132 SMs, ~4 blocks an SM), its state rows in registers
+// (S = 1 segment a warp up to 2048 lanes; ptxas's counts are printed by
+// chip_smoke.py), its emissions gathered from the tables in shared
+// memory, as kernel A does. Its rows are bound by the instruction
+// throughput of SMs that several blocks share, so its LOG_ADDs are
+// selects (kBF: the same operations, the same bits) and it skips the
+// segments past ly.
 #pragma once
 
 #include "pairhmm_common.cuh"
@@ -74,6 +82,10 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
   const float tII = pp[TII], tIM = pp[TIM], tJJ = pp[TJJ];
   const float tJM = pp[TJM];
   const int lx = lxb[b], ly = lyb[b];
+  // segments that hold real columns: the row loop does no work on the
+  // others (no lane below ly depends on them, and the combine reads no
+  // cell of RB_M past ly; their lanes of rows u < lx are not written)
+  const int nlive = min(nseg, (ly + 63) >> 6);
   float* rb_b = rbm + (size_t)b * Lx * Ly;
 
   // rows u >= lx are zero
@@ -126,7 +138,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
                             jy[s][0]};
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
-        m[s][e2] = log_add(__fadd_rn(__fadd_rn(tMI, shi[e2]), insy[s][e2]),
+        m[s][e2] = log_add<kBF>(__fadd_rn(__fadd_rn(tMI, shi[e2]), insy[s][e2]),
                            __fadd_rn(__fadd_rn(tMJ, shj[e2]), insy[s][e2]));
         ix[s][e2] = LOG_ZERO;
         jx[s][e2] = LOG_ZERO;
@@ -148,7 +160,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int g = warp + s * W;
-        if (g < nseg) {
+        if (g < nlive) {
           const float shm[2] = {left_of_even(m[s][1], m0, s_edge_m, g, l),
                                 m[s][0]};
 #pragma unroll
@@ -159,15 +171,15 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
             nm[s][e2] = __fadd_rn(shm[e2], er);
             nix[s][e2] = __fadd_rn(ix[s][e2], insx);
             njx[s][e2] = __fadd_rn(jx[s][e2], insx);
-            ix[s][e2] = log_add(__fadd_rn(tII, nix[s][e2]), __fadd_rn(tIM, nm[s][e2]));
-            jx[s][e2] = log_add(__fadd_rn(tJJ, njx[s][e2]), __fadd_rn(tJM, nm[s][e2]));
+            ix[s][e2] = log_add<kBF>(__fadd_rn(tII, nix[s][e2]), __fadd_rn(tIM, nm[s][e2]));
+            jx[s][e2] = log_add<kBF>(__fadd_rn(tJJ, njx[s][e2]), __fadd_rn(tJM, nm[s][e2]));
             aI[s][e2] = __fadd_rn(insy[s][e2], tII);
             cI[s][e2] = __fadd_rn(tIM, nm[s][e2]);
             aJ[s][e2] = __fadd_rn(insy[s][e2], tJJ);
             cJ[s][e2] = __fadd_rn(tJM, nm[s][e2]);
           }
-          seg_scan(aI[s], cI[s], l);
-          seg_scan(aJ[s], cJ[s], l);
+          seg_scan<kBF>(aI[s], cI[s], l);
+          seg_scan<kBF>(aJ[s], cJ[s], l);
           if (l == 31) {
             s_tot[g] = aI[s][1];
             s_tot[nseg + g] = cI[s][1];
@@ -178,21 +190,21 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
       }
       const float ix0n = __fadd_rn(__fadd_rn(tII, ix0), insx);
       const float jx0n = __fadd_rn(__fadd_rn(tJJ, jx0), insx);
-      const float m0n = log_add(__fadd_rn(__fadd_rn(tMI, ix0), insx),
+      const float m0n = log_add<kBF>(__fadd_rn(__fadd_rn(tMI, ix0), insx),
                                 __fadd_rn(__fadd_rn(tMJ, jx0), insx));
       __syncthreads();
       // (2) carry over the segments
-      carry_chain(s_tot, s_carry, nseg, nseg);
+      carry_chain<kBF>(s_tot, s_carry, nseg, nlive);
       __syncthreads();
       // (3) IY/JY rows
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int g = warp + s * W;
-        if (g < nseg) {
+        if (g < nlive) {
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
-            iy[s][e2] = log_add_p(__fadd_rn(s_carry[g], aI[s][e2]), cI[s][e2]);
-            jy[s][e2] = log_add_p(__fadd_rn(s_carry[nseg + g], aJ[s][e2]), cJ[s][e2]);
+            iy[s][e2] = log_add_p<kBF>(__fadd_rn(s_carry[g], aI[s][e2]), cI[s][e2]);
+            jy[s][e2] = log_add_p<kBF>(__fadd_rn(s_carry[nseg + g], aJ[s][e2]), cJ[s][e2]);
           }
           if (l == 31) {
             s_edge_iy[g] = iy[s][1];
@@ -205,7 +217,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
 #pragma unroll
       for (int s = 0; s < S; ++s) {
         const int g = warp + s * W;
-        if (g < nseg) {
+        if (g < nlive) {
           const float shi[2] = {left_of_even(iy[s][1], LOG_ZERO, s_edge_iy, g, l),
                                 iy[s][0]};
           const float shj[2] = {left_of_even(jy[s][1], LOG_ZERO, s_edge_jy, g, l),
@@ -214,7 +226,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
           for (int e2 = 0; e2 < 2; ++e2) {
             const float niy = __fadd_rn(shi[e2], insy[s][e2]);
             const float njy = __fadd_rn(shj[e2], insy[s][e2]);
-            m[s][e2] = log_add5(__fadd_rn(tMM, nm[s][e2]), __fadd_rn(tMI, nix[s][e2]),
+            m[s][e2] = log_add5<kBF>(__fadd_rn(tMM, nm[s][e2]), __fadd_rn(tMI, nix[s][e2]),
                                 __fadd_rn(tMJ, njx[s][e2]), __fadd_rn(tMI, niy),
                                 __fadd_rn(tMJ, njy));
           }
@@ -231,7 +243,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int g = warp + s * W;
-      if (g < nseg) {
+      if (g < nlive) {
         const float lo = left_of_even(m[s][1], m0, s_edge_m, g, l);
         *reinterpret_cast<float2*>(rb_b + (size_t)u * Ly + g * 64 + 2 * l) =
             make_float2(lo, m[s][0]);
@@ -253,29 +265,14 @@ static int launch_bwd(const Geometry& geo, int B, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch at the geometry of Ly: S = 1..5 segments per warp.
+// One launch at the geometry of Ly: S = 1 segment a warp (Ly <= 2048);
+// wider rows take the wave (pairhmm_wave.cuh), so any other S is refused.
 template <class Src>
 static int dispatch_bwd(int B, cudaStream_t st, const typename Src::Args& args,
                         const int* lxb, const int* lyb, const float* params,
                         int pstride, int Lx, int Ly, float* rbm) {
   const Geometry geo = geometry(Ly, Src::table_floats(args), 9);
-  switch (geo.S) {
-    case 1:
-      return launch_bwd<1, Src>(geo, B, st, args, lxb, lyb, params, pstride,
-                                Lx, Ly, rbm);
-    case 2:
-      return launch_bwd<2, Src>(geo, B, st, args, lxb, lyb, params, pstride,
-                                Lx, Ly, rbm);
-    case 3:
-      return launch_bwd<3, Src>(geo, B, st, args, lxb, lyb, params, pstride,
-                                Lx, Ly, rbm);
-    case 4:
-      return launch_bwd<4, Src>(geo, B, st, args, lxb, lyb, params, pstride,
-                                Lx, Ly, rbm);
-    case 5:
-      return launch_bwd<5, Src>(geo, B, st, args, lxb, lyb, params, pstride,
-                                Lx, Ly, rbm);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (geo.S != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<1, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx,
+                            Ly, rbm);
 }

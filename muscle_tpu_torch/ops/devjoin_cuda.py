@@ -52,7 +52,8 @@ _DR_ROWS_PER_WARP = 2
 _DR_MAX_WARPS = 8
 _DR_STAGE = (2 * 32 * _DR_MAX_WARPS + _DR_MAX_WARPS) * 4
 _DR_TILE_AIM = 228 * 1024 // 4 - _DR_STAGE - 1024
-# mea_dirs (csrc/mea_dirs.cu, whose constants these repeat): chunks of
+# mea_dirs (csrc/mea_dirs.cu and mea_wave.cuh, whose constants these
+# repeat; kernel 4, csrc/mea_scores.cu, shares the header): chunks of
 # CHUNK columns staged SLOTS to a warp's ring (slot 0 kept twice), AHEAD
 # in flight; inside a round of bands, the band above's row handed over
 # through a ring of RING (value, position) slots, waited on and counted
@@ -74,12 +75,19 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def mea_deps() -> tuple[str, ...]:
+    """The header mea_dirs shares with kernel 4 (csrc/mea_wave.cuh)."""
+    from ..utils.build import package_path
+    return (package_path("csrc", "mea_wave.cuh"),)
+
+
 def kernel_specs():
     """Build specs of the three libraries; kernels 7 and 7L are keyed on
-    their shared header too."""
+    their shared header too, mea_dirs on the one it shares with kernel 4."""
     from ..utils.build import cuda_spec, package_path
     dep = (package_path("csrc", "densify_reduce.cuh"),)
-    return [cuda_spec(k, deps=dep if k.startswith("densify_reduce") else ())
+    return [cuda_spec(k, deps=dep if k.startswith("densify_reduce")
+                      else mea_deps())
             for k in LAUNCHES]
 
 

@@ -21,8 +21,9 @@ them apart, as `pairhmm_fwd_multi` and `pairhmm_bwd_post_multi`. Under `fused=Fa
 MUSCLE_TPU_FUSED=0) both entry points take the legacy route of the
 letter path instead: kernel A (or 1M), kernel 3K, `pairhmm_bwd_codes`
 (csrc/pairhmm_bwd_codes.cu, replaces `_bwd_kernel` with kk=K: the
-reversed backward M lattice from letters), `finish_posteriors` and
-kernel 4 (ops/pairhmm_emis_cuda.py).
+reversed backward M lattice from letters, on A and B's two schedules,
+its wave kernel 3's), `finish_posteriors` and kernel 4
+(ops/pairhmm_emis_cuda.py).
 
 Beside each kernel is its plain twin (`fwd_plain`, `bwd_post_plain`,
 `bwd_codes_plain`; each takes shared or per-pair tables): a torch
@@ -111,6 +112,22 @@ AB_GROUP_SEGMENTS = 4
 # 1; tools/torch_ab_probe.py --crossover); at S = 1 one block a pair
 # stays
 WAVE_MIN_LY = 2048
+
+
+# kernel 3K's schedule (kernel 3's wave or its own block body, which
+# skips the segments past ly): rows wider than BWD_CODES_WAVE_MIN_LY
+# take the wave whatever B; from BWD_CODES_FEW_MIN_LY the wave takes
+# launches of at most BWD_CODES_WAVE_MAX_B pairs, where one block a pair
+# leaves SMs idle (132 on the H100) and the wave spreads each row over
+# its groups. B moves the crossover only there. On an H100 80GB HBM3 at
+# 700 W, wave / block time (tools/torch_mea_bwd_probe.py --crossover, B
+# = 1-512): 1.15-1.22 at 128 and 1.03-1.08 at 512 for every B; at 768
+# 0.85 (B = 1-16), 0.88 (64), 0.96 (128), 1.09 (256), 1.05 (512); at
+# 1024 0.69 (1-16), 0.73 (64), 0.90 (128), 1.00 (256), 1.05 (512); at
+# 2048 0.37-0.87 for every B
+BWD_CODES_WAVE_MIN_LY = 1024
+BWD_CODES_FEW_MIN_LY = 768
+BWD_CODES_WAVE_MAX_B = 128
 
 
 class ABGeometry(NamedTuple):
@@ -590,7 +607,8 @@ def _lib(name: str):
                   {"pairhmm_fwd": [vp] * 7 + [ci] * 5 + wave + [vp] * 3,
                    "pairhmm_bwd_post": [vp] * 7 + [ci] + [vp] + [ci] * 5
                    + wave + [vp] * 4,
-                   "pairhmm_bwd_codes": [vp] * 7 + [ci] * 5 + [vp] * 2},
+                   "pairhmm_bwd_codes": [vp] * 7 + [ci] * 5 + wave
+                   + [vp] * 2},
                   _libs)
     return _libs[name]
 
@@ -726,22 +744,46 @@ def pairhmm_bwd_post(xb, yb, lxb, lyb, match, insert, params, tot, fm,
     return post, mea
 
 
-def pairhmm_bwd_codes(xb, yb, lxb, lyb, match, insert, params):
+def bwd_codes_geometry(b: int, ly: int, schedule: str | None = None,
+                       g: int | None = None) -> ABGeometry:
+    """Kernel 3K's schedule for B pairs at width Ly: `schedule` if given,
+    else the wave beyond BWD_CODES_WAVE_MIN_LY, and from
+    BWD_CODES_FEW_MIN_LY for at most BWD_CODES_WAVE_MAX_B pairs; G as
+    `ab_geometry`. Its block body runs one segment a warp, so "block"
+    beyond WAVE_MIN_LY raises."""
+    if schedule is None:
+        wave = ly > BWD_CODES_WAVE_MIN_LY or (
+            ly >= BWD_CODES_FEW_MIN_LY and b <= BWD_CODES_WAVE_MAX_B)
+        schedule = "wave" if wave else "block"
+    if schedule == "block" and ly > WAVE_MIN_LY:
+        raise ValueError(f"kernel 3K's block body runs up to {WAVE_MIN_LY} "
+                         f"lanes, not {ly}: the wave takes wider rows")
+    return ab_geometry(b, ly, schedule, g)
+
+
+def pairhmm_bwd_codes(xb, yb, lxb, lyb, match, insert, params,
+                      schedule: str | None = None, g: int | None = None):
     """Kernel 3K (legacy backward from letters: RB_M (B, Lx, Ly), rows
-    u >= lx zero), with one table set or one a pair. CPU tensors run
+    u >= lx zero, on the block schedule the lanes past ly of rows u < lx
+    unwritten), with one table set or one a pair, on the schedule
+    `bwd_codes_geometry(B, Ly, schedule, g)` picks (the wave: kernel 3's;
+    the caller then runs `wavefront.check_waits`). CPU tensors run
     `bwd_codes_plain`."""
+    geo = bwd_codes_geometry(xb.shape[0], yb.shape[1], schedule, g)
     if not _on_card(xb):
         return bwd_codes_plain(xb, yb, lxb, lyb, match, insert, params)
     b, lx, ly, kk = _check_inputs(xb, yb, lxb, lyb, match, insert, params)
     per_pair = match.dim() == 3
     rbm = torch.empty((b, lx, ly), dtype=torch.float32, device=xb.device)
     lib = _lib("pairhmm_bwd_codes")
+    wave, _bufs = _wave_args(geo, b, lx, ly, "bwd", xb.device)
     rc = lib.pairhmm_bwd_codes(_ptr(xb), _ptr(yb), _ptr(lxb), _ptr(lyb),
                                _ptr(match), _ptr(insert), _ptr(params),
-                               int(per_pair), b, lx, ly, kk, _ptr(rbm),
-                               _stream(xb))
+                               int(per_pair), b, lx, ly, kk, *wave,
+                               _ptr(rbm), _stream(xb))
     _raise_on(lib, rc, "pairhmm_bwd_codes")
     LAUNCHES["pairhmm_bwd_codes"] += 1
+    SCHEDULES[("pairhmm_bwd_codes", geo.schedule, ly)] += 1
     return rbm
 
 
@@ -752,7 +794,8 @@ def letter_path(xb, yb, lxb, lyb, match, insert, params, with_mea=True,
     without its emission-lattice branch: the lattice route gives these
     kernels' bits, PERF.md). Fused (default FUSED): kernel A/1M, the
     total-probability fold, kernel B/2M. Legacy: kernel A/1M, kernel 3K,
-    `finish_posteriors` (each pair's start scores) and kernel 4."""
+    `finish_posteriors` (each pair's start scores) and kernel 4; the
+    route's hand-overs checked after it (`wavefront.check_waits`)."""
     if fused is None:
         fused = FUSED
     xb = xb.to(torch.int32).contiguous()
@@ -769,8 +812,9 @@ def letter_path(xb, yb, lxb, lyb, match, insert, params, with_mea=True,
         rbm = pairhmm_bwd_codes(xb, yb, lxb, lyb, match, insert, params)
         post = finish_posteriors(fm, rbm, fend, lxb, lyb, params)
         del rbm
-        mea = mea_scores(post, lxb) if with_mea else None
-    if _on_card(xb) and ab_geometry(*yb.shape).schedule == "wave":
+        mea = mea_scores(post, lxb, lyb) if with_mea else None
+    if _on_card(xb) and (not fused
+                         or ab_geometry(*yb.shape).schedule == "wave"):
         wavefront.check_waits(xb.device)    # raises on a stuck hand-over
     if with_mea:
         ea = mea / torch.minimum(lxb, lyb).float()

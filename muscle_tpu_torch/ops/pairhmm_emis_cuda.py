@@ -23,8 +23,14 @@ row as a skewed wavefront of groups of G segments across SMs
 (csrc/pairhmm_wave.cuh's forward body, the lattice read a row ahead;
 `fwd_wave_plain` is its twin). Kernel 3 runs on the wave at every width
 (`bwd_geometry`: the backward body in kernel 3's layout;
-`bwd_wave_plain` is its twin). A caller runs `wavefront.check_waits`
-after a wave launch, as both routes do.
+`bwd_wave_plain` is its twin, and kernel 3K's on the wave). A caller
+runs `wavefront.check_waits` after a wave launch, as both routes do.
+Kernel 4 runs each pair's rows as a wavefront of bands of 32 rows, a
+round of up to 16 bands a block and the next round on another block,
+which reads the round's last row from device memory (csrc/mea_wave.cuh,
+shared with mea_dirs; `mea_scores_warps` picks the bands a block from B
+and Lx; `mea_scores_wave_plain` is its twin); the legacy route checks
+the waits of its kernels once, after kernel 4.
 
 Kernels 1E and 2E are kernels A and B (ops/pairhmm_cuda.py) with the
 lattice as their emission source (csrc/pairhmm_common.cuh); fed the
@@ -41,8 +47,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from . import devjoin_cuda as djc
 from . import wavefront
 from .logspace import LOG_ZERO
 from .pairhmm import MIN_SPARSE_SCORE
@@ -64,6 +72,13 @@ MAX_LY = 12288
 
 LAUNCHES = {"pairhmm_fwd_emis": 0, "pairhmm_bwd_post_emis": 0,
             "pairhmm_bwd": 0, "mea_scores": 0}
+
+# kernel 4 (csrc/mea_scores.cu, whose constants these repeat; its stage
+# and hand-over rings are mea_dirs', devjoin_cuda.MEA_*): at most this
+# many warps a block, and a round's last row published to the next
+# round's block every LINK_HAND columns
+MEA_SCORES_MAX_WARPS = 16
+MEA_SCORES_LINK_HAND = 32
 
 # batches each route took since the last reset_routes()
 ROUTES = {"fused": 0, "legacy": 0}
@@ -274,6 +289,216 @@ def mea_scores_plain(post):
     return old[:, -1]
 
 
+def mea_scores_warps(b: int, lx: int, sms: int = 132) -> int:
+    """Warps a block of kernel 4 (bands of 32 rows a round), at most one
+    a band of the Lx padded rows: 16 while B pairs in blocks of 16 bands
+    fill fewer than two waves of the card's `sms` SMs (a block of 16
+    warps takes an SM's shared memory), so that a pair's chain crosses
+    the fewest links between blocks; 8 below three waves; else 4, so
+    that less of each block idles in the skew of its bands. On an H100
+    80GB HBM3 at 700 W (132 SMs; tools/torch_mea_bwd_probe.py --time
+    --warps) 16 was fastest at mega-long's chunk (8 x 12288^2), at 16-132
+    ragged pairs at 512 and 64 at 2048, 8 at 264 pairs at 512, 4 at 512
+    pairs at 512 (0.199 ms against 0.290 at 16)."""
+    nb = -(-lx // 32)
+    blocks = b * -(-nb // MEA_SCORES_MAX_WARPS)
+    warps = (MEA_SCORES_MAX_WARPS if blocks < 2 * sms
+             else 8 if blocks < 3 * sms else 4)
+    return max(1, min(nb, warps))
+
+
+def mea_scores_rounds(lx: int, warps: int) -> int:
+    """Rounds of bands a pair, one block each, over the Lx padded rows."""
+    return -(-(-(-lx // 32)) // warps)
+
+
+def mea_scores_buffers(b: int, lx: int, ly: int, warps: int, device):
+    """(sync, links) of a launch of kernel 4: the ticket and each block's
+    link count (int32, zeroed), and the link rows, Ly floats for each
+    block of every round but the last (whose blocks hand nothing on)."""
+    rounds = mea_scores_rounds(lx, warps)
+    sync = torch.zeros(1 + b * rounds, dtype=torch.int32, device=device)
+    links = torch.empty(max(1, b * (rounds - 1) * ly), dtype=torch.float32,
+                        device=device)
+    return sync, links
+
+
+class _Band:
+    """One warp of kernel 4's schedule: its band, step and stage ring (32
+    rows and the link row, slot 0 also past the last, and the link
+    positions it holds), and its lanes' registers (one row a lane)."""
+
+    def __init__(self, w: int, band: int):
+        self.w, self.band = w, band
+        self.s = 0
+        self.next_chunk = 0
+        cols = djc.MEA_CHUNK * (djc.MEA_SLOTS + 1)
+        self.stage = np.zeros((33, cols), np.float32)
+        self.stage_pos = np.full(cols, -1, np.int64)
+        # columns -31 .. -1 (the last two slots) read as zeros
+        ring_cols = djc.MEA_CHUNK * djc.MEA_SLOTS
+        self.stage[:32, ring_cols - 2 * djc.MEA_CHUNK:ring_cols] = 0.0
+        self.cur = np.zeros(32, np.float32)
+        self.oldj = np.zeros(32, np.float32)
+        self.hcol = np.zeros(djc.MEA_HAND, np.float32)
+        lanes = np.arange(32)
+        self.jm = np.where(lanes == 0, 0, ring_cols - lanes)
+
+
+class _Round:
+    """One block of kernel 4's schedule: ticket t, round t // B of pair
+    t % B, its warps' bands and their hand-over rings."""
+
+    def __init__(self, t: int, b_count: int, warps: int, lxs, lys):
+        self.t, self.r, self.b = t, t // b_count, t % b_count
+        self.lx, self.ly = int(lxs[self.b]), int(lys[self.b])
+        self.nb = -(-self.lx // 32) if self.ly > 0 else 0
+        self.bands = [_Band(w, self.r * warps + w) for w in range(warps)
+                      if self.r * warps + w < self.nb]
+        self.ring = np.zeros((warps, djc.MEA_RING), np.float32)
+        self.ring_pos = np.full((warps, djc.MEA_RING), -1, np.int64)
+        self.taken = np.zeros(warps, np.int64)
+
+
+def mea_scores_wave_plain(post, lxb, lyb, warps: int | None = None,
+                          resident: int | None = None):
+    """Kernel 4's schedule on the CPU (csrc/mea_scores.cu), numpy: blocks
+    taking tickets in order (at most `resident` at once, all if None),
+    ticket t running round t // B of pair t % B with `warps` warps
+    (default mea_scores_warps), one band of 32 rows a warp; lane t of a
+    band computes row 32 band + t's column s - t at band step s from
+    lane t-1's values of the step before, on every step (zeros before
+    its row starts and past ly); lane 0 from the band above, HAND
+    columns at a time, through warp w-1's ring inside the block (waiting
+    while a slot holds another position; lane 31 waits for room) or, for
+    warp 0 of a later round, from the link row of the block of ticket t
+    - B, staged chunk by chunk once its count covers the chunk (each read
+    checks that its slot holds the column it wants: a read before the
+    write raises); the posterior through the stage ring's slots, rows
+    past lx and columns past ly as zeros. Every warp takes one step a
+    tick when its waits allow; a tick where none can and no block can
+    start is a deadlock and raises. Returns the (B,) scores, as
+    mea_scores_plain for a posterior zero outside each pair's (lx, ly)."""
+    p = post.detach().cpu().numpy().astype(np.float32, copy=False)
+    b_count, n_rows, width = p.shape
+    w_count = warps or mea_scores_warps(b_count, n_rows)
+    tickets = b_count * mea_scores_rounds(n_rows, w_count)
+    lxs = np.minimum(lxb.cpu().numpy(), n_rows)
+    lys = np.minimum(lyb.cpu().numpy(), width)
+    chunk, hand, ring_n = djc.MEA_CHUNK, djc.MEA_HAND, djc.MEA_RING
+    ring_cols = chunk * djc.MEA_SLOTS
+    out = np.zeros(b_count, np.float32)
+    links = np.zeros((tickets, width), np.float32)
+    link_pos = np.full((tickets, width), -1, np.int64)
+    counts = np.zeros(tickets, np.int64)
+    lanes = np.arange(32)
+
+    def stage_chunk(blk: _Round, wp: _Band, c: int, link_in: bool) -> bool:
+        """Chunk c into its slot (slot 0 also past the last), zeros past
+        lx and ly; False (nothing staged) while the link's count is short
+        of it."""
+        col0 = c * chunk
+        src = blk.t - b_count
+        if (link_in and col0 < blk.ly
+                and counts[src] < min(col0 + chunk, blk.ly)):
+            return False
+        part = np.zeros((32, chunk), np.float32)
+        r0 = wp.band * 32
+        cut = p[blk.b, r0:min(r0 + 32, blk.lx), col0:min(col0 + chunk, blk.ly)]
+        part[:cut.shape[0], :cut.shape[1]] = cut
+        slot = (c % djc.MEA_SLOTS) * chunk
+        for at in ((slot, ring_cols) if slot == 0 else (slot,)):
+            wp.stage[:32, at:at + chunk] = part
+            if link_in and col0 < blk.ly:
+                wp.stage[32, at:at + chunk] = links[src, col0:col0 + chunk]
+                wp.stage_pos[at:at + chunk] = link_pos[src, col0:col0 + chunk]
+        return True
+
+    def step(blk: _Round, wp: _Band) -> bool:
+        """Band step s of warp wp; False when a wait holds it."""
+        w, s, ly = wp.w, wp.s, blk.ly
+        has_out = wp.band + 1 < blk.nb
+        ring_in, link_in = w > 0, w == 0 and blk.r > 0
+        ring_out = has_out and w < w_count - 1
+        link_out = has_out and w == w_count - 1
+        s0, k = s - s % chunk, s % chunk
+        while wp.next_chunk <= s0 // chunk + djc.MEA_AHEAD:
+            if not stage_chunk(blk, wp, wp.next_chunk, link_in):
+                return False
+            wp.next_chunk += 1
+        if k % hand == 0:
+            # the band above's next n columns, every slot written, or wait
+            n = max(0, min(hand, ly - s))
+            want = s + np.arange(n)
+            hcol = np.zeros(hand, np.float32)
+            if ring_in and n:
+                slot = want % ring_n
+                if (blk.ring_pos[w - 1, slot] != want).any():
+                    return False
+                hcol[:n] = blk.ring[w - 1, slot]
+                blk.taken[w - 1] = want[-1] + 1
+            if link_in and n:
+                at = wp.jm[0] + k + np.arange(n)
+                if (wp.stage_pos[at] != want).any():
+                    raise RuntimeError(
+                        f"mea_scores schedule: ticket {blk.t} band "
+                        f"{wp.band} wants link columns {want}, its slots "
+                        f"hold {wp.stage_pos[at]}")
+                hcol[:n] = wp.stage[32, at]
+            last31 = min(s + hand - 1 - 31, ly - 1)
+            if (ring_out and last31 >= 0
+                    and blk.taken[w] < last31 + 1 - ring_n):
+                return False            # lane 31 waits on the ring's room
+            wp.hcol = hcol
+        x = np.roll(wp.cur, 1)
+        x[0] = wp.hcol[k % hand]
+        wp.cur = np.maximum(wp.cur, np.maximum(
+            wp.oldj + wp.stage[lanes, wp.jm + k], x))
+        wp.oldj = x
+        j31 = s - 31
+        if 0 <= j31 < ly:
+            if ring_out:
+                blk.ring[w, j31 % ring_n] = wp.cur[31]
+                blk.ring_pos[w, j31 % ring_n] = j31
+            if link_out:
+                links[blk.t, j31], link_pos[blk.t, j31] = wp.cur[31], j31
+        linked = min(max(s0 + chunk - 31, 0), ly)
+        if (link_out and k == chunk - 1 and linked > 0
+                and ((s0 // chunk) % (MEA_SCORES_LINK_HAND // chunk)
+                     == MEA_SCORES_LINK_HAND // chunk - 1
+                     or (linked == ly and s0 - 31 < ly))):
+            counts[blk.t] = linked
+        wp.s += 1
+        if k == chunk - 1:
+            wp.jm = (wp.jm + chunk) % ring_cols
+        return True
+
+    def finished(blk: _Round, wp: _Band) -> bool:
+        if wp.s < -(-(blk.ly + 31) // chunk) * chunk:
+            return False
+        if wp.band == (blk.lx - 1) // 32:
+            out[blk.b] = wp.cur[(blk.lx - 1) % 32]
+        return True
+
+    running, nxt = [], 0
+    while nxt < tickets or running:
+        while nxt < tickets and (resident is None or len(running) < resident):
+            running.append(_Round(nxt, b_count, w_count, lxs, lys))
+            nxt += 1
+        moved = False
+        for blk in running:
+            for wp in list(blk.bands):
+                if step(blk, wp):
+                    moved = True
+                    if finished(blk, wp):
+                        blk.bands.remove(wp)
+        done = [blk for blk in running if not blk.bands]
+        running = [blk for blk in running if blk.bands]
+        if not moved and not done:
+            raise RuntimeError("mea_scores schedule: deadlock")
+    return torch.from_numpy(out).to(post.device)
+
+
 # ---------------------------------------------------------------------------
 # kernel build + launch
 # ---------------------------------------------------------------------------
@@ -285,7 +510,8 @@ def kernel_specs():
     from ..utils.build import cuda_spec
     from .pairhmm_cuda import kernel_specs as pair_specs
     return (pair_specs(("pairhmm_fwd_emis", "pairhmm_bwd_post_emis",
-                        "pairhmm_bwd")) + [cuda_spec("mea_scores")])
+                        "pairhmm_bwd"))
+            + [cuda_spec("mea_scores", deps=djc.mea_deps())])
 
 
 def _lib(name: str):
@@ -301,8 +527,8 @@ def _lib(name: str):
                    + [ctypes.c_longlong] + [vp] * 6},
                   _libs)
         from ..utils.build import load_kernel
-        _libs["mea_scores"] = load_kernel(specs[3], [vp] * 2 + [ci] * 3
-                                          + [vp] * 2)
+        _libs["mea_scores"] = load_kernel(specs[3], [vp] * 3 + [ci] * 4
+                                          + [ctypes.c_longlong] + [vp] * 5)
     return _libs[name]
 
 
@@ -408,22 +634,33 @@ def pairhmm_bwd(e, ins_x, ins_y, lxb, lyb, params):
     return rbm
 
 
-def mea_scores(post, lxb):
-    """Kernel 4 (MEA row scan): (B, Lx, Ly) posterior, zero outside each
-    pair's (lx, ly) -> (B,) MEA scores. CPU tensors run
-    `mea_scores_plain`."""
+def mea_scores(post, lxb, lyb, warps: int | None = None):
+    """Kernel 4 (MEA score, a wavefront of row bands): (B, Lx, Ly)
+    posterior, zero outside each pair's (lx, ly) -> (B,) MEA scores; the
+    kernel reads no row past lx and no column past ly. Blocks of `warps`
+    warps (default mea_scores_warps), one round of bands of a pair each.
+    A hand-over that waited past MEA_WAIT_CYCLES sets the fault flag: the
+    caller then runs `wavefront.check_waits`, as both routes do. CPU
+    tensors run `mea_scores_plain`."""
     if not _on_card(post):
         return mea_scores_plain(post)
     b, lx, ly = post.shape
+    dev = post.device
     if (post.dtype != torch.float32 or not post.is_contiguous()
-            or lxb.dtype != torch.int32 or lxb.shape != (b,)
-            or lxb.device != post.device or not lxb.is_contiguous()
-            or ly % 128 or ly > 16384):
-        raise ValueError("post (B, Lx, Ly) float32, Ly % 128 == 0 and "
-                         "<= 16384; lxb (B,) int32 on the device")
-    out = torch.empty((b,), dtype=torch.float32, device=post.device)
+            or post.data_ptr() % 16 or ly % 16 or lx < 1
+            or any(t.dtype != torch.int32 or t.shape != (b,)
+                   or t.device != dev or not t.is_contiguous()
+                   for t in (lxb, lyb))):
+        raise ValueError("post (B, Lx, Ly) contiguous float32, Ly % 16 == "
+                         "0; lxb, lyb (B,) int32 on the device")
+    warps = warps or mea_scores_warps(
+        b, lx, torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    sync, links = mea_scores_buffers(b, lx, ly, warps, dev)
     fn, err = _lib("mea_scores")
-    rc = fn(_ptr(post), _ptr(lxb), b, lx, ly, _ptr(out),
+    rc = fn(_ptr(post), _ptr(lxb), _ptr(lyb), b, lx, ly, warps,
+            djc.MEA_WAIT_CYCLES, _ptr(sync),
+            _ptr(wavefront.fault_flag(dev)), _ptr(links), _ptr(out),
             _stream(post))
     if rc != 0:
         raise RuntimeError(f"mea_scores launch failed: {err(rc).decode()}")
@@ -475,11 +712,12 @@ def emissions_path_legacy(e, ins_x, ins_y, lxb, lyb, params):
     (post (B, Lx, Ly), ea (B,))."""
     fm, fend = pairhmm_fwd_emis(e, ins_x, ins_y, lxb, lyb, params)
     rbm = pairhmm_bwd(e, ins_x, ins_y, lxb, lyb, params)
-    if _on_card(e):
-        wavefront.check_waits(e.device)    # raises on a stuck hand-over
     post = finish_posteriors(fm, rbm, fend, lxb, lyb, params)
     del rbm
-    return post, mea_scores(post, lxb) / torch.minimum(lxb, lyb).float()
+    mea = mea_scores(post, lxb, lyb)
+    if _on_card(e):
+        wavefront.check_waits(e.device)    # raises on a stuck hand-over
+    return post, mea / torch.minimum(lxb, lyb).float()
 
 
 def batch_posteriors_emissions_cuda(e, ins_x, ins_y, lxb, lyb, pack):

@@ -768,7 +768,8 @@ def test_emis_kernels_match_plain(cuda_device, lx_max, width):
     rb = pe.pairhmm_bwd(e, ins_x, ins_y, lx, ly, params)
     assert torch.equal(rb, pe.bwd_plain(e, ins_x, ins_y, lx, ly, params))
     post = pe.finish_posteriors(fm, rb, fend, lx, ly, params)
-    assert torch.equal(pe.mea_scores(post, lx), pe.mea_scores_plain(post))
+    assert torch.equal(pe.mea_scores(post, lx, ly), pe.mea_scores_plain(post))
+    pe.wavefront.check_waits(cuda_device)
 
 
 @pytest.mark.cuda
@@ -849,6 +850,16 @@ def test_ensemble_kernel_specs_and_cpu_route(monkeypatch):
     assert pc.LAUNCHES == before
 
 
+def _assert_rbm_equal(rb, want, lx, ly):
+    """Kernel 3K's RB_M equal to its plain version on the real cells (rows
+    u < lx, lanes v < ly: all that finish_posteriors reads; the block
+    body leaves its segments past ly unwritten) and zero in rows u >=
+    lx."""
+    assert torch.equal(_real(rb, lx, ly), _real(want, lx, ly))
+    for k, n in enumerate(lx.tolist()):
+        assert not rb[k, n:].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,lmax,width", [(16, 300, 384), (4, 900, 1024)],
                          ids=["384", "1024"])
@@ -874,7 +885,8 @@ def test_multi_and_legacy_kernels_match_plain(cuda_device, b, lmax, width):
     post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, m, i, p, tot, fm)
     assert torch.equal(post, post2) and torch.equal(mea, mea2)
     rb = pc.pairhmm_bwd_codes(x, y, lxt, lyt, m, i, p)
-    assert torch.equal(rb, pc.bwd_codes_plain(x, y, lxt, lyt, m, i, p))
+    _assert_rbm_equal(rb, pc.bwd_codes_plain(x, y, lxt, lyt, m, i, p), lxt,
+                      lyt)
     for r, pack in enumerate(packs):
         lanes = torch.as_tensor([k for k in range(b) if reps[k] == r],
                                 device=cuda_device)
@@ -886,8 +898,8 @@ def test_multi_and_legacy_kernels_match_plain(cuda_device, b, lmax, width):
         assert torch.equal(fend[lanes], fend1[lanes])
         assert torch.equal(post[lanes], post1[lanes])
         assert torch.equal(mea[lanes], mea1[lanes])
-        assert torch.equal(rb[lanes], pc.pairhmm_bwd_codes(
-            x, y, lxt, lyt, *tabs)[lanes])
+        assert torch.equal(_real(rb, lxt, lyt)[lanes], _real(
+            pc.pairhmm_bwd_codes(x, y, lxt, lyt, *tabs), lxt, lyt)[lanes])
     ar = torch.arange(b, device=cuda_device)[:, None, None]
     e = m[ar, x.long()[:, :, None], y.long()[:, None, :]].contiguous()
     ins_x = torch.gather(i, 1, x.long()).contiguous()
@@ -907,6 +919,98 @@ def test_multi_and_legacy_kernels_match_plain(cuda_device, b, lmax, width):
         (torch.maximum(post4, post) <= 0.0102)
     assert float(d.where(~flip, 0.0).max()) < 2e-3
     assert float((ea4 - ea).abs().max()) < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_pair", [False, True], ids=["shared",
+                                                         "per-pair"])
+@pytest.mark.parametrize("width", [2176, 4096])
+def test_bwd_codes_wave_matches_plain(cuda_device, width, per_pair):
+    """Kernel 3K on the wave (above 2048 lanes) against its plain version
+    (max |d| = 0 on every cell: the wave writes every lane), with one
+    table set and one a pair; its hand-over checked."""
+    from muscle_tpu_torch.ops import wavefront
+    xb, yb, lx, ly = _batch(4, width, width, width, False)
+    xb, lx = np.ascontiguousarray(xb[:, :96]), np.minimum(lx, 96)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (xb, yb, lx, ly))
+    if per_pair:
+        _, (m, i, s, t) = _multi_tables(cuda_device, [0, 1, 2, 3])
+        tabs = (m.contiguous(), i.contiguous(), pc.params_rows(s, t))
+    else:
+        tabs = pc.tables(HMMParams.from_defaults().to_scores(), cuda_device)
+    assert pc.bwd_codes_geometry(4, width).schedule == "wave"
+    before = pc.SCHEDULES[("pairhmm_bwd_codes", "wave", width)]
+    rb = pc.pairhmm_bwd_codes(x, y, lxt, lyt, *tabs)
+    torch.cuda.synchronize()
+    wavefront.check_waits(cuda_device)
+    assert pc.SCHEDULES[("pairhmm_bwd_codes", "wave", width)] == before + 1
+    assert torch.equal(rb, pc.bwd_codes_plain(x, y, lxt, lyt, *tabs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,width,want", [(4, 1024, "wave"),
+                                          (160, 768, "block"),
+                                          (16, 2048, "wave")])
+def test_bwd_codes_schedules_match_plain(cuda_device, b, width, want):
+    """Kernel 3K at the widths where B picks its schedule (and at 2048,
+    the block body's widest): the default schedule is `want`, and both
+    schedules equal the plain version on the real cells and the zero
+    rows u >= lx; their hand-over checked."""
+    from muscle_tpu_torch.ops import wavefront
+    xb, yb, lx, ly = _batch(b, width, width, b + width, False)
+    xb, lx = np.ascontiguousarray(xb[:, :96]), np.minimum(lx, 96)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(cuda_device)
+                      for a in (xb, yb, lx, ly))
+    tabs = pc.tables(HMMParams.from_defaults().to_scores(), cuda_device)
+    assert pc.bwd_codes_geometry(b, width).schedule == want
+    plain = pc.bwd_codes_plain(x, y, lxt, lyt, *tabs)
+    for schedule in ("block", "wave"):
+        rb = pc.pairhmm_bwd_codes(x, y, lxt, lyt, *tabs, schedule=schedule)
+        torch.cuda.synchronize()
+        wavefront.check_waits(cuda_device)
+        _assert_rbm_equal(rb, plain, lxt, lyt)
+
+
+def _ragged_post(b, n_rows, width, seed, kind, device):
+    """A (b, n_rows, width) posterior zero outside each pair's (lx, ly)
+    (lengths from a third of the pad up, the first pair full), uniform
+    or tie-heavy values; and lx, ly."""
+    rng = np.random.default_rng(seed)
+    lx = rng.integers(max(1, n_rows // 3), n_rows + 1, size=b)
+    ly = rng.integers(max(1, width // 3), width + 1, size=b)
+    lx[0], ly[0] = n_rows, width
+    p = (rng.random((b, n_rows, width), dtype=np.float32) if kind == "random"
+         else rng.choice(np.float32([0, 0, 0, 0, 0, 0, 0.25, 0.5]),
+                         size=(b, n_rows, width)))
+    r = np.arange(n_rows)[None, :, None]
+    c = np.arange(width)[None, None, :]
+    p = np.where((r < lx[:, None, None]) & (c < ly[:, None, None]), p, 0.0)
+    return (torch.as_tensor(p.astype(np.float32), device=device),
+            torch.as_tensor(lx.astype(np.int32), device=device),
+            torch.as_tensor(ly.astype(np.int32), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "tie-heavy"])
+@pytest.mark.parametrize("b,n_rows,width", [(8, 2000, 2048), (64, 512, 512),
+                                            (2, 96, 16896)],
+                         ids=["8x2048", "64x512", "2x16896"])
+def test_mea_scores_kernel_matches_plain(cuda_device, b, n_rows, width,
+                                         kind):
+    """Kernel 4 (bands of rows across SMs) against its plain version, max
+    |d| = 0, at its warps and at 1 and 5 warps a block (more rounds, more
+    links between blocks), past 16384 lanes too; its hand-over checked
+    (`check_waits` raises on a wait past the limit)."""
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    post, lx, ly = _ragged_post(b, n_rows, width, b + n_rows + width, kind,
+                                cuda_device)
+    want = pe.mea_scores_plain(post)
+    before = pe.LAUNCHES["mea_scores"]
+    for warps in (None, 1, 5):
+        assert torch.equal(pe.mea_scores(post, lx, ly, warps=warps), want)
+        pe.wavefront.check_waits(cuda_device)
+    assert pe.LAUNCHES["mea_scores"] == before + 3
 
 
 @pytest.mark.cuda

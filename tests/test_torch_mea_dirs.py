@@ -169,10 +169,12 @@ def test_plain_equals_jax_build_and_mea(join):
 
 
 def test_constants_are_the_kernels():
-    """The twin's constants are csrc/mea_dirs.cu's."""
-    with open(os.path.join(ROOT, "muscle_tpu_torch", "csrc",
-                           "mea_dirs.cu")) as f:
-        src = f.read()
+    """The twin's constants are csrc/mea_dirs.cu's and those of the
+    header it shares with kernel 4, csrc/mea_wave.cuh."""
+    src = ""
+    for name in ("mea_wave.cuh", "mea_dirs.cu"):
+        with open(os.path.join(ROOT, "muscle_tpu_torch", "csrc", name)) as f:
+            src += f.read()
     got = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
                                             src)}
     assert got["CW"] == djc.MEA_CHUNK and got["NCH"] == djc.MEA_SLOTS

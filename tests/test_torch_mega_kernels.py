@@ -147,7 +147,7 @@ def test_mea_plain_matches_pallas_interpret(case):
     want = j_pallas.mea_scores_pallas(
         jnp.asarray(post.numpy().transpose(1, 0, 2)), 8, interpret=True)
     assert np.array_equal(got.numpy(), np.asarray(want))
-    assert torch.equal(t_emis.mea_scores(post, _args(case)[3]), got)
+    assert torch.equal(t_emis.mea_scores(post, *_args(case)[3:5]), got)
 
 
 def _bwd_pallas_interpret(e_rev_t, insx_rev_t, insy_rev, params, tile_p,
