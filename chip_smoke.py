@@ -70,7 +70,11 @@ Phases (each raises on failure, so the run exits non-zero):
    pairs at 4096) held as kernel 3 is (hold_bwd_codes); their ptxas
    lines, times (kernels 4 and 3K steady: steady_ms, beside their times
    one block a pair before, MEA_SCORES_WAS_MS and BWD_CODES_WAS_MS) and
-   bounds;
+   bounds; then the DP scans of Super6 / Super7 (phase_dp_kernels):
+   nw_viterbi and sw_scores against their plain versions at 64 ragged
+   amino pairs at pads 384 and 2048 (one column a thread, and several;
+   NW's bits equal, final rows and scores max |d| = 0, SW's scores max
+   |d| = 0), their ptxas lines, times and bounds (dp_bound);
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
@@ -152,6 +156,18 @@ Phases (each raises on failure, so the run exits non-zero):
      legacy-BB11001 (align() under the legacy letter route, fused=False:
      kernels A, 3K and 4; each 3K and 4 launch held to its plain
      version; whether its text equals the fused route's printed);
+   - Super6 and Super7 (phase_super67): -protdists through the CLI on
+     the degapped BB11001 golden (each distance within 5e-4 of the
+     reference binary's, REF_PROTDISTS); through run_align_command,
+     Super6 with default settings on super5_set()'s first SUPER6_ROWS
+     rows, Super7 on mega-128 (shrub_size 32, the SW tree; Q against the
+     truth), on mega-8 at shrub_size 3 (the card's text required equal
+     to the port's CPU text) and on the degapped rdrp-16 golden at
+     shrub_size RDRP16_SHRUB; each required to be an alignment of its
+     input through nw_viterbi / sw_scores and the pair-HMM kernels, the
+     first HELD_DP launches of each DP kernel in each run held, as they
+     happen, to the plain versions (DpCheck), stage walls, the runs'
+     cluster sizes, peak device memory and launches printed;
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
 5. print kernels 7L's and 7's times summed over their held main-path
@@ -162,7 +178,9 @@ Phases (each raises on failure, so the run exits non-zero):
    at 512 x 512² beside mega-long's chunk; kernel 8's times and bounds
    on the long tile; mea_dirs' by rung, with its held launches' summed
    time; kernel 7L's times and bound at
-   synthetic-1000's largest device join;
+   synthetic-1000's largest device join; nw_viterbi's and sw_scores'
+   times, plain times and bounds at pad 2048 beside 384, and their held
+   launches;
    each max |d| over phase 2 and the launches held in phase 3),
    then the card line and the final {"ok": true, ...} line.
 
@@ -565,15 +583,21 @@ def ptxas_lines(names) -> list[str]:
     """Registers and spills of each kernel instantiation of the libraries
     `names`, from the ptxas report kept in their build logs."""
     import re
-    from muscle_tpu_torch.ops import (devjoin_cuda, pairhmm_cuda,
+    from muscle_tpu_torch.ops import (devjoin_cuda, dp_cuda, pairhmm_cuda,
                                       pairhmm_emis_cuda, pairhmm_striped)
     from muscle_tpu_torch.utils.build import build_log
     specs = (pairhmm_cuda.kernel_specs() + pairhmm_striped.kernel_specs()
-             + pairhmm_emis_cuda.kernel_specs() + devjoin_cuda.kernel_specs())
+             + pairhmm_emis_cuda.kernel_specs() + devjoin_cuda.kernel_specs()
+             + dp_cuda.kernel_specs())
     out = []
     for name in names:
         cur, spill = None, ""
         for line in build_log(name, specs).splitlines():
+            m = re.search(r"Compiling entry function '\w*(nw_viterbi_kernel|"
+                          r"sw_scores_kernel)ILi(\d+)E", line)
+            if m:  # csrc/dp_rows.cuh's C columns a thread
+                cur = f"{m.group(1)}<C={m.group(2)}>"
+                continue
             m = re.search(r"Compiling entry function '_ZN2dr(\d+)(\w+)'",
                           line)
             if m:  # kernels 7/7L: dr::densify_reduce_kernel<Source>
@@ -1409,11 +1433,11 @@ MAIN_SCHEDULES: dict[tuple, int] = {}
 
 
 def _kernel_modules():
-    from muscle_tpu_torch.ops import (densify_cuda, devjoin_cuda,
+    from muscle_tpu_torch.ops import (densify_cuda, devjoin_cuda, dp_cuda,
                                       pairhmm_cuda, pairhmm_emis_cuda,
                                       pairhmm_striped)
     return (pairhmm_cuda, pairhmm_striped, densify_cuda, devjoin_cuda,
-            pairhmm_emis_cuda)
+            pairhmm_emis_cuda, dp_cuda)
 
 
 def reset_launches():
@@ -3332,6 +3356,375 @@ def phase_ensembles(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Super6 / Super7: the NW Viterbi and SW score kernels (ops/dp_cuda.py)
+# ---------------------------------------------------------------------------
+
+# phase 2's batches: 64 ragged amino pairs at each pad (385 / 2049 NW
+# lanes: one column a thread, and three)
+DP_PAIRS = 64
+DP_WIDTHS = (384, 2048)
+# f32 operations a DP cell, the least work of the function (a running
+# gap scan, 2 a cell). NW: the trace bits (m + open, d + ext, i + ext,
+# max(m, d), 3 compares), best (2 max), M' (1 add), D' (1 max), I' (the
+# scan input's add and the scan's add and max) = 14; SW: F (3 adds, 1
+# max), Z (1 add, 2 max, the mask), E (2 adds; the scan's add and max),
+# H (2 max, the mask), the running best (1 max) = 16
+NW_OPS_PER_CELL = 14
+SW_OPS_PER_CELL = 16
+# main-path launches held to the plain versions as they happen, in each
+# Super6 / Super7 / -protdists run (DpCheck)
+HELD_DP = {"nw_viterbi": 4, "sw_scores": 2}
+# the kernels' entries: their times at phase 2's second pad
+DP_WIDE: dict = {}
+
+
+def dp_bound(name, args) -> tuple[float, str]:
+    """bound_ms of one nw_viterbi / sw_scores call on `args`: NW reads
+    the codes and writes every row's bits, the final rows and the scores,
+    and does NW_OPS_PER_CELL on every cell of its (BX, BY+1) lattice (it
+    computes all rows: the bits of each are its output); SW reads the
+    codes and writes B scores, its operations on each pair's lx x ly real
+    cells (the rows past lx are masked to 0 and the kernel stops there)."""
+    xb, yb, lxb, lyb, subst = args
+    b, bx = xb.shape
+    by = yb.shape[1]
+    inputs = 4 * (b * (bx + by) + 2 * b + subst.numel())
+    if name == "nw_viterbi":
+        return bound_ms(inputs + b * bx * (by + 1) + 4 * b * 3 * (by + 1)
+                        + 4 * b, NW_OPS_PER_CELL * b * bx * (by + 1))
+    cells = float((lxb.long().clamp(max=bx) * lyb.long()).sum())
+    return bound_ms(inputs + 4 * b, SW_OPS_PER_CELL * cells)
+
+
+def dp_case(name, args, got=None) -> dict:
+    """nw_viterbi or sw_scores held against its plain version on `args`
+    (the launch's output `got`, or a launch of its own): NW's bits must
+    be equal and its final rows and scores max |d| = 0, SW's scores
+    max |d| = 0."""
+    import torch
+    from muscle_tpu_torch.ops import dp_cuda, nw, sw
+    if got is None:
+        got = getattr(dp_cuda, name)(*args)
+        torch.cuda.synchronize()
+    plain = nw.nw_viterbi_plain if name == "nw_viterbi" else \
+        sw.sw_scores_plain
+    want, plain_ms = timed_once(lambda: plain(*args))
+    if name == "nw_viterbi":
+        bits_same = torch.equal(got[0], want[0])
+        err = max(float((got[1] - want[1]).abs().max()),
+                  float((got[2] - want[2]).abs().max()))
+    else:
+        bits_same = True
+        err = float((got - want).abs().max())
+    xb, yb = args[:2]
+    return {"name": name, "shape": (xb.shape[0], xb.shape[1], yb.shape[1]),
+            "err": err, "bits_same": bits_same,
+            "same": bits_same and err == 0.0, "plain_ms": plain_ms,
+            "bound": dp_bound(name, args)}
+
+
+def dp_args(b, width, seed, dev):
+    """ragged_batch's amino pairs (wildcard-padded; pair 0 at lx = ly =
+    width) and BLOSUM62_21, on the card."""
+    import torch
+    from muscle_tpu_torch.ops.sw import BLOSUM62_21
+    xb, yb, lx, ly = ragged_batch(b, width // 3, width, width, seed)
+    return (tuple(torch.from_numpy(a).to(dev) for a in (xb, yb, lx, ly))
+            + (torch.as_tensor(BLOSUM62_21, device=dev),))
+
+
+def phase_dp_kernels(dev) -> list[dict]:
+    """nw_viterbi and sw_scores against their plain versions at
+    DP_PAIRS pairs at each DP_WIDTHS pad (bits equal, max |d| = 0),
+    their ptxas lines, their times (CUDA events) and bounds."""
+    from muscle_tpu_torch.ops import dp_cuda
+    for line in ptxas_lines(list(dp_cuda.LAUNCHES)):
+        if any(f"C={c}>" in line for c in (1, 2, 3)):
+            print(f"ptxas {line}", flush=True)
+    rows = {}
+    for width in DP_WIDTHS:
+        args = dp_args(DP_PAIRS, width, 20261018 + width, dev)
+        for name in dp_cuda.LAUNCHES:
+            case = dp_case(name, args)
+            ms = time_cuda(lambda: getattr(dp_cuda, name)(*args))
+            threads, cols = dp_cuda.geometry(width + (name == "nw_viterbi"))
+            bnd = case["bound"]
+            print(f"{name} vs plain at {DP_PAIRS} pairs, pad {width} "
+                  f"({threads} threads x {cols} column(s)): "
+                  f"{'bits equal, ' if name == 'nw_viterbi' and case['bits_same'] else ''}"
+                  f"max |d| {case['err']:.3e} "
+                  f"{'equal' if case['same'] else 'FAIL'}; {ms:.4f} ms "
+                  f"(plain {case['plain_ms']:.1f} ms, bound {bnd[0]:.5f} ms "
+                  f"by {bnd[1]})", flush=True)
+            if not case["same"]:
+                raise SmokeFailure(f"{name} disagrees with its plain version "
+                                   f"at pad {width}")
+            rows.setdefault(name, {})[width] = (case, ms)
+    out = []
+    for name, src, rep in (("nw_viterbi", "nw_viterbi.cu",
+                            "muscle_tpu/ops/nw.py:98"),
+                           ("sw_scores", "sw_scores.cu",
+                            "muscle_tpu/ops/sw.py:115")):
+        (c0, ms0), (c1, ms1) = (rows[name][w] for w in DP_WIDTHS)
+        DP_WIDE[name] = {"ms": ms1, "plain_ms": c1["plain_ms"],
+                         "bound_ms": c1["bound"][0]}
+        out.append({"name": name, "route": "cuda",
+                    "source": f"muscle_tpu_torch/csrc/{src}",
+                    "replaces": rep, "launches": 0,
+                    "max_abs_err": max(c0["err"], c1["err"]), "ms": ms0,
+                    "plain_ms": c0["plain_ms"], "bound_ms": c0["bound"][0],
+                    "bound_by": c0["bound"][1], "library_ms": None})
+    return out
+
+
+class DpCheck(HeldLaunches):
+    """Stands in for ops/nw.nw_viterbi_batch and ops/sw.sw_scores_batch
+    while the Super6 / Super7 / -protdists runs go: after `arm()`, the
+    first HELD_DP[name] launches of each kernel are held against the
+    plain version on the same inputs (dp_case); every launch is counted
+    by the wrappers as any other."""
+
+    def __init__(self):
+        super().__init__()
+        self.left: dict[str, int] = {}
+        self._saved = None
+
+    def arm(self) -> None:
+        self.left = dict(HELD_DP)
+
+    def _held(self, name, launch):
+        def held(*args):
+            out = launch(*args)
+            if self.left.get(name, 0) > 0:
+                self.left[name] -= 1
+                self.hold(functools.partial(dp_case, name), args, out)
+            return out
+        return held
+
+    def __enter__(self):
+        from muscle_tpu_torch.ops import dp_cuda, nw, sw
+        self._saved = (nw.nw_viterbi_batch, sw.sw_scores_batch)
+        nw.nw_viterbi_batch = self._held("nw_viterbi", dp_cuda.nw_viterbi)
+        sw.sw_scores_batch = self._held("sw_scores", dp_cuda.sw_scores)
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.ops import nw, sw
+        nw.nw_viterbi_batch, sw.sw_scores_batch = self._saved
+
+    def held_since(self, name: str, n_cases: int, got: dict) -> None:
+        """Print and require the cases held since there were `n_cases`:
+        one at least for each DP kernel the run launched, each equal."""
+        new = self.cases[n_cases:]
+        for i, c in enumerate(new):
+            bnd = c["bound"]
+            print(f"{c['name']} vs plain on {name}'s held launch {i + 1} of "
+                  f"{len(new)} ({c['shape'][0]} pairs, {c['shape'][1]} x "
+                  f"{c['shape'][2]}): "
+                  f"{'bits equal, ' if c['name'] == 'nw_viterbi' and c['bits_same'] else ''}"
+                  f"max |d| {c['err']:.3e} "
+                  f"{'equal' if c['same'] else 'FAIL'} (plain "
+                  f"{c['plain_ms']:.1f} ms; bound {bnd[0]:.5f} ms by "
+                  f"{bnd[1]})", flush=True)
+        for k in HELD_DP:
+            if got.get(k, 0) and not any(c["name"] == k for c in new):
+                raise SmokeFailure(f"{name}: {got[k]} {k} launches, none held")
+        if not all(c["same"] for c in new):
+            raise SmokeFailure(f"{name}: a DP kernel launch disagrees with its "
+                               "plain version")
+
+
+DP_CHECK = DpCheck()
+
+# tests/test_super6.py: the reference binary's -protdists on BB11001
+# (label-pair order i > j), whose degapped chains are the golden's
+REF_PROTDISTS = {
+    ("1j46_A", "1aab_"): 1.188,
+    ("1k99_A", "1aab_"): 1.314,
+    ("1k99_A", "1j46_A"): 1.406,
+    ("2lef_A", "1aab_"): 1.339,
+    ("2lef_A", "1j46_A"): 1.42,
+    ("2lef_A", "1k99_A"): 1.406,
+}
+# Super6's set: the first SUPER6_ROWS rows of super5_set()
+SUPER6_ROWS = 1000
+# Super7 on the degapped rdrp-16 golden at this shrub size
+RDRP16_SHRUB = 4
+SUPER6_STAGES = ("uclustpd", "cluster_dists", "cluster_mpcs", "pprog")
+SUPER7_STAGES = ("guide_tree", "shrub_mpcs", "pprog")
+
+
+def run_super67(name, cmd, inp, seqs, workdir, kernels, opts):
+    """One run_align_command (the CLI's function) of `cmd` on the file
+    `inp` (`seqs` its rows) on the card: launch counts set to 0 just
+    before it and read just after, each kernel of `kernels` required;
+    the first NW / SW launches held (DP_CHECK), and the kernel-7 and
+    mea_dirs launches as in every run (GRID_CHECK, MEA_CHECK), their
+    time taken out of the wall and the stages. Returns (msa, wall s,
+    stage walls, launches, peak device bytes)."""
+    import torch
+    from muscle_tpu_torch import MultiSequence
+    from muscle_tpu_torch.pipeline.ensemble import run_align_command
+    from muscle_tpu_torch.utils import logging as mlog
+    out = os.path.join(workdir, f"{name}.afa")
+    mlog.STAGE_TIMES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    n_dp, d0 = len(DP_CHECK.cases), DP_CHECK.seconds
+    n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
+    m_cases, m0 = len(MEA_CHECK.cases), MEA_CHECK.seconds
+    mp0 = MEA_CHECK.pprog_seconds
+    GRID_CHECK.peak = MEA_CHECK.peak = DP_CHECK.peak = 0
+    reset_launches()
+    DP_CHECK.arm()
+    t0 = time.perf_counter()
+    run_align_command(cmd, inp, out, dict(opts))
+    torch.cuda.synchronize()
+    dp_held = DP_CHECK.seconds - d0
+    pprog_held = MEA_CHECK.pprog_seconds - mp0
+    grid_held = GRID_CHECK.seconds - s0 + MEA_CHECK.seconds - m0 - pprog_held
+    wall = time.perf_counter() - t0 - dp_held - pprog_held - grid_held
+    got = count_main_path()
+    peak = max(peak_bytes(), DP_CHECK.peak)
+    missing = [k for k in kernels if got[k] <= 0]
+    if missing:
+        raise SmokeFailure(f"{name}: {missing} not launched")
+    DP_CHECK.held_since(name, n_dp, got)
+    GRID_CHECK.held_since(name, n_cases, got["densify_reduce"])
+    MEA_CHECK.held_since(name, m_cases, got["mea_dirs"])
+    msa = MultiSequence.from_fasta(out)
+    check_alignment(seqs, msa, name)
+    # the NW holds fall in UClustPD, the SW ones in the guide tree
+    taken = {"uclustpd": dp_held, "guide_tree": dp_held, "pprog": pprog_held,
+             "cluster_mpcs": grid_held, "shrub_mpcs": grid_held}
+    stages = {k: round(v - taken.get(k, 0.0), 4)
+              for k, v in mlog.STAGE_TIMES.items()}
+    held = dp_held + pprog_held + grid_held
+    if held:
+        print(f"{name}: held launches' checks took {held:.2f}s, taken out "
+              "of the wall and the stages", flush=True)
+    return msa, wall, stages, got, peak
+
+
+def phase_super67(dev, sets) -> dict:
+    """-protdists on the degapped BB11001 golden through the CLI (each
+    distance within 5e-4 of the reference binary's, raises); Super6 with
+    default settings on super5_set()'s first SUPER6_ROWS rows; Super7 on
+    mega-128 (shrub_size 32, the SW tree: Q against the truth), on
+    mega-8 at shrub_size 3 (the card's text must equal the port's CPU
+    text, raises) and on the degapped rdrp-16 golden at shrub_size
+    RDRP16_SHRUB: each an alignment of its input through its kernels."""
+    import tempfile
+
+    import torch
+    from muscle_tpu_torch import MultiSequence
+    from muscle_tpu_torch.cli import main as cli_main
+    from muscle_tpu_torch.pipeline import super6
+    from muscle_tpu_torch.pipeline.ensemble import run_align_command
+    out = {}
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as workdir, DP_CHECK:
+        # -protdists on BB11001
+        name = "protdists-BB11001"
+        tsv = os.path.join(workdir, "bb11001.tsv")
+        n_dp = len(DP_CHECK.cases)
+        reset_launches()
+        DP_CHECK.arm()
+        t0 = time.perf_counter()
+        rc = cli_main(["-protdists", os.path.join(ROOT, FAMILIES[0][1]),
+                       "-output", tsv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = count_main_path()
+        DP_CHECK.held_since(name, n_dp, got)
+        dists = {}
+        with open(tsv) as f:
+            for line in f:
+                a, b, d = line.split("\t")
+                dists[frozenset((a, b))] = float(d)
+        errs = {f"{a}/{b}": abs(dists[frozenset((a, b))] - want)
+                for (a, b), want in REF_PROTDISTS.items()}
+        print(f"{name}: -protdists rc={rc} wall={wall:.2f}s (checks in) "
+              f"distances={json.dumps({f'{a}/{b}': dists[frozenset((a, b))] for a, b in REF_PROTDISTS})} "
+              f"max |d| to the reference binary {max(errs.values()):.1e} "
+              f"(tol 5e-4) launches={json.dumps(got)}", flush=True)
+        if rc != 0 or got["nw_viterbi"] <= 0 or max(errs.values()) > 5e-4:
+            raise SmokeFailure(f"{name}: distances off the reference binary's")
+        out[name] = {"wall_s": wall, "dists": errs}
+
+        # Super6 on synthetic-1000
+        seqs = MultiSequence(list(super5_set())[:SUPER6_ROWS])
+        name = f"super6 synthetic-{len(seqs)}"
+        inp = os.path.join(workdir, "super6.fa")
+        seqs.write_fasta(inp)
+        msa, wall, stages, got, peak = run_super67(
+            name, "super6", inp, seqs, workdir,
+            ("nw_viterbi",) + PAIR_KERNELS, {})
+        run = dict(super6.LAST_RUN)
+        print(f"{name}: n={len(seqs)} wall={wall:.2f}s width={msa.col_count()} "
+              f"peak_device_mem={peak / 2**30:.3f} GiB "
+              f"stages={json.dumps({k: stages.get(k) for k in SUPER6_STAGES})} "
+              f"all stages={json.dumps(stages)} run={json.dumps(run)} "
+              f"launches={json.dumps(got)}", flush=True)
+        out["super6"] = {"wall_s": wall, "stages": stages, "run": run,
+                         "peak_bytes": peak}
+
+        # Super7 on mega-128 (shrub 32, SW tree) and mega-8 (shrub 3)
+        for key, spec, shrub in (("mega-128", MEGA_128, 32),
+                                 ("mega-8", MEGA_8, 3)):
+            ms, origins = sets[key]
+            seqs = mega_seqs(ms)
+            n, _, _, seed = spec
+            inp = os.path.join(ROOT, "build", "chip_smoke",
+                               f"mega-{n}-{seed}.mega")
+            name = f"super7 {key} shrub {shrub}"
+            opts = {"shrub_size": str(shrub)}
+            msa, wall, stages, got, peak = run_super67(
+                name.replace(" ", "-"), "super7", inp, seqs, workdir,
+                ("sw_scores",) + MEGA_KERNELS, opts)
+            q = q_true(msa, ms.labels, origins)
+            print(f"{name}: n={len(seqs)} wall={wall:.2f}s "
+                  f"width={msa.col_count()} Q(truth)={q:.4f} "
+                  f"peak_device_mem={peak / 2**30:.3f} GiB "
+                  f"stages={json.dumps({k: stages.get(k) for k in SUPER7_STAGES})} "
+                  f"launches={json.dumps(got)}", flush=True)
+            out[name] = {"wall_s": wall, "stages": stages, "q": q}
+            if key == "mega-8":
+                cpu_out = os.path.join(workdir, "super7-mega-8-cpu.afa")
+                DP_CHECK.left.clear()
+                t0 = time.perf_counter()
+                run_align_command("super7", inp, cpu_out,
+                                  dict(opts, device="cpu"))
+                with open(cpu_out) as f:
+                    same = f.read() == msa.to_fasta_text()
+                print(f"{name} on the CPU (plain versions): "
+                      f"{time.perf_counter() - t0:.2f}s, text equal to the "
+                      f"card's: {same}", flush=True)
+                if not same:
+                    raise SmokeFailure(f"{name}: the card's text differs from "
+                                       "the CPU's")
+
+        # Super7 on rdrp-16 (letters, SW tree)
+        seqs = MultiSequence.from_fasta(os.path.join(ROOT, RDRP16),
+                                        strip_gaps=True)
+        inp = os.path.join(workdir, "rdrp16.fa")
+        seqs.write_fasta(inp)
+        name = f"super7 rdrp-16 shrub {RDRP16_SHRUB}"
+        msa, wall, stages, got, peak = run_super67(
+            name.replace(" ", "-"), "super7", inp, seqs, workdir,
+            ("sw_scores",) + PAIR_KERNELS,
+            {"shrub_size": str(RDRP16_SHRUB)})
+        gold = MultiSequence.from_fasta(os.path.join(ROOT, RDRP16))
+        print(f"{name}: n={len(seqs)} wall={wall:.2f}s "
+              f"width={msa.col_count()} Q(vs its super5 golden)="
+              f"{q_score(msa, gold):.4f} "
+              f"stages={json.dumps({k: stages.get(k) for k in SUPER7_STAGES})} "
+              f"launches={json.dumps(got)}", flush=True)
+        out[name] = {"wall_s": wall, "stages": stages}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3356,7 +3749,8 @@ def main() -> int:
 
     kernels = (phase_kernels(dev) + phase_long_kernels(dev)
                + phase_gram_join_kernels(dev) + [phase_list_kernel(dev)]
-               + phase_mega_kernels(dev, sets) + phase_ensemble_kernels(dev))
+               + phase_mega_kernels(dev, sets) + phase_ensemble_kernels(dev)
+               + phase_dp_kernels(dev))
 
     t0 = time.perf_counter()
     with GRID_CHECK, MEA_CHECK:
@@ -3366,6 +3760,7 @@ def main() -> int:
         s5 = phase_super5(dev)
         legacy_errs = phase_mega(dev, sets)["legacy_errs"]
         ens = phase_ensembles(dev)
+        phase_super67(dev, sets)
     print(f"main path: {time.perf_counter() - t0:.1f}s (kernel-7 checks "
           f"{GRID_CHECK.seconds:.2f}s, {len(GRID_CHECK.cases)} launches "
           f"held; mea_dirs checks {MEA_CHECK.seconds:.2f}s, "
@@ -3403,6 +3798,8 @@ def main() -> int:
                           + ens["legacy-BB11001"]["mea_errs"])
     held["densify_reduce"] = [c["err"] for c in GRID_CHECK.cases]
     held["mea_dirs"] = [c["err"] for c in MEA_CHECK.cases]
+    for name in HELD_DP:
+        held[name] = [c["err"] for c in DP_CHECK.cases if c["name"] == name]
     for k in kernels:
         k["max_abs_err"] = max([k["max_abs_err"]] + held.get(k["name"], []))
     for k in kernels:
@@ -3441,6 +3838,12 @@ def main() -> int:
                       in rungs.items()}
     km.update(held_launches=len(MEA_CHECK.cases),
               held_ms_summed=sum(c["ms"] for c in MEA_CHECK.cases))
+    # nw_viterbi / sw_scores: their times, plain times and bounds at
+    # phase 2's second pad (several columns a thread), the held launches
+    for name, wide in DP_WIDE.items():
+        next(k for k in kernels if k["name"] == name).update(
+            {f"{key}_{DP_WIDTHS[1]}": v for key, v in wide.items()},
+            held_launches=len(held[name]))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

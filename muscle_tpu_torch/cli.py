@@ -4,21 +4,27 @@
     python -m muscle_tpu_torch.cli -align seqs.fa -stratified -output ens.efa
     python -m muscle_tpu_torch.cli -align chains.mega -output aln.afa
     python -m muscle_tpu_torch.cli -super5 seqs.fa -output aln.afa
+    python -m muscle_tpu_torch.cli -super6 seqs.fa -output aln.afa
+    python -m muscle_tpu_torch.cli -super7 chains.mega -output aln.afa
+    python -m muscle_tpu_torch.cli -uclustpd seqs.fa -maxpd 1.5 -tsvout c.tsv
+    python -m muscle_tpu_torch.cli -protdists seqs.fa -output d.tsv
     python -m muscle_tpu_torch.cli -maxcc ens.efa -output best.afa
     python -m muscle_tpu_torch.cli -qscore test.afa -ref ref.afa
 
 Mirrors the reference's single-dash command style (reference:
 src/main.cpp:55-73, src/usage.txt) and muscle_tpu.cli for the commands
-below. -align and -super5 go through pipeline/ensemble.run_align_command:
+below. -align, -super5, -super6 and -super7 go through
+pipeline/ensemble.run_align_command:
 one replicate, or an ensemble (-stratified, -diversified, -replicates
 N) written as one EFA or, with '@' in -output, one file a replicate.
 `-align -minsuper N` switches to Super5 when the input has N or more
 sequences (reference: src/align.cpp:61-70). An input that starts with
 the `mega` header, or any input with -mega, is read as Muscle-3D
 structure profiles (reference: LoadInput, src/loadinput.cpp:3-13). The
-pair-HMM and consistency run on the card unless -device cpu is given;
-the EFA tools are host code (-eesort runs the pair-HMM EA, on the card
-too). Options are parsed as muscle_tpu.cli parses them, and unused
+pair-HMM, the consistency and the NW / SW DP scans (-super6,
+-uclustpd, -protdists; -super7, -swdistmx) run on the card unless
+-device cpu is given; the EFA tools and -shrub are host code (-eesort
+runs the pair-HMM EA, on the card too). Options are parsed as muscle_tpu.cli parses them, and unused
 ones are warned about after the command in the same words.
 """
 
@@ -34,6 +40,14 @@ muscle_tpu_torch — multiple sequence alignment on the GPU (MUSCLE v5)
 Commands:
   -align FILE        Align FASTA or .mega profiles (MPC algorithm) -> -output
   -super5 FILE       Align a large FASTA set (Super5 algorithm) -> -output
+  -super6 FILE       Align a large protein set (Super6, ML-distance
+                     clusters) -> -output
+  -super7 FILE       Align a large set by shrubs of a guide tree (Super7;
+                     FASTA or .mega) -> -output
+  -uclustpd FILE     Cluster by ML protein distance (-maxpd) -> -tsvout
+  -protdists FILE    All-pairs ML protein distances -> -output
+  -shrub TREE        Shrubs of <= -n leaves of a Newick tree
+  -swdistmx FILE     SW-BLOSUM62 guide tree -> -guidetreeout
   -qscore FILE       Q/TC accuracy vs -ref reference alignment
   -efastats FILE     Per-replicate column stats of an EFA
   -disperse FILE     Ensemble dispersion of EFA
@@ -62,6 +76,9 @@ Options:
   -consiters N       Consistency iterations (default 2)
   -refineiters N     Refinement iterations (default 100)
   -minsuper N        With -align: use Super5 when there are >= N sequences
+  -super6_maxpd1 X   Super6's UClustPD distance (default 1.5)
+  -shrub_size N      Super7's shrub size (default 32)
+  -distmxin FILE     Super7's guide tree from a reseek distance matrix
   -nt / -amino       Force alphabet (default: guess)
   -mega              Read the input as .mega structure profiles
   -input_order       Output rows in input order (default: tree order)
@@ -69,15 +86,16 @@ Options:
   -guidetreeout FILE Write the guide tree
   -hmmin/-hmmout FILE  Read/write HMM parameters
   -device cuda|cpu   Where the pair-HMM and consistency run (default cuda)
-  -threads N         (accepted for compatibility)
+  -threads N         Super6 / -uclustpd: new seeds an iteration
+                     (default 16); otherwise accepted for compatibility
   -quiet / -log FILE
 
 Options are parsed as muscle_tpu's CLI parses them: -tree_order,
 -verbose, -reseek, -scaledist and -eadist are flags, any other option
 takes a value, and an option the command did not read is reported after
 it ("WARNING: option -X was not used by -cmd"). The JAX package's
-commands that are not ported yet (-super6, -muscle3, ...) stop with an
-error.
+commands that are not ported yet (-muscle3, -kmerdist, ...) stop with
+an error.
 """
 
 # the JAX package's command flags (muscle_tpu/cli.py::parse_args): any
@@ -493,7 +511,99 @@ def _cmd_cmp_msa(cmd: str, path: str, opts: dict) -> int:
     return 0
 
 
+def _cmd_uclustpd(cmd: str, path: str, opts: dict) -> int:
+    """Greedy ML-distance clustering to TSV (reference: cmd_uclustpd
+    src/uclustpd.cpp:373-401; -tsvout centroid_index<TAB>label). The
+    reference promotes <= thread-count new seeds an iteration
+    (src/uclustpd.cpp:193), so -threads changes its clustering."""
+    from .pipeline.uclustpd import (DEFAULT_SEEDS_PER_ITER, ProtDistCalc,
+                                    UClustPD)
+    if "maxpd" not in opts:
+        raise SystemExit("must set -maxpd")
+    if opts.get("output"):
+        raise SystemExit("use -tsvout not -output")
+    max_pd = float(opts["maxpd"])
+    seqs = MultiSequence.from_fasta(path, strip_gaps=True)
+    calc = ProtDistCalc(seqs, device=opts.get("device"))
+    uc = UClustPD(calc, seeds_per_iter=int(
+        opts.get("threads", DEFAULT_SEEDS_PER_ITER)))
+    clusters = uc.run(list(range(len(seqs))), max_pd)
+    out = opts.get("tsvout")
+    lines = [f"{ci}\t{seqs[si].label}"
+             for ci, members in enumerate(clusters) for si in members]
+    text = "\n".join(lines) + "\n"
+    if out:
+        with open(str(out), "w") as f:
+            f.write(text)
+    else:
+        print(text, end="")
+    sizes = sorted((len(m) for m in clusters), reverse=True)
+    print(f"{len(seqs)} seqs, {len(clusters)} clusters, "
+          f"median {sizes[len(sizes) // 2]}, "
+          f"singletons {sum(1 for s in sizes if s == 1)}")
+    return 0
+
+
+def _cmd_protdists(cmd: str, path: str, opts: dict) -> int:
+    """All-pairs ML protein distances (reference: cmd_protdists
+    src/protdists.cpp:16-86; label<TAB>label<TAB>dist)."""
+    from .pipeline.uclustpd import ProtDistCalc
+    seqs = MultiSequence.from_fasta(path, strip_gaps=True)
+    calc = ProtDistCalc(seqs, device=opts.get("device"))
+    n = len(seqs)
+    pairs = [(i, j) for i in range(1, n) for j in range(i)]
+    d = calc.dists(pairs)
+    out = opts.get("output")
+    lines = [f"{seqs[i].label}\t{seqs[j].label}\t{d[k]:.4g}"
+             for k, (i, j) in enumerate(pairs)]
+    text = "\n".join(lines) + "\n"
+    if out:
+        with open(str(out), "w") as f:
+            f.write(text)
+    else:
+        print(text, end="")
+    return 0
+
+
+def _cmd_shrub(cmd: str, path: str, opts: dict) -> int:
+    """Report the shrub decomposition of a guide tree: non-overlapping
+    subtrees of <= n leaves covering all leaves (reference: cmd_shrub,
+    src/shrub.cpp:39-92)."""
+    from .pipeline.super7 import get_shrubs
+    from .tree.tree import Tree
+    tree = Tree.from_file(path)
+    n = int(opts.get("n", 32))
+    lcas = get_shrubs(tree, n)
+    total = 0
+    for i, lca in enumerate(lcas):
+        leaves = tree.subtree_leaves(lca)
+        total += len(leaves)
+        print(f"shrub {i}: node {lca}, {len(leaves)} leaves: "
+              + ",".join(leaves))
+    assert total == len(tree.leaf_labels())
+    print(f"{len(lcas)} shrubs, {total} leaves, max size {n}")
+    return 0
+
+
+def _cmd_swdistmx(cmd: str, path: str, opts: dict) -> int:
+    """SW-BLOSUM62 guide tree (all-pairs local alignment similarities,
+    kernel sw_scores on the card -> rescale -> UPGMA avg); writes Newick
+    to -guidetreeout (reference: cmd_swdistmx, src/swdistmx.cpp:129-137)."""
+    from .alphabet import ALPHA_AMINO
+    from .ops.sw import sw_dist_matrix
+    from .tree.upgma import LINKAGE_AVG, scale_dist_mx, upgma5
+    seqs = MultiSequence.from_fasta(path)
+    sim = sw_dist_matrix(list(seqs), ALPHA_AMINO, device=opts.get("device"))
+    tree = upgma5(seqs.labels(), scale_dist_mx(sim), LINKAGE_AVG)
+    with open(opts["guidetreeout"], "w") as f:
+        f.write(tree.to_newick() + "\n")
+    return 0
+
+
 _HANDLERS = {"align": _cmd_align, "super5": _cmd_align,
+             "super6": _cmd_align, "super7": _cmd_align,
+             "uclustpd": _cmd_uclustpd, "protdists": _cmd_protdists,
+             "shrub": _cmd_shrub, "swdistmx": _cmd_swdistmx,
              "qscore": _cmd_qscore, "efastats": _cmd_efastats,
              "disperse": _cmd_disperse, "maxcc": _cmd_maxcc,
              "resample": _cmd_resample, "efa_explode": _cmd_efa_explode,

@@ -89,12 +89,15 @@ def _save_join(msa: MultiSequence, join_index: int) -> None:
 
 class PProg:
     def __init__(self, aligner: PairAligner,
-                 label_to_global_index: dict[str, int]):
-        """`aligner` is over the global ungapped sequence set;
-        label_to_global_index maps row labels into it."""
+                 label_to_global_index: dict[str, int],
+                 target_pair_count: int = DEFAULT_TARGET_PAIR_COUNT):
+        """`aligner` is over the global ungapped sequence set (anything
+        with `lens` and `sparse_store(pairs)`); label_to_global_index
+        maps row labels into it; each join samples up to
+        target_pair_count pairs."""
         self.aligner = aligner
         self.l2g = label_to_global_index
-        self.target = DEFAULT_TARGET_PAIR_COUNT
+        self.target = target_pair_count
         self.rng = MwcRng(1)
         # joins of the last run_guide_tree on the device / on the host
         self.joins = {"device": 0, "host": 0}

@@ -133,10 +133,11 @@ def load_kernel(spec: LibSpec, argtypes):
 def build_all() -> dict[str, str]:
     """Build the CUDA kernels and the native host library together."""
     from ..native import native_spec
-    from ..ops import (densify_cuda, devjoin_cuda, pairhmm_cuda,
+    from ..ops import (densify_cuda, devjoin_cuda, dp_cuda, pairhmm_cuda,
                        pairhmm_emis_cuda, pairhmm_striped)
     return ensure_built(list(pairhmm_cuda.kernel_specs())
                         + pairhmm_emis_cuda.kernel_specs()
                         + pairhmm_striped.kernel_specs()
                         + densify_cuda.kernel_specs()
-                        + devjoin_cuda.kernel_specs() + [native_spec()])
+                        + devjoin_cuda.kernel_specs()
+                        + dp_cuda.kernel_specs() + [native_spec()])

@@ -72,8 +72,8 @@ def test_parse_errors_match_jax():
             t_parse(argv)
 
 
-@pytest.mark.parametrize("cmd", ["super6", "super7", "muscle3", "uclustpd",
-                                 "msastats", "upgma5"])
+@pytest.mark.parametrize("cmd", ["kmerdist", "m3ensemble", "muscle3",
+                                 "masm_train", "msastats", "upgma5"])
 def test_unported_command_raises(cmd):
     """A JAX command with no handler in the port stops with a clear
     error, not as a value option swallowing the input path."""
