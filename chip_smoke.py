@@ -168,6 +168,19 @@ Phases (each raises on failure, so the run exits non-zero):
      first HELD_DP launches of each DP kernel in each run held, as they
      happen, to the plain versions (DpCheck), stage walls, the runs'
      cluster sizes, peak device memory and launches printed;
+   - the rest of the CLI and API surface (phase_surface): -eadistmx,
+     -uclust and -transaln through the CLI, align(random_chain_tree=
+     True) and the greedy PProg.run over rdrp-16's single rows, each
+     required equal to the port's CPU text (-uclust's and the greedy
+     run's CPU texts from a child process, `chip_smoke.py --cpu-refs
+     DIR`, started after the build: they take minutes on the plain
+     versions); -testfb on BB11004 (exit 0, its kernel-A and 3K launches
+     held to the plain versions, 3K with its corner output); 3K at phase
+     2's shape with its corner output off and on, both timed;
+     align(sparse_k=16, batch_size=64) on a repeat-rich family of n = 70
+     whose store keeps 16 slots a row (kernel 8's first launch and
+     kernel 7's held ones equal to the plain versions); each host-only
+     command once, its wall printed;
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
 5. print kernels 7L's and 7's times summed over their held main-path
@@ -181,7 +194,8 @@ Phases (each raises on failure, so the run exits non-zero):
    synthetic-1000's largest device join; nw_viterbi's and sw_scores'
    times, plain times and bounds at pad 2048 beside 384, and their held
    launches;
-   each max |d| over phase 2 and the launches held in phase 3),
+   each max |d| over phase 2 and the launches held in phase 3; 3K's
+   times at 512 with the corner output off and on),
    then the card line and the final {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -630,12 +644,16 @@ def ptxas_lines(names) -> list[str]:
                                    else "letters") + ", row 0 "
                             + ("in the launch" if w[0] == "1"
                                else "given")
-                            + (", kernel 3's layout" if w[1:] == ["1"]
-                               else "") + ">")
+                            + (", kernel 3's layout" if w[1:2] == ["1"]
+                               else "")
+                            + (", corner" if w[2:] == ["1"] else "") + ">")
                 elif t:
                     src = (", lattice" if "LatticeEmission" in rest else
                            ", letters" if "CodeEmission" in rest else "")
-                    cur += f"<S={t.group(1)}{src}>"
+                    # kernel 3K's block body: <S, Src, kCorner>
+                    corner = (", corner" if cur == "pairhmm_bwd_kernel"
+                              and re.search(r"Lb1E", rest) else "")
+                    cur += f"<S={t.group(1)}{src}{corner}>"
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
@@ -3725,6 +3743,564 @@ def phase_super67(dev, sets) -> dict:
     return out
 
 
+# phase_surface: a repeat-rich family (a period-3 motif, few
+# substitutions: n, lo, hi, period, seed) whose posterior rows hold more
+# than 8 entries, so that under sparse_k=16 the pair store keeps 16
+# slots a row (and max_nnz is clamped to 16) through kernels 8 and 7
+SURFACE_REPEAT = (70, 200, 256, 3, 70)
+# kernel 3K at phase 2's shape (512 pairs, 512 x 512, per-pair tables)
+# before its corner output: PERF.md row 3K
+BWD_CODES_BEFORE_CORNER_MS = 3.041
+BWD_CODES_CORNER_SHAPE = (512, 512)   # pairs, width
+# the host-only commands' inputs: the seven BAliBASE goldens for -bench
+BENCH_GOLDENS = [f"BB1100{k}.seq.afa" for k in (1, 2, 4, 5, 6, 7, 9)]
+
+
+def repeat_family(n, lo, hi, period, seed):
+    """Proteins of lo..hi residues cut from one random period-`period`
+    motif repeated, at a random phase, with up to 1/40 of the positions
+    substituted: every shift by the period aligns nearly as well."""
+    from muscle_tpu_torch import MultiSequence, Sequence
+    rng = np.random.default_rng(seed)
+    motif = rng.integers(0, 20, size=period)
+    seqs = MultiSequence()
+    for i in range(n):
+        ln = int(rng.integers(lo, hi + 1))
+        start = int(rng.integers(0, period))
+        mut = np.tile(motif, hi // period + 2)[start:start + ln].copy()
+        nmut = int(rng.integers(0, ln // 40))
+        pos = rng.integers(0, ln, size=nmut)
+        mut[pos] = rng.integers(0, 20, size=nmut)
+        seqs.add(Sequence(f"r{i}", bytes(AMINO_LETTERS[c] for c in mut)))
+    return seqs
+
+
+class PanelCheck:
+    """Stands in for kernel 8 in the blocked consistency while one run
+    goes: its first launch held to densify_panel_plain on the same
+    inputs (max |d|, the store's K)."""
+
+    def __init__(self):
+        self.cases: list[dict] = []
+        self._left = 0
+        self._saved = None
+
+    def __call__(self, vals, cols, pids, flags, dtype):
+        import torch
+        from muscle_tpu_torch.ops import densify_cuda as dc
+        out = self._saved(vals, cols, pids, flags, dtype)
+        if self._left > 0:
+            self._left -= 1
+            want = dc.densify_panel_plain(vals, cols, pids, flags, dtype)
+            torch.cuda.synchronize()
+            self.cases.append({
+                "err": float((out.float() - want.float()).abs().max()),
+                "same": torch.equal(out, want), "k": int(vals.shape[2]),
+                "shape": f"{pids.shape[0]} x {pids.shape[1]} blocks of "
+                         f"L = {vals.shape[1]}, {dtype}"})
+            del want
+        return out
+
+    def __enter__(self):
+        from muscle_tpu_torch.ops import consistency
+        self._saved = consistency.densify_panel
+        self._left = 1
+        consistency.densify_panel = self
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.ops import consistency
+        consistency.densify_panel = self._saved
+
+
+class TestfbCheck:
+    """Stands in for kernels A and 3K's wrappers while -testfb runs: the
+    first launch of each held to its plain version on the same inputs
+    (A: fm on the real cells and fend; 3K with its corner output: the
+    corner and RB_M on the real cells and the zero rows), and the totals
+    that -testfb compares, from the same outputs."""
+
+    def __init__(self):
+        self.errs: dict[str, float] = {}
+        self.totals: list = []
+        self._saved = None
+
+    def _fwd(self, *args, **kw):
+        import torch
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        fm, fend = self._saved[0](*args, **kw)
+        if "pairhmm_fwd" not in self.errs:
+            fm2, fend2 = pc.fwd_plain(*args[:7])
+            lx, ly = args[2], args[3]
+            self.errs["pairhmm_fwd"] = max(
+                float((real_cells(fm, lx, ly)
+                       - real_cells(fm2, lx, ly)).abs().max()),
+                float((fend - fend2).abs().max()))
+            self.totals.append(pc._total_prob(fend, args[6]))
+            del fm2
+            torch.cuda.synchronize()
+        return fm, fend
+
+    def _bwd(self, *args, **kw):
+        import torch
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        out = self._saved[1](*args, **kw)
+        if kw.get("corner") and "pairhmm_bwd_codes" not in self.errs:
+            rb, far = out
+            rb2, far2 = pc.bwd_codes_plain(*args[:7], corner=True)
+            self.errs["pairhmm_bwd_codes"] = max(
+                float((far - far2).abs().max()),
+                rbm_err(rb, rb2, args[2], args[3]))
+            self.totals.append(pc._total_prob(far, args[6]))
+            del rb2
+            torch.cuda.synchronize()
+        return out
+
+    def __enter__(self):
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        self._saved = (pc.pairhmm_fwd, pc.pairhmm_bwd_codes)
+        pc.pairhmm_fwd, pc.pairhmm_bwd_codes = self._fwd, self._bwd
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.ops import pairhmm_cuda as pc
+        pc.pairhmm_fwd, pc.pairhmm_bwd_codes = self._saved
+
+
+def cli_card_cpu(name, argv, out, kernels, cpu_out=None, ea_tol=None):
+    """The port's CLI `argv` (writing `out`) on the card, launch counts
+    set to 0 just before it and read just after (each of `kernels`
+    required), then again with -device cpu writing out + ".cpu", or the
+    CPU's text already written to `cpu_out` by cpu_refs_main: the texts
+    must be equal. With `ea_tol` (a TSV of EAs, -eadistmx) the CPU's
+    pair-HMM (the scan, another association) may differ by up to ea_tol
+    in each value, and the text must equal instead the CPU text of the
+    kernels' plain versions (the pair stage's "cuda" route on CPU
+    tensors), written to out + ".plain". Returns (card wall s, CPU wall
+    s or None, launches)."""
+    import torch
+    from muscle_tpu_torch.cli import main as cli_main
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_main(argv + ["-output", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = count_main_path()
+    missing = [k for k in kernels if got[k] <= 0]
+    if rc != 0 or missing:
+        raise SmokeFailure(f"{name}: rc={rc}, {missing} not launched")
+    rc_cpu, cpu_wall = 0, None
+    if cpu_out is None:
+        cpu_out = out + ".cpu"
+        t0 = time.perf_counter()
+        rc_cpu = cli_main(argv + ["-output", cpu_out, "-device", "cpu"])
+        cpu_wall = time.perf_counter() - t0
+    with open(out) as f, open(cpu_out) as g:
+        card_text, cpu_text = f.read(), g.read()
+    cpu = (f"CPU {cpu_wall:.2f}s" if cpu_wall is not None
+           else "CPU text from cpu_refs_main")
+    if ea_tol is None:
+        same = rc_cpu == 0 and card_text == cpu_text
+        print(f"{name}: card {wall:.2f}s, {cpu}, card text = CPU text: "
+              f"{same} launches={json.dumps(got)}", flush=True)
+    else:
+        from muscle_tpu_torch.pipeline import posteriors
+        saved = posteriors.default_backend
+        posteriors.default_backend = lambda device: "cuda"
+        try:
+            rc_plain = cli_main(argv + ["-output", out + ".plain",
+                                        "-device", "cpu"])
+        finally:
+            posteriors.default_backend = saved
+        with open(out + ".plain") as f:
+            same_plain = rc_plain == 0 and f.read() == card_text
+        rows = [(a.rsplit("\t", 1), b.rsplit("\t", 1)) for a, b in zip(
+            card_text.splitlines(), cpu_text.splitlines())]
+        d = max(abs(float(a[1]) - float(b[1])) for a, b in rows)
+        same = (same_plain and rc_cpu == 0 and d <= ea_tol
+                and len(rows) == len(cpu_text.splitlines())
+                and all(a[0] == b[0] for a, b in rows))
+        print(f"{name}: card {wall:.2f}s, {cpu}; card text = the plain "
+              f"versions' CPU text: {same_plain}; max |d| to the CPU "
+              f"scan's text {d:.4f} (tol {ea_tol}) launches="
+              f"{json.dumps(got)}", flush=True)
+    if not same:
+        raise SmokeFailure(f"{name}: the card's output differs from the "
+                           "CPU's")
+    return wall, cpu_wall, got
+
+
+def host_command(name, argv):
+    """One host-only command of the port's CLI, its wall printed; it must
+    return 0 and launch no kernel."""
+    from muscle_tpu_torch.cli import main as cli_main
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in launches().items() if v}
+    print(f"host command {name}: rc={rc} wall={wall:.3f}s", flush=True)
+    if rc != 0 or launched:
+        raise SmokeFailure(f"{name}: rc={rc}, launched {launched}")
+    return wall
+
+
+# the CPU references too long to run in line (-uclust and the greedy
+# PProg over rdrp-16 take minutes on the CPU scan, a Python loop over
+# rows of small tensors, as fast on one thread as on four): a child
+# process of this script computes them on one thread, at a lower
+# priority, while the card runs the earlier phases (with four threads it
+# slowed them by up to 30 % on the H100's host, PERF.md)
+CPU_REF_THREADS = 1
+
+
+def rdrp16_greedy(device):
+    """The greedy PProg.run over the degapped rdrp-16 golden's 16
+    single-row MSAs on `device`: (rows, the joined MSA)."""
+    from muscle_tpu_torch import MultiSequence
+    from muscle_tpu_torch.hmm.params import HMMParams
+    from muscle_tpu_torch.pipeline.pairwise import PairAligner
+    from muscle_tpu_torch.pipeline.pprog import PProg
+    rows = MultiSequence.from_fasta(os.path.join(ROOT, RDRP16),
+                                    strip_gaps=True)
+    pack = HMMParams.from_defaults(nucleo=False).to_scores()
+    pp = PProg(PairAligner(rows, pack, "amino", device=device),
+               {s.label: k for k, s in enumerate(rows)})
+    return rows, pp.run([MultiSequence([s]) for s in rows])
+
+
+def cpu_refs_main(outdir) -> int:
+    """`chip_smoke.py --cpu-refs DIR` (started by main as a child): the
+    port's CPU texts of -uclust -minea 0.9 and of the greedy PProg over
+    the degapped rdrp-16 golden, into DIR (uclust.fa, greedy.afa, then
+    walls.json last)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    os.nice(10)
+    torch.set_num_threads(CPU_REF_THREADS)
+    from muscle_tpu_torch import MultiSequence
+    from muscle_tpu_torch.cli import main as cli_main
+    walls = {}
+    fa = os.path.join(outdir, "rdrp16.fa")
+    MultiSequence.from_fasta(os.path.join(ROOT, RDRP16),
+                             strip_gaps=True).write_fasta(fa)
+    t0 = time.perf_counter()
+    rc = cli_main(["-uclust", fa, "-minea", "0.9", "-output",
+                   os.path.join(outdir, "uclust.fa"), "-device", "cpu"])
+    walls["uclust"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, msa = rdrp16_greedy("cpu")
+    msa.write_fasta(os.path.join(outdir, "greedy.afa"))
+    walls["greedy"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, "walls.json"), "w") as f:
+        json.dump(walls, f)
+    return rc
+
+
+def start_cpu_refs():
+    """Start cpu_refs_main in a child process; (process, its directory)."""
+    outdir = os.path.join(ROOT, "build", "chip_smoke", "cpu_refs")
+    os.makedirs(outdir, exist_ok=True)
+    for name in os.listdir(outdir):
+        os.remove(os.path.join(outdir, name))
+    log = open(os.path.join(ROOT, "build", "chip_smoke", "cpu_refs.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--cpu-refs", outdir], stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    return proc, outdir
+
+
+def wait_cpu_refs(refs) -> dict:
+    """Wait for the child; its walls (raises if it failed)."""
+    proc, outdir = refs
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=CPU_REFS_LIMIT_S)
+    waited = time.perf_counter() - t0
+    walls_path = os.path.join(outdir, "walls.json")
+    if rc != 0 or not os.path.exists(walls_path):
+        raise SmokeFailure(f"the CPU references' process failed (rc={rc}; "
+                           "build/chip_smoke/cpu_refs.log)")
+    with open(walls_path) as f:
+        walls = json.load(f)
+    print(f"CPU references (child process, {CPU_REF_THREADS} threads): "
+          f"walls {json.dumps({k: round(v, 1) for k, v in walls.items()})}"
+          f" s; waited {waited:.1f}s for them here", flush=True)
+    return walls
+
+
+# the longest wait for the CPU references at phase_surface
+CPU_REFS_LIMIT_S = 300
+# -eadistmx's EAs: the kernels against the CPU's scan, the kernel gate's
+# EA tolerance (ROADMAP.md) and the last printed digit's rounding
+EA_TOL = 2e-3 + 1e-4
+
+
+def phase_surface(dev, sets, refs) -> dict:
+    """The rest of the CLI and API surface on the card:
+    - -eadistmx on the degapped BB11002 golden, -uclust -minea 0.9 on the
+      degapped rdrp-16 golden and -transaln of BB11001's first two rows
+      (degapped) onto the MSA of its other two, through the CLI on the
+      card: the text required equal to the port's CPU text;
+    - -testfb on the degapped BB11004 golden (exit 0 required): its
+      kernel-A and 3K (corner output) launches held to their plain
+      versions (max |d| = 0 required), the worst relative |fwd - bwd|;
+    - kernel 3K at phase 2's shape (512 pairs, 512 x 512, per-pair
+      tables) with the corner output off and on: the RB_M of both and
+      the corner equal to the plain version, both timed (steady_ms)
+      beside BWD_CODES_BEFORE_CORNER_MS;
+    - align(sparse_k=16, batch_size=64) on repeat_family(SURFACE_REPEAT)
+      (the blocked bf16 Gram consistency, kernel 8, and device refine,
+      kernel 7, over a store of 16 slots): the first kernel-8 launch and
+      the first HELD_GRID kernel-7 launches held to their plain versions
+      (equal required); align(random_chain_tree=True) on the degapped
+      BB11001 golden: card text = CPU text;
+    - the greedy PProg.run over the degapped rdrp-16 golden's 16
+      single-row MSAs: card text = CPU text (-uclust's and this one's
+      CPU texts from the child process `refs`, start_cpu_refs);
+    - each host-only command once, its wall printed: -muscle3 (Q against
+      the golden), -m3select, -bench over BENCH_GOLDENS, -masm_train,
+      -masm_stats and -swmasm on mega-8, -kmerdist, -upgma5, -consseq,
+      -msastats, the -msatool family, -cmp_ref_msas, -derep, -hmmdump
+      and -perturbhmm 3.
+    Returns the holds and times for the kernels line."""
+    import tempfile
+
+    import torch
+    from muscle_tpu_torch import MultiSequence, align
+    from muscle_tpu_torch.cli import main as cli_main
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    t_phase = time.perf_counter()
+    out = {"errs": {}}
+    gold = os.path.join(ROOT, "tests", "goldens")
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as wd:
+        def degapped(path, name):
+            seqs = MultiSequence.from_fasta(os.path.join(ROOT, path),
+                                            strip_gaps=True)
+            p = os.path.join(wd, name)
+            seqs.write_fasta(p)
+            return seqs, p
+
+        # the pair-HMM commands, card against CPU
+        _, bb2 = degapped(FAMILIES[1][1], "bb11002.fa")
+        cli_card_cpu("-eadistmx BB11002", ["-eadistmx", bb2],
+                     os.path.join(wd, "ea.tsv"), PAIR_KERNELS,
+                     ea_tol=EA_TOL)
+        out["cpu_ref_walls"] = wait_cpu_refs(refs)
+        rdrp, rdrp_fa = degapped(RDRP16, "rdrp16.fa")
+        cli_card_cpu("-uclust -minea 0.9 rdrp-16",
+                     ["-uclust", rdrp_fa, "-minea", "0.9"],
+                     os.path.join(wd, "centroids.fa"), PAIR_KERNELS,
+                     cpu_out=os.path.join(refs[1], "uclust.fa"))
+        bb1, bb1_fa = degapped(FAMILIES[0][1], "bb11001.fa")
+        gold1 = MultiSequence.from_fasta(os.path.join(ROOT, FAMILIES[0][1]))
+        fresh = os.path.join(wd, "fresh.fa")
+        MultiSequence([bb1[0], bb1[1]]).write_fasta(fresh)
+        ref2 = os.path.join(wd, "ref2.afa")
+        MultiSequence([gold1[2], gold1[3]]).write_fasta(ref2)
+        cli_card_cpu("-transaln BB11001 rows 0-1 onto rows 2-3",
+                     ["-transaln", fresh, "-ref", ref2],
+                     os.path.join(wd, "transaln.afa"), PAIR_KERNELS)
+
+        # -testfb on BB11004: kernels A and 3K (corner) held
+        _, bb4 = degapped(FAMILIES[2][1], "bb11004.fa")
+        reset_launches()
+        with TestfbCheck() as tfb:
+            t0 = time.perf_counter()
+            rc = cli_main(["-testfb", bb4])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = count_main_path()
+        fwd, bwd = (t.cpu().numpy() for t in tfb.totals)
+        worst = float(np.max(np.abs(fwd - bwd)
+                             / np.maximum(1.0, np.abs(fwd))))
+        print(f"-testfb BB11004: rc={rc} wall={wall:.2f}s (checks in); "
+              f"kernel A vs plain max |d| {tfb.errs.get('pairhmm_fwd')}, "
+              f"kernel 3K with its corner output vs plain max |d| "
+              f"{tfb.errs.get('pairhmm_bwd_codes')}; worst relative "
+              f"|fwd - bwd| {worst:.3e} (limit 1e-3) "
+              f"launches={json.dumps(got)}", flush=True)
+        if (rc != 0 or len(tfb.errs) != 2 or any(tfb.errs.values())
+                or got["pairhmm_fwd"] <= 0 or got["pairhmm_bwd_codes"] <= 0):
+            raise SmokeFailure("-testfb: exit code, holds or launches")
+        out["errs"].update(tfb.errs)
+        out["testfb_worst"] = worst
+
+    # kernel 3K at phase 2's shape, corner output off and on
+    b, width = BWD_CODES_CORNER_SHAPE
+    xb, yb, lx, ly = ragged_batch(b, width // 3, width, width,
+                                  seed=20261017)
+    x, y, lxt, lyt = (torch.from_numpy(a).to(dev) for a in (xb, yb, lx, ly))
+    _, (m, i, s, t) = ensemble_tables(dev, [k % len(ENSEMBLE_SEEDS)
+                                            for k in range(b)])
+    args = (x, y, lxt, lyt, m.contiguous(), i.contiguous(),
+            pc.params_rows(s, t))
+    rb = pc.pairhmm_bwd_codes(*args)
+    rb2, far = pc.pairhmm_bwd_codes(*args, corner=True)
+    want_rb, want_far = pc.bwd_codes_plain(*args, corner=True)
+    torch.cuda.synchronize()
+    d3 = max(rbm_err(rb, want_rb, lxt, lyt), rbm_err(rb2, want_rb, lxt, lyt),
+             float((far - want_far).abs().max()))
+    del rb, rb2, want_rb
+    ms_off = steady_ms(lambda: pc.pairhmm_bwd_codes(*args))
+    ms_on = steady_ms(lambda: pc.pairhmm_bwd_codes(*args, corner=True))
+    print(f"kernel 3K pairhmm_bwd_codes at {b} x {width} x {width} "
+          f"(per-pair tables, {pc.bwd_codes_geometry(b, width).schedule}): "
+          f"corner output off {ms_off:.3f} ms, on {ms_on:.3f} ms (before "
+          f"the corner output: {BWD_CODES_BEFORE_CORNER_MS} ms, PERF.md row 3K); "
+          f"RB_M off and on and the corner vs plain max |d| {d3:.3e} "
+          f"{'equal' if d3 == 0 else 'FAIL'}", flush=True)
+    if d3:
+        raise SmokeFailure("kernel 3K's corner output or RB_M differs from "
+                           "its plain version")
+    out["errs"]["pairhmm_bwd_codes"] = max(out["errs"]["pairhmm_bwd_codes"],
+                                          d3)
+    out["bwd_codes_512"] = {"corner_off_ms": ms_off, "corner_on_ms": ms_on}
+    del args, x, y, m, i
+
+    # MPC's options on the card
+    n, lo, hi, period, seed = SURFACE_REPEAT
+    seqs = repeat_family(n, lo, hi, period, seed)
+    name = f"repeat family n={n} L={lo}-{hi} sparse_k=16 batch_size=64"
+    n_grid = len(GRID_CHECK.cases)
+    with PanelCheck() as panel:
+        msa, wall, stages, got = run_path(
+            name, seqs, dev, PAIR_KERNELS + ("densify",) + REFINE_KERNELS,
+            sparse_k=16, batch_size=64)
+    p8 = panel.cases[0]
+    held7 = GRID_CHECK.cases[n_grid:]
+    k7 = sorted({int(c["shape"].split("k2=")[1].split(",")[0])
+                 for c in held7})
+    print(f"{name}: wall={wall:.2f}s width={msa.col_count()} "
+          f"stages={json.dumps(stages)} launches={json.dumps(got)}; "
+          f"densify (kernel 8) first launch ({p8['shape']}, store K = "
+          f"{p8['k']}) vs plain max |d| {p8['err']:.3e} "
+          f"{'equal' if p8['same'] else 'FAIL'}; kernel 7 held launches' "
+          f"k2 {k7}", flush=True)
+    if not p8["same"] or p8["k"] != 16:
+        raise SmokeFailure(f"{name}: kernel 8's first launch (K = {p8['k']}) "
+                           "differs from its plain version or the store "
+                           "does not hold 16 slots")
+    out["errs"]["densify"] = p8["err"]
+    out["repeat"] = {"wall_s": wall, "k8": p8["k"], "k7": k7}
+
+    name = "BB11001 random_chain_tree"
+    msa, wall, _, got = run_path(name, bb1, dev, PAIR_KERNELS,
+                                 random_chain_tree=True)
+    cpu = align(bb1, device="cpu", random_chain_tree=True)
+    same = cpu.to_fasta_text() == msa.to_fasta_text()
+    print(f"{name}: card {wall:.2f}s, card text = CPU text: {same}",
+          flush=True)
+    if not same:
+        raise SmokeFailure(f"{name}: the card's text differs from the CPU's")
+
+    # the greedy PProg over rdrp-16's single rows
+    name = "greedy PProg.run rdrp-16"
+    m_cases = len(MEA_CHECK.cases)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, joined = rdrp16_greedy(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = count_main_path()
+    if any(got[k] <= 0 for k in PAIR_KERNELS):
+        raise SmokeFailure(f"{name}: {PAIR_KERNELS} not launched")
+    MEA_CHECK.held_since(name, m_cases, got["mea_dirs"])
+    check_alignment(rdrp, joined, name)
+    with open(os.path.join(refs[1], "greedy.afa")) as f:
+        same = f.read() == joined.to_fasta_text()
+    print(f"{name}: card {wall:.2f}s (checks in), card text = CPU text "
+          f"(cpu_refs_main): {same} launches={json.dumps(got)}", flush=True)
+    if not same:
+        raise SmokeFailure(f"{name}: the card's text differs from the CPU's")
+
+    # the host-only commands, once each
+    with tempfile.TemporaryDirectory(dir=scratch) as wd:
+        walls = {}
+        bb1_fa = os.path.join(wd, "bb11001.fa")
+        bb1.write_fasta(bb1_fa)
+        rdrp_fa = os.path.join(wd, "rdrp16.fa")
+        rdrp.write_fasta(rdrp_fa)
+        m3 = os.path.join(wd, "m3.afa")
+        walls["muscle3"] = host_command("-muscle3 BB11001",
+                                        ["-muscle3", bb1_fa, "-output", m3])
+        print(f"-muscle3 BB11001: Q against the golden "
+              f"{q_score(MultiSequence.from_fasta(m3), gold1):.4f}",
+              flush=True)
+        walls["m3select"] = host_command(
+            "-m3select -replicates 4 BB11001",
+            ["-m3select", bb1_fa, "-replicates", "4", "-output",
+             os.path.join(wd, "sel.afa")])
+        names = os.path.join(wd, "names.txt")
+        with open(names, "w") as f:
+            f.write("".join(g + "\n" for g in BENCH_GOLDENS))
+        walls["bench"] = host_command(
+            "-bench the seven BB goldens",
+            ["-bench", names, "-refdir", gold])
+        ms8, _ = sets["mega-8"]
+        n8, _, _, seed8 = MEGA_8
+        mega8 = os.path.join(ROOT, "build", "chip_smoke",
+                             f"mega-{n8}-{seed8}.mega")
+        chains_fa = os.path.join(wd, "mega8.fa")
+        mega_seqs(ms8).write_fasta(chains_fa)
+        chains_afa = os.path.join(wd, "mega8.afa")
+        host_command("-muscle3 mega-8 chains",
+                     ["-muscle3", chains_fa, "-output", chains_afa])
+        masm = os.path.join(wd, "mega8.masm")
+        walls["masm_train"] = host_command(
+            "-masm_train mega-8", ["-masm_train", chains_afa, "-input",
+                                   mega8, "-output", masm])
+        walls["masm_stats"] = host_command("-masm_stats mega-8",
+                                           ["-masm_stats", masm])
+        walls["swmasm"] = host_command(
+            "-swmasm mega-8", ["-swmasm", masm, "-query", mega8, "-output",
+                               os.path.join(wd, "sw.tsv")])
+        dist = os.path.join(wd, "kmer.tsv")
+        walls["kmerdist"] = host_command(
+            "-kmerdist rdrp-16", ["-kmerdist", rdrp_fa, "-output", dist])
+        walls["upgma5"] = host_command(
+            "-upgma5 rdrp-16", ["-upgma5", dist, "-output",
+                                os.path.join(wd, "t.nwk")])
+        aln2 = os.path.join(ROOT, FAMILIES[1][1])
+        walls["consseq"] = host_command(
+            "-consseq BB11002", ["-consseq", aln2, "-output",
+                                 os.path.join(wd, "cons.fa")])
+        walls["msastats"] = host_command("-msastats BB11002",
+                                         ["-msastats", aln2])
+        labels2 = os.path.join(wd, "labels2.tsv")
+        with open(labels2, "w") as f:
+            f.write(f"{gold1[0].label}\tfirst\n")
+        for tool, extra in (("strip_gappy_cols", []),
+                            ("strip_gappy_rows", []),
+                            ("relabel", ["-labels2", labels2]),
+                            ("trimtoref", ["-ref", os.path.join(
+                                ROOT, FAMILIES[0][1])]),
+                            ("make_a2m", []), ("squeeze_inserts", []),
+                            ("core_blocks", ["-min_core_block_seqs", "2"])):
+            src = m3 if tool in ("relabel", "trimtoref") else aln2
+            walls[tool] = host_command(
+                f"-{tool}", [f"-{tool}", src, *extra, "-output",
+                             os.path.join(wd, f"{tool}.out")])
+        walls["cmp_ref_msas"] = host_command(
+            "-cmp_ref_msas BB11001", ["-cmp_ref_msas", m3, "-ref",
+                                      os.path.join(ROOT, FAMILIES[0][1])])
+        dups = os.path.join(wd, "dups.fa")
+        MultiSequence(list(bb1) + [bb1[0], bb1[1]]).write_fasta(dups)
+        walls["derep"] = host_command(
+            "-derep BB11001 with 2 duplicates",
+            ["-derep", dups, "-output", os.path.join(wd, "u.fa")])
+        walls["hmmdump"] = host_command(
+            "-hmmdump", ["-hmmdump", os.path.join(wd, "hmm")])
+        walls["perturbhmm"] = host_command("-perturbhmm 3",
+                                           ["-perturbhmm", "3"])
+    out["host_walls"] = walls
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase surface: {out['wall_s']:.1f}s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3740,6 +4316,18 @@ def main() -> int:
     built = build_all()
     print(f"build: {len(built)} libraries in {time.perf_counter() - t0:.1f}s; "
           f"native host library loaded: {native.loaded()}", flush=True)
+    refs = start_cpu_refs()
+    try:
+        return run_phases(card, refs)
+    finally:
+        if refs[0].poll() is None:
+            refs[0].kill()
+        refs[0].wait()
+
+
+def run_phases(card, refs) -> int:
+    """Phases 2-5 (refs: the CPU references' child, start_cpu_refs)."""
+    import torch
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     sets = {name: mega_set(*spec) for name, spec in (
@@ -3761,6 +4349,7 @@ def main() -> int:
         legacy_errs = phase_mega(dev, sets)["legacy_errs"]
         ens = phase_ensembles(dev)
         phase_super67(dev, sets)
+        surf = phase_surface(dev, sets, refs)
     print(f"main path: {time.perf_counter() - t0:.1f}s (kernel-7 checks "
           f"{GRID_CHECK.seconds:.2f}s, {len(GRID_CHECK.cases)} launches "
           f"held; mea_dirs checks {MEA_CHECK.seconds:.2f}s, "
@@ -3793,7 +4382,10 @@ def main() -> int:
         held[k] = [e for run in ("ensemble-48", "diversified-BB11002")
                    for errs in (ens[run]["errs"], ens[run]["plain_errs"])
                    for e in errs[k]]
-    held["pairhmm_bwd_codes"] = ens["legacy-BB11001"]["errs"]
+    held["pairhmm_bwd_codes"] = (ens["legacy-BB11001"]["errs"]
+                                 + [surf["errs"]["pairhmm_bwd_codes"]])
+    for name in ("pairhmm_fwd", "densify"):
+        held[name] = held.get(name, []) + [surf["errs"][name]]
     held["mea_scores"] = (held.get("mea_scores", [])
                           + ens["legacy-BB11001"]["mea_errs"])
     held["densify_reduce"] = [c["err"] for c in GRID_CHECK.cases]
@@ -3822,6 +4414,11 @@ def main() -> int:
         k = next(k for k in kernels if k["name"] == name)
         k["schedule"] = {f"{sched} {ly}": n for (kn, sched, ly), n
                          in sorted(MAIN_SCHEDULES.items()) if kn == name}
+    # kernel 3K: its times at 512 with the corner output (-testfb) off and
+    # on, measured in phase_surface
+    next(k for k in kernels if k["name"] == "pairhmm_bwd_codes").update(
+        corner_off_ms_512=surf["bwd_codes_512"]["corner_off_ms"],
+        corner_on_ms_512=surf["bwd_codes_512"]["corner_on_ms"])
     # kernel 1E: its time and bound on mega-long's chunk (the wave); its
     # dependency floor, a model and not a measurement, stays in the
     # printed line
@@ -3854,4 +4451,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
+        sys.exit(cpu_refs_main(sys.argv[2]))
     sys.exit(main())

@@ -36,6 +36,13 @@
 // the Pallas kernel does. The params row is pair b's (pstride 16) or
 // shared (pstride 0).
 //
+// kCorner (kernel 3K for -testfb): one step more, u = lx, which reads x
+// position 0 and is not written to RB_M, after which the thread holding
+// lane ly-1 writes the five states [M, IX, IY, JX, JY] of row lx there
+// (the reversed lattice's far corner, which total_prob_bwd folds with
+// the start scores) to corner (B, 5). The caller launches it with
+// Lx > lx. Without it the kernel is the same code as before.
+//
 // What bounds it on the H100: for the function itself, bytes. Kernel 3
 // reads the lattice's real cells and writes RB_M (2 x 4 bytes a cell; 8
 // pairs of ~9,000 x 9,000 real cells in 12288 x 12288 lattices: ~1.5 ms
@@ -57,12 +64,13 @@
 
 using namespace ph;
 
-template <int S, class Src>
+template <int S, class Src, bool kCorner>
 __global__ void __launch_bounds__(1024)
 pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
                    const int* __restrict__ lyb,
                    const float* __restrict__ params, int pstride, int Lx,
-                   int Ly, float* __restrict__ rbm) {
+                   int Ly, float* __restrict__ rbm,
+                   float* __restrict__ corner) {
   extern __shared__ float smem[];
   const int nseg = Ly >> 6;
   const int W = blockDim.x >> 5;
@@ -149,7 +157,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
   float ix0 = tSI, jx0 = tSJ, m0 = tSM;  // column-0 chains (v = 0)
   __syncthreads();
 
-  for (int u = 0; u < lx; ++u) {
+  for (int u = 0; u < lx + (kCorner ? 1 : 0); ++u) {
     if (u > 0) {
       // emission row u-1 of the reversed lattice: x position lx-u
       src.row(lx - u);
@@ -240,6 +248,7 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
     }
     // (5) row u of RB_M: the M row shifted one lane, the column-0 chain
     // in lane 0
+    if (kCorner && u == lx) break;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       const int g = warp + s * W;
@@ -250,29 +259,53 @@ pairhmm_bwd_kernel(const typename Src::Args args, const int* __restrict__ lxb,
       }
     }
   }
+  if constexpr (kCorner) {
+    // lane ly-1 of row lx: its thread's element (ly-1) & 1, chosen by a
+    // select (a register array takes no run-time index)
+    const int c = ly - 1;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int g = warp + s * W;
+      if (g * 64 + 2 * l == (c & ~1)) {
+        const bool hi = c & 1;
+        float* out = corner + (size_t)b * 5;
+        out[0] = hi ? m[s][1] : m[s][0];
+        out[1] = hi ? ix[s][1] : ix[s][0];
+        out[2] = hi ? iy[s][1] : iy[s][0];
+        out[3] = hi ? jx[s][1] : jx[s][0];
+        out[4] = hi ? jy[s][1] : jy[s][0];
+      }
+    }
+  }
 }
 
 
-template <int S, class Src>
+template <int S, class Src, bool kCorner>
 static int launch_bwd(const Geometry& geo, int B, cudaStream_t st,
                       const typename Src::Args& args, const int* lxb,
                       const int* lyb, const float* params, int pstride,
-                      int Lx, int Ly, float* rbm) {
-  const cudaError_t err = allow_smem(pairhmm_bwd_kernel<S, Src>, geo.smem);
+                      int Lx, int Ly, float* rbm, float* corner) {
+  const cudaError_t err =
+      allow_smem(pairhmm_bwd_kernel<S, Src, kCorner>, geo.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pairhmm_bwd_kernel<S, Src><<<B, geo.W * 32, geo.smem, st>>>(
-      args, lxb, lyb, params, pstride, Lx, Ly, rbm);
+  pairhmm_bwd_kernel<S, Src, kCorner><<<B, geo.W * 32, geo.smem, st>>>(
+      args, lxb, lyb, params, pstride, Lx, Ly, rbm, corner);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One launch at the geometry of Ly: S = 1 segment a warp (Ly <= 2048);
 // wider rows take the wave (pairhmm_wave.cuh), so any other S is refused.
+// A non-null corner (B, 5) takes the kCorner body.
 template <class Src>
 static int dispatch_bwd(int B, cudaStream_t st, const typename Src::Args& args,
                         const int* lxb, const int* lyb, const float* params,
-                        int pstride, int Lx, int Ly, float* rbm) {
+                        int pstride, int Lx, int Ly, float* rbm,
+                        float* corner) {
   const Geometry geo = geometry(Ly, Src::table_floats(args), 9);
   if (geo.S != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bwd<1, Src>(geo, B, st, args, lxb, lyb, params, pstride, Lx,
-                            Ly, rbm);
+  if (corner)
+    return launch_bwd<1, Src, true>(geo, B, st, args, lxb, lyb, params,
+                                    pstride, Lx, Ly, rbm, corner);
+  return launch_bwd<1, Src, false>(geo, B, st, args, lxb, lyb, params,
+                                   pstride, Lx, Ly, rbm, nullptr);
 }

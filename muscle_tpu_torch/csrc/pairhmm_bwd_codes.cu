@@ -17,6 +17,12 @@
 // watchdog's wait_ns), the boundary row computed in the launch (row0, 4
 // B Ly floats). On the letter lattice match[x_i, y_j] kernel 3K is
 // kernel 3, as 1E is A: the same steps, the same bits.
+//
+// corner (B, 5), when not null: the five backward states of each pair at
+// the reversed lattice's far corner (row lx, column ly), for -testfb's
+// total_prob_bwd; both bodies then run one step more (their kCorner
+// instances), and the caller passes Lx > lx. A null corner launches the
+// bodies without it.
 #include "pairhmm_bwd.cuh"
 #include "pairhmm_wave.cuh"
 
@@ -27,14 +33,19 @@ extern "C" int pairhmm_bwd_codes(const int* xb, const int* yb,
                                  int Lx, int Ly, int kk, int G, int R,
                                  long long wait_ns, int* sync, int* fault,
                                  float* hand, float* row0, float* rbm,
-                                 void* stream) {
+                                 float* corner, void* stream) {
   const CodeEmission::Args args{xb, yb, match, insert, kk,
                                 per_pair ? kk * kk : 0, per_pair ? kk : 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ps = per_pair ? 16 : 0;
+  if (G > 0 && corner)
+    return launch_bwd_legacy_wave<CodeEmission, true>(
+        B, st, args, lxb, lyb, params, ps, Lx, Ly, G, R, wait_ns, sync,
+        fault, hand, row0, rbm, corner);
   if (G > 0)
     return launch_bwd_legacy_wave<CodeEmission>(
-        B, st, args, lxb, lyb, params, per_pair ? 16 : 0, Lx, Ly, G, R,
-        wait_ns, sync, fault, hand, row0, rbm);
-  return dispatch_bwd<CodeEmission>(B, st, args, lxb, lyb, params,
-                                    per_pair ? 16 : 0, Lx, Ly, rbm);
+        B, st, args, lxb, lyb, params, ps, Lx, Ly, G, R, wait_ns, sync,
+        fault, hand, row0, rbm);
+  return dispatch_bwd<CodeEmission>(B, st, args, lxb, lyb, params, ps, Lx,
+                                    Ly, rbm, corner);
 }

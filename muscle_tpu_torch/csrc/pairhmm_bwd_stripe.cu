@@ -79,6 +79,6 @@ extern "C" int pairhmm_bwd_stripe(const int* xb, const int* yb,
           args, lxb, lyb, params, 0, tot, const_cast<float*>(iy0b),
           const_cast<float*>(jy0b), nullptr, B, Lx, By, Wd, G, R, wait_ns,
           sync, fault, reinterpret_cast<wf::Rec8*>(hand), fm_post, fm_post,
-          mea);
+          mea, nullptr);
   return static_cast<int>(cudaGetLastError());
 }

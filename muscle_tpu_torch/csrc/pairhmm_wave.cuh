@@ -339,7 +339,14 @@ inline size_t fwd_wave_smem(const typename Src::Args& args, int G) {
 // lane, written by the pair's last group. iy0b/jy0b (B, By): the
 // boundary row B(lx, .) in flipped lanes, written here when kRow0 (with
 // row_tmp as for the forward).
-template <class Src, bool kRow0, bool kLegacy = false>
+//
+// kCorner (with kLegacy; kernel 3K for -testfb): one step more, u = lx,
+// reading x position 0, handed on but not written to RB_M; then the
+// thread holding lane ly-1 writes the five states [M, IX, IY, JX, JY] of
+// row lx there (the reversed lattice's far corner) to corner (B, 5).
+// The caller launches it with Lx > lx (the hand-over holds Lx steps a
+// group). corner is not read otherwise.
+template <class Src, bool kRow0, bool kLegacy = false, bool kCorner = false>
 __global__ void __launch_bounds__(1024)
 pairhmm_bwd_wave_kernel(const typename Src::Args args,
                         const int* __restrict__ lxb,
@@ -350,7 +357,9 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
                         int Wd, int G, int R, long long wait_ns,
                         int* __restrict__ sync, int* __restrict__ fault,
                         wf::Rec8* __restrict__ hand, const float* fm,
-                        float* post, float* __restrict__ mea_out) {
+                        float* post, float* __restrict__ mea_out,
+                        float* __restrict__ corner) {
+  static_assert(kLegacy || !kCorner, "the corner is the legacy body's");
   extern __shared__ float smem[];
   const int g = threadIdx.x >> 5, l = threadIdx.x & 31;
   const int t = wf::take_ticket(sync);
@@ -389,6 +398,7 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
   // steps u0 .. uend-1; step u reads x position uend-u (u > u0)
   const int u0 = kLegacy ? 0 : Lx - lx;
   const int uend = kLegacy ? lx : Lx;
+  const int usteps = uend + (kCorner ? 1 : 0);  // the steps run
   wf::Window<wf::Rec8> win(has_left ? progress - 1 : progress,
                            has_left ? out - Lx : out, fault, wait_ns, u0);
   __syncthreads();  // the emission tables
@@ -425,8 +435,8 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
                           : make_float2(__fadd_rn(tSI, si),
                                         __fadd_rn(tSJ, sj));
           });
-    } else if (uend > u0) {
-      if (g == 0) win.refill(u0, uend, l);
+    } else if (usteps > u0) {
+      if (g == 0) win.refill(u0, usteps, l);
       __syncthreads();
     }
   }
@@ -488,12 +498,12 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
   float h_m_prev = LOG_ZERO, h_mea_prev = 0.0f;
   __syncthreads();
 
-  for (int u = u0; u < uend; ++u) {
+  for (int u = u0; u < usteps; ++u) {
     // the left group's record of step u (warp 0 only)
     float h_m = LOG_ZERO, h_iy = LOG_ZERO, h_jy = LOG_ZERO, h_mea = NEG_BIG;
     float h_ci = NEG_BIG, h_cj = NEG_BIG;
     if (has_left && g == 0) {
-      if (u >= win.ready) win.refill(u, uend, l);
+      if (u >= win.ready) win.refill(u, usteps, l);
       const int s = u - win.base;
       h_m = wf::field(win.rec.v0, 0, s);
       h_iy = wf::field(win.rec.v0, 1, s);
@@ -614,12 +624,13 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
       // (5) row u of RB_M: the M row shifted one lane, the left group's
       // last lane (group 0: the column-0 chain) in lane 0
       const float lo = left_of_even(m[1], has_left ? h_m : m0, s_edge_m, g, l);
-      *reinterpret_cast<float2*>(post_b + (size_t)u * By + q) =
-          make_float2(lo, m[0]);
+      if (!kCorner || u < uend)
+        *reinterpret_cast<float2*>(post_b + (size_t)u * By + q) =
+            make_float2(lo, m[0]);
       if (owner && has_right) {
         wf::stcg(out + u, wf::Rec8{make_float4(m[1], iy[1], jy[1], 0.f),
                                    make_float4(car_i, car_j, 0.f, 0.f)});
-        wf::publish(progress, u, u0, uend, R);
+        wf::publish(progress, u, u0, usteps, R);
       }
       h_m_prev = h_m;
       continue;
@@ -676,6 +687,20 @@ pairhmm_bwd_wave_kernel(const typename Src::Args args,
     h_mea_prev = h_mea;
   }
   if (!kLegacy && owner && !has_right) mea_out[b] = mea[1];
+  if constexpr (kCorner) {
+    // lane ly-1 of row lx: element (ly-1) & 1 of the thread at lanes
+    // q, q + 1, chosen by a select
+    const int c = ly - 1;
+    if (q == (c & ~1)) {
+      const bool hi = c & 1;
+      float* o = corner + (size_t)b * 5;
+      o[0] = hi ? m[1] : m[0];
+      o[1] = hi ? ix[1] : ix[0];
+      o[2] = hi ? iy[1] : iy[0];
+      o[3] = hi ? jx[1] : jx[0];
+      o[4] = hi ? jy[1] : jy[0];
+    }
+  }
 }
 
 // Shared memory of a backward wave block, bytes.
@@ -730,32 +755,34 @@ inline int launch_bwd_wave(int B, cudaStream_t st,
   pairhmm_bwd_wave_kernel<Src, true><<<B * (Ly / (64 * G)), G * 32, smem, st>>>(
       args, lxb, lyb, params, pstride, tot, row0, row0 + n, row0 + 2 * n, B,
       Lx, Ly, Ly, G, R, wait_ns, sync, fault,
-      reinterpret_cast<wf::Rec8*>(hand), fm, post, mea);
+      reinterpret_cast<wf::Rec8*>(hand), fm, post, mea, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel 3 on the wide schedule: one stripe of the whole row, the
 // boundary row computed in the launch (row0 as for kernel B), RB_M
-// written to rbm (B, Lx, Ly).
-template <class Src>
+// written to rbm (B, Lx, Ly); with kCorner (kernel 3K) also the far
+// corner's states to corner (B, 5).
+template <class Src, bool kCorner = false>
 inline int launch_bwd_legacy_wave(int B, cudaStream_t st,
                                   const typename Src::Args& args,
                                   const int* lxb, const int* lyb,
                                   const float* params, int pstride, int Lx,
                                   int Ly, int G, int R, long long wait_ns,
                                   int* sync, int* fault, float* hand,
-                                  float* row0, float* rbm) {
+                                  float* row0, float* rbm,
+                                  float* corner = nullptr) {
   if (!wave_ok(B, Ly, Ly, G, R)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = bwd_wave_smem<Src>(args, G);
   const cudaError_t e =
-      allow_smem(pairhmm_bwd_wave_kernel<Src, true, true>, smem);
+      allow_smem(pairhmm_bwd_wave_kernel<Src, true, true, kCorner>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t n = (size_t)B * Ly;
-  pairhmm_bwd_wave_kernel<Src, true, true>
+  pairhmm_bwd_wave_kernel<Src, true, true, kCorner>
       <<<B * (Ly / (64 * G)), G * 32, smem, st>>>(
           args, lxb, lyb, params, pstride, nullptr, row0, row0 + n,
           row0 + 2 * n, B, Lx, Ly, Ly, G, R, wait_ns, sync, fault,
-          reinterpret_cast<wf::Rec8*>(hand), nullptr, rbm, nullptr);
+          reinterpret_cast<wf::Rec8*>(hand), nullptr, rbm, nullptr, corner);
   return static_cast<int>(cudaGetLastError());
 }
 

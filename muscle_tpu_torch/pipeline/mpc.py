@@ -52,8 +52,8 @@ from .progressive import progressive_align, refine
 
 DEFAULT_CONSISTENCY_ITERS = 2   # reference: src/pairhmm.h:8
 DEFAULT_REFINE_ITERS = 100      # reference: src/pairhmm.h:9
-PAIR_BATCH = 256                # pairs per call on the bucketed branch
-SPARSE_K = 32                   # slots per posterior row in the store
+PAIR_BATCH = 256                # default pairs per call (MPC batch_size)
+SPARSE_K = 32                   # default slots per store row (MPC sparse_k)
 
 # families of this size and above refine with device joins
 # (pipeline/devjoin.py), as the JAX package's default rule
@@ -63,7 +63,11 @@ DEVICE_REFINE_N = 64
 def consistency_precision_for(n: int, requested: str = "auto") -> str:
     """Precision of the blocked consistency's products: 'auto' keeps
     full f32 below 32 sequences (the regime the golden tier pins) and
-    rounds the panels to bf16 from 32 on, as the JAX package does."""
+    rounds the panels to bf16 from 32 on, as the JAX package does; any
+    other value is taken as asked. Only "default" rounds the panels to
+    bf16: "high" and "highest" keep them f32 with TF32 off (torch has no
+    counterpart of the TPU's bf16x3 passes). The dense branch's products
+    are f32 whatever is asked, as the JAX package's are on the CPU."""
     if requested != "auto":
         return requested
     return "highest" if n < 32 else "default"
@@ -77,7 +81,11 @@ class MPC:
                  device=None,
                  guide_tree_in: Tree | None = None,
                  input_order: bool = False,
-                 mega=None):
+                 mega=None,
+                 batch_size: int = PAIR_BATCH,
+                 random_chain_tree: bool = False,
+                 sparse_k: int = SPARSE_K,
+                 consistency_precision: str = "auto"):
         self.consistency_iters = consistency_iters
         self.refine_iters = refine_iters
         self.tree_perm = tree_perm
@@ -88,6 +96,15 @@ class MPC:
         self.guide_tree_in = guide_tree_in
         self.input_order = input_order
         self.mega = mega          # MegaProfileSet for Muscle-3D emissions
+        # the options of the JAX package's MPC: pairs in a batched call
+        # (a pair's EA depends on its call's other pairs, through the
+        # length buckets), the random chain tree in place of UPGMA5
+        # (-randomchaintree), the store's slots a row, and the blocked
+        # consistency's precision (consistency_precision_for)
+        self.batch_size = batch_size
+        self.random_chain_tree = random_chain_tree
+        self.sparse_k = sparse_k
+        self.consistency_precision = consistency_precision
         self.guide_tree: Tree | None = None
         self.dist_mx: np.ndarray | None = None
 
@@ -112,8 +129,13 @@ class MPC:
         return derep, unique, n, labels, label_to_index, pad_to, pairs
 
     def _tree_from_dist(self, labels, dist_mx):
-        """Guide tree from EA distances (+ optional permutation), or the
-        given one."""
+        """Guide tree from EA distances (+ optional permutation), the
+        given one, or the random chain tree."""
+        if self.random_chain_tree:
+            # ablation tree (reference: -randomchaintree,
+            # src/randomchaintree.cpp)
+            from ..tree.randomchain import random_chain_tree
+            return random_chain_tree(labels)
         if self.guide_tree_in is not None:
             return self.guide_tree_in
         d = fix_ea_distmx(dist_mx)
@@ -140,13 +162,13 @@ class MPC:
         # JAX package has it (letters only): the (P+1, L, K) sparse store
         # is 8 B/slot
         p_total = len(pairs)
-        store_gb = (p_total + 1) * pad_to * SPARSE_K * 8 / 1e9
+        store_gb = (p_total + 1) * pad_to * self.sparse_k * 8 / 1e9
         budget_gb = float(os.environ.get("MUSCLE_TPU_HBM_BUDGET_GB", 12.0))
         if (self.mega is None and store_gb > budget_gb
                 and n * pad_to > post_mod.SMALL_DENSE_NL):
             raise MemoryError(
                 f"MPC sparse store for {n} seqs ({p_total} pairs, "
-                f"L={pad_to}, K={SPARSE_K}) needs ~{store_gb:.0f} GB "
+                f"L={pad_to}, K={self.sparse_k}) needs ~{store_gb:.0f} GB "
                 f"device memory (> {budget_gb:.0f} GB budget). Use "
                 f"-super5, or raise MUSCLE_TPU_HBM_BUDGET_GB.")
         use_dense = (n >= 3 and self.consistency_iters > 0
@@ -165,24 +187,24 @@ class MPC:
             if use_dense:
                 store_v, store_c, ea, max_nnz = \
                     post_mod.small_family_store(
-                        codes, lens, pack, pairs, n, SPARSE_K,
+                        codes, lens, pack, pairs, n, self.sparse_k,
                         self.consistency_iters, self.device, mega=self.mega)
             elif self.mega is not None:
                 store_v, store_c, ea, max_nnz = \
                     post_mod.all_pairs_posteriors_mega_sparse(
                         codes, lens, self.mega, pack, pairs, self.device,
-                        batch_size=PAIR_BATCH, k=SPARSE_K)
+                        batch_size=self.batch_size, k=self.sparse_k)
             else:
                 store_v, store_c, ea, max_nnz = \
                     post_mod.all_pairs_posteriors_sparse(
                         codes, lens, pack, pairs, self.device,
-                        batch_size=PAIR_BATCH, k=SPARSE_K)
-        if max_nnz > SPARSE_K:
+                        batch_size=self.batch_size, k=self.sparse_k)
+        if max_nnz > self.sparse_k:
             mlog.log(f"sparse posterior truncation: max row nnz {max_nnz} > "
-                     f"K={SPARSE_K}")
+                     f"K={self.sparse_k}")
         # trim the store to the occupied K-prefix (sparsify packs valid
         # slots first)
-        k2s = min(SPARSE_K, max(8, -(-int(max_nnz) // 8) * 8))
+        k2s = min(self.sparse_k, max(8, -(-int(max_nnz) // 8) * 8))
         if k2s < store_v.shape[2]:
             store_v = store_v[:, :, :k2s].contiguous()
             store_c = store_c[:, :, :k2s].contiguous()
@@ -201,8 +223,9 @@ class MPC:
                 store_v = consistency_sparse(
                     store_v, store_c, n, self.consistency_iters,
                     seq_block=seq_block,
-                    precision=consistency_precision_for(n),
-                    max_nnz=min(int(max_nnz), SPARSE_K))
+                    precision=consistency_precision_for(
+                        n, self.consistency_precision),
+                    max_nnz=min(int(max_nnz), self.sparse_k))
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
 
@@ -212,7 +235,7 @@ class MPC:
         if n >= DEVICE_REFINE_N:
             # the store stays on the device for the refine joins
             joiner = DeviceJoiner(store_v, store_c, pairs, n,
-                                  min(int(max_nnz), SPARSE_K),
+                                  min(int(max_nnz), self.sparse_k),
                                   label_to_index)
         del store_v, store_c
         return self._finish(input_seqs, derep, unique, tree, label_to_index,
@@ -266,7 +289,11 @@ def align(seqs: MultiSequence, *,
           guide_tree_in: Tree | None = None,
           input_order: bool = False,
           device=None,
-          mega=None) -> MultiSequence:
+          mega=None,
+          batch_size: int = PAIR_BATCH,
+          random_chain_tree: bool = False,
+          sparse_k: int = SPARSE_K,
+          consistency_precision: str = "auto") -> MultiSequence:
     """Align a set of unaligned sequences (reference: -align, src/align.cpp).
 
     As muscle_tpu.align: `hmm_params` replaces the default HMM (perturbed
@@ -274,10 +301,11 @@ def align(seqs: MultiSequence, *,
     the permutation, and `input_order` returns the rows in the input's
     order instead of the tree's. With `mega` (io/mega.MegaProfileSet:
     Muscle-3D structure profiles, its chains labelled as `seqs`) the
-    emissions come from the profiles. Runs on the GPU unless
-    `device="cpu"` is given; raises when no GPU is present and no device
-    was asked for. (The JAX package's `batch_size` has no counterpart:
-    the port's pair batch is PAIR_BATCH.)
+    emissions come from the profiles. `batch_size`, `random_chain_tree`,
+    `sparse_k` and `consistency_precision` go to MPC, with the JAX
+    package's MPC's meanings (its align() passes on only batch_size).
+    Runs on the GPU unless `device="cpu"` is given; raises when no GPU
+    is present and no device was asked for.
     """
     device = resolve_device(device)
     if mega is not None:
@@ -293,7 +321,9 @@ def align(seqs: MultiSequence, *,
     mpc = MPC(consistency_iters=consistency_iters,
               refine_iters=refine_iters, tree_perm=tree_perm,
               device=device, guide_tree_in=guide_tree_in,
-              input_order=input_order, mega=mega)
+              input_order=input_order, mega=mega, batch_size=batch_size,
+              random_chain_tree=random_chain_tree, sparse_k=sparse_k,
+              consistency_precision=consistency_precision)
     msa = mpc.run(seqs, hp, alpha)
     if input_order:
         by_label = {s.label: s for s in msa}

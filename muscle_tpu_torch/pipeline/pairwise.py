@@ -21,14 +21,18 @@ from ..sequence import MultiSequence
 from ..utils.device import resolve_device
 from . import posteriors as post_mod
 
-# pairs per batched call, as the JAX package's PairAligner
+# default pairs per batched call, as the JAX package's PairAligner
 PAIR_BATCH = 256
 
 
 class PairAligner:
-    def __init__(self, seqs, pack, alpha: str, device=None):
+    def __init__(self, seqs, pack, alpha: str, device=None,
+                 batch_size: int = PAIR_BATCH):
+        """`batch_size` pairs go into a batched call, as in the JAX
+        package (a pair's EA depends on its call's other pairs)."""
         self.pack = pack
         self.alpha = alpha
+        self.batch_size = batch_size
         self.device = resolve_device(device)
         if isinstance(seqs, MultiSequence):
             seqs = list(seqs)
@@ -43,7 +47,7 @@ class PairAligner:
         """(posts padded (P, L, L) numpy, ea (P,))."""
         return post_mod.all_pairs_posteriors(
             self.codes, self.lens, self.pack, pairs, self.device,
-            batch_size=PAIR_BATCH, with_mea=with_mea)
+            batch_size=self.batch_size, with_mea=with_mea)
 
     def sparse_store(self, pairs: list[tuple[int, int]]):
         """Device sparse store of the given pairs: (vals, cols, ea numpy,
@@ -53,7 +57,7 @@ class PairAligner:
         link; here every call returns once the store is filled.)"""
         return post_mod.all_pairs_posteriors_sparse(
             self.codes, self.lens, self.pack, pairs, self.device,
-            batch_size=PAIR_BATCH)
+            batch_size=self.batch_size)
 
     def csr_posteriors(self, pairs: list[tuple[int, int]]):
         """Packed CSR posteriors: ([(vals, cols, rowptr)] per pair,
@@ -69,7 +73,7 @@ class PairAligner:
         """EA scores only — no posterior leaves the device."""
         _, ea = post_mod.all_pairs_posteriors(
             self.codes, self.lens, self.pack, pairs, self.device,
-            batch_size=PAIR_BATCH, with_mea=True, return_post=False)
+            batch_size=self.batch_size, with_mea=True, return_post=False)
         return ea
 
     def ea_dist_matrix(self, n: int | None = None) -> np.ndarray:

@@ -1,8 +1,9 @@
 """PProg — progressive alignment where leaves are MSAs.
 
-Torch port of muscle_tpu.pipeline.pprog's guide-tree joins (reference:
-src/pprog_tree.cpp; src/alnmsasflat.cpp, profile-profile MEA via
-sampled pair posteriors; src/getpairs.cpp, <= 2000-pair sampling).
+Torch port of muscle_tpu.pipeline.pprog: the guide-tree joins
+(reference: src/pprog_tree.cpp) and the greedy best-pair joins
+(src/pprog.cpp); src/alnmsasflat.cpp, profile-profile MEA via sampled
+pair posteriors; src/getpairs.cpp, <= 2000-pair sampling.
 
 The pair-HMM posteriors of the sampled cross-MSA sequence pairs run on
 the device through PairAligner over the global ungapped sequence set.
@@ -88,23 +89,60 @@ def _save_join(msa: MultiSequence, join_index: int) -> None:
 
 
 class PProg:
+    """The greedy joins (run) score every pending MSA pair by the mean EA
+    of its sampled sequence pairs, in one EA-only pass a round
+    (score_round), and build a path only for the pair that joins,
+    replaying its sampling from the round's RNG snapshot, so samples and
+    results are those of the eager order (align_msas), as in the JAX
+    package (the reference computes every path up front,
+    src/pprog.cpp:230-256)."""
+
     def __init__(self, aligner: PairAligner,
                  label_to_global_index: dict[str, int],
-                 target_pair_count: int = DEFAULT_TARGET_PAIR_COUNT):
+                 target_pair_count: int = DEFAULT_TARGET_PAIR_COUNT,
+                 rng: MwcRng | None = None):
         """`aligner` is over the global ungapped sequence set (anything
-        with `lens` and `sparse_store(pairs)`); label_to_global_index
-        maps row labels into it; each join samples up to
-        target_pair_count pairs."""
+        with `lens` and `sparse_store(pairs)`; the greedy joins also
+        call its `ea(pairs)`); label_to_global_index maps row labels into
+        it; each join samples up to target_pair_count pairs from `rng`
+        (default MwcRng(1))."""
         self.aligner = aligner
         self.l2g = label_to_global_index
         self.target = target_pair_count
-        self.rng = MwcRng(1)
+        self.rng = rng or MwcRng(1)
         # joins of the last run_guide_tree on the device / on the host
         self.joins = {"device": 0, "host": 0}
 
     def _gpairs(self, msa1, msa2, sampled):
         return [(self.l2g[msa1[i].label], self.l2g[msa2[j].label])
                 for (i, j) in sampled]
+
+    # -- batched scoring (reference: the EA part of AlignMSAsFlat) ------
+    def score_round(self, items, node_msas):
+        """items: [(i1, i2)] node-index pairs, scored in order. Returns
+        {(i1, i2): (avg_ea, rng_snapshot)} after one EA-only pass over
+        all sampled sequence pairs of the round."""
+        import time as _time
+        t0 = _time.perf_counter()
+        snaps = {}
+        slices = []
+        all_pairs: list[tuple[int, int]] = []
+        for (i1, i2) in items:
+            m1, m2 = node_msas[i1], node_msas[i2]
+            snap = self.rng.clone()
+            sampled = get_pairs(len(m1), len(m2), self.target, self.rng)
+            gp = self._gpairs(m1, m2, sampled)
+            slices.append((len(all_pairs), len(gp)))
+            all_pairs.extend(gp)
+            snaps[(i1, i2)] = snap
+        eas = self.aligner.ea(all_pairs) if all_pairs else np.zeros(0)
+        out = {}
+        for (i1, i2), (lo, cnt) in zip(items, slices):
+            avg = float(np.mean(eas[lo:lo + cnt])) if cnt else 0.0
+            out[(i1, i2)] = (avg, snaps[(i1, i2)])
+        mlog.log("pprog score_round: %d items %d pairs %.2fs",
+                 len(items), len(all_pairs), _time.perf_counter() - t0)
+        return out
 
     # -- profile-profile path (reference: AlignMSAsFlat) ----------------
     def _accumulate_path(self, msa1, msa2, sampled, views) -> str:
@@ -132,13 +170,16 @@ class PProg:
             lambda t: int(self.aligner.lens[gpairs[t][0]]))
 
     def path_msas(self, msa1: MultiSequence, msa2: MultiSequence,
+                  rng: MwcRng | None = None,
                   sampled: list[tuple[int, int]] | None = None
                   ) -> tuple[float, str]:
         """(mean EA of the sampled pairs, path) for one MSA pair, with
-        its own pair store. The shared stream drives the pair sampling,
-        or pass `sampled` directly."""
+        its own pair store. `rng` (default: the shared stream) drives
+        the pair sampling: a clone()d snapshot replays a score_round's
+        sampling; or pass `sampled` directly."""
         if sampled is None:
-            sampled = get_pairs(len(msa1), len(msa2), self.target, self.rng)
+            rng = rng if rng is not None else self.rng
+            sampled = get_pairs(len(msa1), len(msa2), self.target, rng)
         gpairs = self._gpairs(msa1, msa2, sampled)
         sv, sc, eas, max_nnz = self.aligner.sparse_store(gpairs)
         avg_ea = float(np.mean(eas)) if len(eas) else 0.0
@@ -148,6 +189,61 @@ class PProg:
                 return avg_ea, r[1]
         views = self._store_views(sv, sc, gpairs)
         return avg_ea, self._accumulate_path(msa1, msa2, sampled, views)
+
+    def align_msas(self, msa1: MultiSequence, msa2: MultiSequence
+                   ) -> tuple[float, str]:
+        """Eager score and path (consumes the shared stream once, like
+        the reference's AlignMSAsFlat)."""
+        return self.path_msas(msa1, msa2)
+
+    # -- greedy best-pair joins (reference: PProg::Run) ------------------
+    def run(self, msas: list[MultiSequence]) -> MultiSequence:
+        """Join the MSAs best pair first (the highest mean sampled EA,
+        first found on ties, strict >), scoring each new node against the
+        pending ones; each join's path through path_msas (host below
+        DEVICE_JOIN_N sampled pairs, else on the device)."""
+        n = len(msas)
+        if n == 1:
+            return msas[0]
+        node_msas: list[MultiSequence | None] = list(msas)
+        node_count = 2 * n - 1
+        score = np.full((node_count, node_count), -np.inf, dtype=np.float32)
+        snaps: dict[tuple[int, int], MwcRng] = {}
+        pending = list(range(n))
+
+        items = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        for (i, j), (s, snap) in self.score_round(items, node_msas).items():
+            score[i, j] = score[j, i] = s
+            snaps[(i, j)] = snap
+
+        for join in range(n - 1):
+            best = None
+            best_s = -np.inf
+            for a in range(len(pending)):
+                for b in range(a + 1, len(pending)):
+                    s = score[pending[a], pending[b]]
+                    if s > best_s:
+                        best_s = s
+                        best = (pending[a], pending[b])
+            i1, i2 = best
+            new_index = n + join
+            key = (i1, i2) if (i1, i2) in snaps else (i2, i1)
+            m1, m2 = node_msas[key[0]], node_msas[key[1]]
+            _, path = self.path_msas(m1, m2, snaps[key].clone())
+            joined = align_msas_by_path(m1, m2, path)
+            _save_join(joined, join)
+            node_msas.append(joined)
+            pending = [p for p in pending if p not in (i1, i2)]
+            # score the new node against the remaining pending nodes
+            items = [(new_index, p) for p in pending]
+            for (a, b), (s, snap) in self.score_round(
+                    items, node_msas).items():
+                score[a, b] = score[b, a] = s
+                snaps[(a, b)] = snap
+            pending.append(new_index)
+
+        assert len(pending) == 1
+        return node_msas[pending[0]]
 
     # -- guide-tree-driven joins (reference: src/pprog_tree.cpp) ---------
     def run_guide_tree(self, msas: list[MultiSequence],

@@ -5,13 +5,16 @@
   -verbose, -reseek, -scaledist, -eadist and value options neither
   package reads; both mains then warn "option -X was not used by -cmd"
   about the same options and write the same text;
-* a command of the JAX package that the port has not ported stops with
-  "not ported yet" instead of being read as a value option;
+* each of six commands that once stopped with "not ported yet" parses
+  as in muscle_tpu and writes muscle_tpu's output (every command:
+  tests/test_torch_surface_cli.py);
 * `muscle_tpu_torch.align(..., device="cpu")` under `input_order`,
   `guide_tree_in` and `hmm_params` gives muscle_tpu.align's text on a
   small synthetic family (built as tests/test_devjoin.py builds one);
 * `muscle_tpu_torch.qscore` is exported and gives muscle_tpu's (Q, TC).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -72,17 +75,59 @@ def test_parse_errors_match_jax():
             t_parse(argv)
 
 
+def _small_input(cmd, d):
+    """argv (less -output) of `cmd` on a small input written into d."""
+    seqs, _ = _family(n=4, lo=20, hi=30, seed=11)
+    fa = d / "in.fa"
+    seqs.write_fasta(str(fa))
+    if cmd in ("kmerdist", "m3ensemble", "muscle3"):
+        return [f"-{cmd}", str(fa)] + (["-replicates", "4"]
+                                       if cmd == "m3ensemble" else [])
+    from muscle_tpu_torch.pipeline.muscle3 import Muscle3
+    afa = d / "in.afa"
+    Muscle3().run(seqs).write_fasta(str(afa))
+    if cmd == "msastats":
+        return ["-msastats", str(afa)]
+    if cmd == "upgma5":
+        tsv = d / "d.tsv"
+        tsv.write_text("s0\ts1\t0.2\ns0\ts2\t0.5\ns1\ts2\t0.4\n"
+                       "s0\ts3\t0.7\ns1\ts3\t0.6\ns2\ts3\t0.3\n")
+        return ["-upgma5", str(tsv)]
+    # masm_train: a .mega set whose chains are the family's letters
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from mega_synth import mega_text
+    from muscle_tpu_torch.io.mega import parse_mega
+    mega_path = d / "set.mega"
+    mega_path.write_text(mega_text(3, 20, 30, 5))
+    mega = parse_mega(str(mega_path))
+    Muscle3().run(MultiSequence([Sequence(lb, sq) for lb, sq in zip(
+        mega.labels, mega.seqs)])).write_fasta(str(afa))
+    return ["-masm_train", str(afa), "-input", str(mega_path), "-label",
+            "fam"]
+
+
 @pytest.mark.parametrize("cmd", ["kmerdist", "m3ensemble", "muscle3",
                                  "masm_train", "msastats", "upgma5"])
-def test_unported_command_raises(cmd):
-    """A JAX command with no handler in the port stops with a clear
-    error, not as a value option swallowing the input path."""
-    with pytest.raises(SystemExit, match="not ported .*yet"):
-        t_parse([f"-{cmd}", "x.fa", "-output", "o.afa"])
-    with pytest.raises(SystemExit, match="not ported .*yet"):
-        t_main([f"-{cmd}", "x.fa"])
-    jc, jp, _ = j_parse([f"-{cmd}", "x.fa", "-output", "o.afa"])
-    assert (jc, jp) == (cmd, "x.fa")
+def test_unported_command_raises(cmd, tmp_path, capsys):
+    """Six commands that stopped with "not ported yet" before they were
+    ported: the port parses each as muscle_tpu does and runs it to
+    muscle_tpu's output (stdout and the file written) on a small input."""
+    argv = [f"-{cmd}", "x.fa", "-output", "o.afa"]
+    tc, tp, to = t_parse(list(argv))
+    jc, jp, jo = j_parse(list(argv))
+    assert (tc, tp, dict(to)) == (jc, jp, dict(jo)) == (
+        cmd, "x.fa", {"output": "o.afa"})
+    base = _small_input(cmd, tmp_path)
+    outs = {}
+    for pkg, fn in (("port", t_main), ("jax", j_main)):
+        out = tmp_path / f"{pkg}.out"
+        capsys.readouterr()
+        assert fn(base + ["-output", str(out)]) == 0
+        outs[pkg] = (capsys.readouterr().out,
+                     out.read_text() if out.exists() else None)
+    assert outs["port"] == outs["jax"]
+    assert outs["port"][0] or outs["port"][1]
 
 
 def _family(n=7, lo=40, hi=70, seed=3):
