@@ -72,9 +72,13 @@ Phases (each raises on failure, so the run exits non-zero):
    one block a pair before, MEA_SCORES_WAS_MS and BWD_CODES_WAS_MS) and
    bounds; then the DP scans of Super6 / Super7 (phase_dp_kernels):
    nw_viterbi and sw_scores against their plain versions at 64 ragged
-   amino pairs at pads 384 and 2048 (one column a thread, and several;
-   NW's bits equal, final rows and scores max |d| = 0, SW's scores max
-   |d| = 0), their ptxas lines, times and bounds (dp_bound);
+   amino pairs at pads 384 and 2048 (a block of shadowed warps) and at
+   4 ragged pairs of 1024 rows at 24576 and 32768 lanes (a cluster of
+   3-5 blocks a pair), on the real cells (NW's bit rows < lx and columns
+   <= ly, final columns <= ly; the plain version on the codes cut to the
+   batch's largest lx and ly): NW's bits equal, final rows and scores
+   max |d| = 0, SW's scores max |d| = 0; their ptxas lines, times,
+   bounds (dp_bound) and dependency floors (dp_floor_ms);
 3. drive the main path, `muscle_tpu_torch.align(..., device="cuda")`
    with default settings, checking each output is an alignment of its
    input and that each kernel its branch runs was launched (counts set
@@ -158,7 +162,11 @@ Phases (each raises on failure, so the run exits non-zero):
      version; whether its text equals the fused route's printed);
    - Super6 and Super7 (phase_super67): -protdists through the CLI on
      the degapped BB11001 golden (each distance within 5e-4 of the
-     reference binary's, REF_PROTDISTS); through run_align_command,
+     reference binary's, REF_PROTDISTS) and on three proteins of 20,600,
+     300 and 280 residues (protdists_wide: NW at 20,609 lanes, past
+     20,480; its launch held on the real cells; three finite distances,
+     the pair that shares a copy the nearest); through
+     run_align_command,
      Super6 with default settings on super5_set()'s first SUPER6_ROWS
      rows, Super7 on mega-128 (shrub_size 32, the SW tree; Q against the
      truth), on mega-8 at shrub_size 3 (the card's text required equal
@@ -623,9 +631,10 @@ def ptxas_lines(names) -> list[str]:
         cur, spill = None, ""
         for line in build_log(name, specs).splitlines():
             m = re.search(r"Compiling entry function '\w*(nw_viterbi_kernel|"
-                          r"sw_scores_kernel)ILi(\d+)E", line)
-            if m:  # csrc/dp_rows.cuh's C columns a thread
-                cur = f"{m.group(1)}<C={m.group(2)}>"
+                          r"sw_scores_kernel)ILi(\d+)ELN2dp4ModeE(\d)E", line)
+            if m:  # csrc/dp_rows.cuh's C columns a lane and its mode
+                cur = (f"{m.group(1)}<C={m.group(2)}, "
+                       f"{('warp', 'block', 'cluster')[int(m.group(3))]}>")
                 continue
             m = re.search(r"Compiling entry function '_ZN2dr(\d+)(\w+)'",
                           line)
@@ -2218,18 +2227,19 @@ MEGA_LONG_SHA256 = (
     "e525e7b9a48271f82f116fe6fbaccfcdeb209197b88b0ddc0a6975b0365a2800")
 
 
-def mega_set(n, lo, hi, seed):
+def mega_set(n, lo, hi, seed, where=None):
     """A `.mega` set built from a seed by tests/mega_synth.py (8 features,
     the reference files' width; chains mutated copies of a random root:
     1-4 indels of 1-5 positions, a truncation to lo..hi, 12 % of each
     feature's letters substituted), parsed, then written and parsed again
-    through the port's write_mega / parse_mega (under build/chip_smoke/).
-    Returns (MegaProfileSet, each chain's root positions (-1 where
-    inserted): the true alignment)."""
+    through the port's write_mega / parse_mega (under build/chip_smoke/,
+    or the directory `where`). Returns (MegaProfileSet, each chain's root
+    positions (-1 where inserted): the true alignment)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from mega_synth import chains, mega_text
     from muscle_tpu_torch.io.mega import parse_mega, write_mega
-    base = os.path.join(ROOT, "build", "chip_smoke", f"mega-{n}-{seed}")
+    base = os.path.join(where or os.path.join(ROOT, "build", "chip_smoke"),
+                        f"mega-{n}-{seed}")
     os.makedirs(os.path.dirname(base), exist_ok=True)
     with open(base + ".txt.mega", "w") as f:
         f.write(mega_text(n, lo, hi, seed))
@@ -2671,7 +2681,7 @@ def hold_legacy_launches(name, check, got) -> None:
           "wall and of the posteriors stage", flush=True)
 
 
-def phase_mega(dev, sets) -> dict:
+def phase_mega(dev, sets, refs) -> dict:
     """`align(seqs, mega=...)` of the three mega families on the card:
     mega-8 (dense, host refine; its alignment must equal the port's own
     CPU alignment of the same file), mega-128 (sparse store, bf16 Gram
@@ -2679,7 +2689,8 @@ def phase_mega(dev, sets) -> dict:
     consistency, host refine cut to MEGA_LONG_REFINE_ITERS; each of its
     kernel 1E, 3 and 4 launches held to the plain versions on its own
     inputs, LegacyKernelCheck). Each must be a valid alignment through the
-    kernels of its branch; Q against the construction's truth printed."""
+    kernels of its branch; Q against the construction's truth printed.
+    (mega-8's CPU text: the CPU references' child, `refs`.)"""
     import hashlib
 
     import torch
@@ -2730,11 +2741,10 @@ def phase_mega(dev, sets) -> dict:
                 raise SmokeFailure("mega-long: the alignment's text moved")
         if name == "mega-8":
             t0 = time.perf_counter()
-            cpu = align(seqs, mega=ms, device="cpu")
-            same = cpu.to_fasta_text() == msa.to_fasta_text()
-            print(f"mega-8 on the CPU (plain versions, the scan): "
-                  f"{time.perf_counter() - t0:.2f}s, column-identical to the "
-                  f"card's: {same}", flush=True)
+            same = cpu_ref_text(refs, "mega8_align.afa") == msa.to_fasta_text()
+            print(f"mega-8 on the CPU (plain versions, the scan; the CPU "
+                  f"references' child, waited {time.perf_counter() - t0:.2f}"
+                  f"s): column-identical to the card's: {same}", flush=True)
             if not same:
                 raise SmokeFailure("mega-8: the card's alignment differs from "
                                    "the CPU's")
@@ -3400,9 +3410,14 @@ def phase_ensembles(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # phase 2's batches: 64 ragged amino pairs at each pad (385 / 2049 NW
-# lanes: one column a thread, and three)
+# lanes: a block of 4 / 17 warps of 4 columns a lane)
 DP_PAIRS = 64
 DP_WIDTHS = (384, 2048)
+# the wide rows: 4 ragged pairs of DP_WIDE_ROWS rows at each of these
+# pads (a cluster of 3-5 blocks a pair, titin's order), one pair at full
+# lx and ly
+DP_WIDE_LANES = (24576, 32768)
+DP_WIDE_ROWS = 1024
 # f32 operations a DP cell, the least work of the function (a running
 # gap scan, 2 a cell). NW: the trace bits (m + open, d + ext, i + ext,
 # max(m, d), 3 compares), best (2 max), M' (1 add), D' (1 max), I' (the
@@ -3411,56 +3426,113 @@ DP_WIDTHS = (384, 2048)
 # H (2 max, the mask), the running best (1 max) = 16
 NW_OPS_PER_CELL = 14
 SW_OPS_PER_CELL = 16
+# The dependency floor of nw_viterbi / sw_scores (csrc/dp_rows.cuh): a
+# pair's rows follow one another, and a row that keeps the JAX rounds is
+# at least ceil(log2(width)) dependent add-max pairs (the scan) after
+# the row's update: NW best (2 max), M' (add) and the scan input's add
+# = 4 dependent operations; SW F (add, max), Z (add, max, max) and the
+# scan input's 2 adds, then H's 2 max = 9. Assumed 4 cycles a dependent
+# f32 operation and no shuffle, shared-memory or barrier latency (a
+# floor), at the card's highest SM clock; the launch's is its longest
+# pair's.
+DP_UPDATE_OPS = {"nw_viterbi": 4, "sw_scores": 9}
 # main-path launches held to the plain versions as they happen, in each
 # Super6 / Super7 / -protdists run (DpCheck)
 HELD_DP = {"nw_viterbi": 4, "sw_scores": 2}
-# the kernels' entries: their times at phase 2's second pad
+# the kernels' entries: their times at phase 2's second pad and the wide
+# rows
 DP_WIDE: dict = {}
+
+
+def dp_real_lengths(name, args):
+    """Each pair's (rows, lanes) that the kernel runs: NW lx rows of ly +
+    1 lanes, SW min(lx, BX) rows of min(ly, BY) lanes."""
+    xb, yb, lxb, lyb, _ = args
+    lx, ly = lxb.long().cpu(), lyb.long().cpu()
+    if name == "nw_viterbi":
+        return lx, ly + 1
+    return lx.clamp(max=xb.shape[1]), ly.clamp(max=yb.shape[1])
 
 
 def dp_bound(name, args) -> tuple[float, str]:
     """bound_ms of one nw_viterbi / sw_scores call on `args`: NW reads
-    the codes and writes every row's bits, the final rows and the scores,
-    and does NW_OPS_PER_CELL on every cell of its (BX, BY+1) lattice (it
-    computes all rows: the bits of each are its output); SW reads the
-    codes and writes B scores, its operations on each pair's lx x ly real
-    cells (the rows past lx are masked to 0 and the kernel stops there)."""
+    the codes and writes each pair's real cells (its bit rows < lx and
+    columns <= ly, its final columns <= ly) and the scores, and does
+    NW_OPS_PER_CELL on each pair's lx x (ly + 1) cells; SW reads the
+    codes and writes B scores, its operations on each pair's lx x ly
+    real cells (the rest are masked to 0)."""
     xb, yb, lxb, lyb, subst = args
     b, bx = xb.shape
     by = yb.shape[1]
     inputs = 4 * (b * (bx + by) + 2 * b + subst.numel())
+    rows, lanes = dp_real_lengths(name, args)
+    cells = float((rows * lanes).sum())
     if name == "nw_viterbi":
-        return bound_ms(inputs + b * bx * (by + 1) + 4 * b * 3 * (by + 1)
-                        + 4 * b, NW_OPS_PER_CELL * b * bx * (by + 1))
-    cells = float((lxb.long().clamp(max=bx) * lyb.long()).sum())
+        return bound_ms(inputs + cells + 4 * 3 * float(lanes.sum()) + 4 * b,
+                        NW_OPS_PER_CELL * cells)
     return bound_ms(inputs + 4 * b, SW_OPS_PER_CELL * cells)
+
+
+def dp_floor_ms(name, args, clock_hz) -> float:
+    """The launch's dependency floor: its longest pair's rows x one row's
+    chain (DP_UPDATE_OPS + 2 ceil(log2 lanes) operations of 4 cycles)."""
+    rows, lanes = dp_real_lengths(name, args)
+    cycles = max(int(r) * 4 * (DP_UPDATE_OPS[name]
+                               + 2 * max(int(w) - 1, 0).bit_length())
+                 for r, w in zip(rows, lanes))
+    return cycles / clock_hz * 1e3
+
+
+def real_dp(name, args, out, rows=None, cols=None):
+    """The cells of a nw_viterbi / sw_scores output that a reader uses,
+    the others zeroed: NW's bits (rows < lx, columns <= ly), final rows
+    (columns <= ly) and scores, cut to `rows` rows and `cols` + 1 lanes;
+    SW's scores."""
+    import torch
+    if name != "nw_viterbi":
+        return (out,)
+    bits, final, scores = out
+    rows = bits.shape[1] if rows is None else rows
+    cols = bits.shape[2] - 1 if cols is None else cols
+    bits, final = bits[:, :rows, :cols + 1], final[:, :, :cols + 1]
+    lx, ly = (t.long()[:, None, None] for t in args[2:4])
+    r = torch.arange(rows, device=bits.device)[None, :, None]
+    c = torch.arange(cols + 1, device=bits.device)[None, None, :]
+    return (bits.where((r < lx) & (c <= ly), 0),
+            final.where(c <= ly, 0.0), scores)
 
 
 def dp_case(name, args, got=None) -> dict:
     """nw_viterbi or sw_scores held against its plain version on `args`
-    (the launch's output `got`, or a launch of its own): NW's bits must
-    be equal and its final rows and scores max |d| = 0, SW's scores
-    max |d| = 0."""
+    (the launch's output `got`, or a launch of its own), on the real
+    cells: the plain version runs on the codes cut to the batch's
+    largest lx rows and ly columns (the same real cells,
+    tests/test_torch_dp_contract.py); NW's bits must be equal and its
+    final rows and scores max |d| = 0, SW's scores max |d| = 0."""
     import torch
     from muscle_tpu_torch.ops import dp_cuda, nw, sw
     if got is None:
         got = getattr(dp_cuda, name)(*args)
         torch.cuda.synchronize()
+    xb, yb, lxb, lyb, subst = args
+    rows = max(1, min(int(lxb.max()), xb.shape[1]))
+    cols = max(1, min(int(lyb.max()), yb.shape[1]))
+    crop = (xb[:, :rows].contiguous(), yb[:, :cols].contiguous(), lxb, lyb,
+            subst)
     plain = nw.nw_viterbi_plain if name == "nw_viterbi" else \
         sw.sw_scores_plain
-    want, plain_ms = timed_once(lambda: plain(*args))
-    if name == "nw_viterbi":
-        bits_same = torch.equal(got[0], want[0])
-        err = max(float((got[1] - want[1]).abs().max()),
-                  float((got[2] - want[2]).abs().max()))
-    else:
-        bits_same = True
-        err = float((got - want).abs().max())
-    xb, yb = args[:2]
+    want, plain_ms = timed_once(lambda: plain(*crop))
+    got = real_dp(name, args, got, rows, cols)
+    want = real_dp(name, crop, want, rows, cols)
+    bits_same = name != "nw_viterbi" or torch.equal(got[0], want[0])
+    err = max(float((g - w).abs().max()) for g, w in
+              zip(got[-2:] if name == "nw_viterbi" else got,
+                  want[-2:] if name == "nw_viterbi" else want))
     return {"name": name, "shape": (xb.shape[0], xb.shape[1], yb.shape[1]),
             "err": err, "bits_same": bits_same,
             "same": bits_same and err == 0.0, "plain_ms": plain_ms,
-            "bound": dp_bound(name, args)}
+            "plain_shape": (rows, cols), "bound": dp_bound(name, args),
+            "floor": dp_floor_ms(name, args, max_sm_clock_hz())}
 
 
 def dp_args(b, width, seed, dev):
@@ -3473,46 +3545,81 @@ def dp_args(b, width, seed, dev):
             + (torch.as_tensor(BLOSUM62_21, device=dev),))
 
 
+def dp_wide_args(width, dev):
+    """4 ragged amino pairs of DP_WIDE_ROWS rows at `width` lanes: lx in
+    DP_WIDE_ROWS / 2 .. DP_WIDE_ROWS, ly in width / 2 .. width, pair 0 at
+    both ends (batch_of's codes, wildcard-padded)."""
+    import torch
+    from muscle_tpu_torch.ops.sw import BLOSUM62_21
+    rng = np.random.default_rng(width)
+    lx = rng.integers(DP_WIDE_ROWS // 2, DP_WIDE_ROWS + 1, 4)
+    ly = rng.integers(width // 2, width + 1, 4)
+    lx[0], ly[0] = DP_WIDE_ROWS, width
+    arrays = batch_of(lx, ly, DP_WIDE_ROWS, width, 20, width + 1)
+    return (tuple(torch.from_numpy(a).to(dev) for a in arrays)
+            + (torch.as_tensor(BLOSUM62_21, device=dev),))
+
+
+def dp_line(name, what, case, ms, geom) -> str:
+    bnd = case["bound"]
+    return (f"{name} vs plain at {what} ({geom[0]} columns a lane, {geom[1]} "
+            f"warps a block, {geom[2]} block(s) a pair): "
+            f"{'bits equal, ' if name == 'nw_viterbi' and case['bits_same'] else ''}"
+            f"max |d| {case['err']:.3e} "
+            f"{'equal' if case['same'] else 'FAIL'} on the real cells; "
+            f"{ms:.4f} ms (plain {case['plain_ms']:.1f} ms on "
+            f"{case['plain_shape'][0]} x {case['plain_shape'][1]}, bound "
+            f"{bnd[0]:.5f} ms by {bnd[1]}, floor {case['floor']:.4f} ms)")
+
+
 def phase_dp_kernels(dev) -> list[dict]:
-    """nw_viterbi and sw_scores against their plain versions at
-    DP_PAIRS pairs at each DP_WIDTHS pad (bits equal, max |d| = 0),
-    their ptxas lines, their times (CUDA events) and bounds."""
+    """nw_viterbi and sw_scores against their plain versions on the real
+    cells at DP_PAIRS pairs at each DP_WIDTHS pad and at 4 pairs of
+    DP_WIDE_ROWS rows at each DP_WIDE_LANES pad (bits equal, max |d| =
+    0), their ptxas lines, their times (CUDA events), bounds and
+    dependency floors."""
+    import torch
     from muscle_tpu_torch.ops import dp_cuda
     for line in ptxas_lines(list(dp_cuda.LAUNCHES)):
-        if any(f"C={c}>" in line for c in (1, 2, 3)):
-            print(f"ptxas {line}", flush=True)
+        print(f"ptxas {line}", flush=True)
     rows = {}
-    for width in DP_WIDTHS:
-        args = dp_args(DP_PAIRS, width, 20261018 + width, dev)
+    shapes = ([(w, dp_args(DP_PAIRS, w, 20261018 + w, dev),
+                f"{DP_PAIRS} pairs, pad {w}") for w in DP_WIDTHS]
+              + [(w, dp_wide_args(w, dev),
+                  f"4 pairs of {DP_WIDE_ROWS} rows, pad {w}")
+                 for w in DP_WIDE_LANES])
+    for width, args, what in shapes:
         for name in dp_cuda.LAUNCHES:
             case = dp_case(name, args)
-            ms = time_cuda(lambda: getattr(dp_cuda, name)(*args))
-            threads, cols = dp_cuda.geometry(width + (name == "nw_viterbi"))
-            bnd = case["bound"]
-            print(f"{name} vs plain at {DP_PAIRS} pairs, pad {width} "
-                  f"({threads} threads x {cols} column(s)): "
-                  f"{'bits equal, ' if name == 'nw_viterbi' and case['bits_same'] else ''}"
-                  f"max |d| {case['err']:.3e} "
-                  f"{'equal' if case['same'] else 'FAIL'}; {ms:.4f} ms "
-                  f"(plain {case['plain_ms']:.1f} ms, bound {bnd[0]:.5f} ms "
-                  f"by {bnd[1]})", flush=True)
+            ms = time_cuda(lambda: getattr(dp_cuda, name)(*args),
+                           reps=5 if width in DP_WIDTHS else 3)
+            geom = dp_cuda.geometry(width + (name == "nw_viterbi"))
+            print(dp_line(name, what, case, ms, geom), flush=True)
             if not case["same"]:
                 raise SmokeFailure(f"{name} disagrees with its plain version "
                                    f"at pad {width}")
             rows.setdefault(name, {})[width] = (case, ms)
+        del args
+        torch.cuda.empty_cache()
     out = []
     for name, src, rep in (("nw_viterbi", "nw_viterbi.cu",
                             "muscle_tpu/ops/nw.py:98"),
                            ("sw_scores", "sw_scores.cu",
                             "muscle_tpu/ops/sw.py:115")):
-        (c0, ms0), (c1, ms1) = (rows[name][w] for w in DP_WIDTHS)
-        DP_WIDE[name] = {"ms": ms1, "plain_ms": c1["plain_ms"],
-                         "bound_ms": c1["bound"][0]}
+        c0, ms0 = rows[name][DP_WIDTHS[0]]
+        DP_WIDE[name] = {f"{key}_{w}": v for w in DP_WIDTHS[1:] + DP_WIDE_LANES
+                         for key, v in (("ms", rows[name][w][1]),
+                                        ("plain_ms", rows[name][w][0]["plain_ms"]),
+                                        ("bound_ms", rows[name][w][0]["bound"][0]),
+                                        ("floor_ms", rows[name][w][0]["floor"]))}
+        DP_WIDE[name]["floor_ms"] = c0["floor"]
         out.append({"name": name, "route": "cuda",
                     "source": f"muscle_tpu_torch/csrc/{src}",
                     "replaces": rep, "launches": 0,
-                    "max_abs_err": max(c0["err"], c1["err"]), "ms": ms0,
-                    "plain_ms": c0["plain_ms"], "bound_ms": c0["bound"][0],
+                    "max_abs_err": max(rows[name][w][0]["err"]
+                                       for w in rows[name]),
+                    "ms": ms0, "plain_ms": c0["plain_ms"],
+                    "bound_ms": c0["bound"][0],
                     "bound_by": c0["bound"][1], "library_ms": None})
     return out
 
@@ -3563,9 +3670,10 @@ class DpCheck(HeldLaunches):
                   f"{c['shape'][2]}): "
                   f"{'bits equal, ' if c['name'] == 'nw_viterbi' and c['bits_same'] else ''}"
                   f"max |d| {c['err']:.3e} "
-                  f"{'equal' if c['same'] else 'FAIL'} (plain "
-                  f"{c['plain_ms']:.1f} ms; bound {bnd[0]:.5f} ms by "
-                  f"{bnd[1]})", flush=True)
+                  f"{'equal' if c['same'] else 'FAIL'} on the real cells "
+                  f"(plain {c['plain_ms']:.1f} ms on {c['plain_shape'][0]} x "
+                  f"{c['plain_shape'][1]}; bound {bnd[0]:.5f} ms by "
+                  f"{bnd[1]}, floor {c['floor']:.4f} ms)", flush=True)
         for k in HELD_DP:
             if got.get(k, 0) and not any(c["name"] == k for c in new):
                 raise SmokeFailure(f"{name}: {got[k]} {k} launches, none held")
@@ -3592,6 +3700,61 @@ SUPER6_ROWS = 1000
 RDRP16_SHRUB = 4
 SUPER6_STAGES = ("uclustpd", "cluster_dists", "cluster_mpcs", "pprog")
 SUPER7_STAGES = ("guide_tree", "shrub_mpcs", "pprog")
+
+
+# -protdists past 20480 lanes: one protein of PROTDISTS_WIDE_LONG
+# residues (titin's order), then two of a few hundred, a copy of the
+# first of them inside the long one; pads round_up(., 128). -protdists
+# aligns each pair (i, j) with j < i as x = i, y = j, so the long one is
+# every pair's y and the rows are few (the plain version's check runs
+# on the batch's largest lx rows)
+PROTDISTS_WIDE_LONG = 20600
+PROTDISTS_WIDE_LENGTHS = (300, 280)
+
+
+def protdists_wide(workdir) -> dict:
+    """-protdists through the CLI on the three proteins of
+    PROTDISTS_WIDE_*: one nw_viterbi launch at 20609 lanes (a cluster of
+    3 blocks a pair), held on its real cells (DP_CHECK: the plain version
+    on the pairs' 300 rows); three finite distances, the pair of the
+    long protein and its copy the nearest."""
+    import torch
+    from muscle_tpu_torch import MultiSequence, Sequence
+    from muscle_tpu_torch.cli import main as cli_main
+    rng = np.random.default_rng(20481)
+    rows = [rng.integers(0, 20, n) for n in PROTDISTS_WIDE_LENGTHS]
+    long_ = rng.integers(0, 20, PROTDISTS_WIDE_LONG)
+    at = PROTDISTS_WIDE_LONG // 2
+    long_[at:at + len(rows[0])] = rows[0]
+    seqs = MultiSequence([Sequence(f"p{i}", bytes(AMINO_LETTERS[c] for c in r))
+                          for i, r in enumerate([long_] + rows)])
+    fa = os.path.join(workdir, "protdists_wide.fa")
+    tsv = os.path.join(workdir, "protdists_wide.tsv")
+    seqs.write_fasta(fa)
+    name = (f"protdists-wide ({PROTDISTS_WIDE_LONG} + "
+            f"{PROTDISTS_WIDE_LENGTHS})")
+    n_dp = len(DP_CHECK.cases)
+    reset_launches()
+    DP_CHECK.arm()
+    t0 = time.perf_counter()
+    rc = cli_main(["-protdists", fa, "-output", tsv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = count_main_path()
+    DP_CHECK.held_since(name, n_dp, got)
+    with open(tsv) as f:
+        dists = {frozenset(ln.split("\t")[:2]): float(ln.split("\t")[2])
+                 for ln in f if ln.strip()}
+    print(f"{name}: -protdists rc={rc} wall={wall:.2f}s (checks in) "
+          f"distances={json.dumps({'/'.join(sorted(k)): v for k, v in dists.items()})} "
+          f"launches={json.dumps({k: got[k] for k in HELD_DP})}", flush=True)
+    near = dists.get(frozenset(("p0", "p1")))
+    if (rc != 0 or got["nw_viterbi"] <= 0 or len(dists) != 3
+            or not all(np.isfinite(list(dists.values())))
+            or near is None or near != min(dists.values())):
+        raise SmokeFailure(f"{name}: exit code, launches or distances")
+    return {"wall_s": wall, "dists": {"/".join(sorted(k)): v
+                                      for k, v in dists.items()}}
 
 
 def run_super67(name, cmd, inp, seqs, workdir, kernels, opts):
@@ -3645,14 +3808,15 @@ def run_super67(name, cmd, inp, seqs, workdir, kernels, opts):
     return msa, wall, stages, got, peak
 
 
-def phase_super67(dev, sets) -> dict:
+def phase_super67(dev, sets, refs) -> dict:
     """-protdists on the degapped BB11001 golden through the CLI (each
     distance within 5e-4 of the reference binary's, raises); Super6 with
     default settings on super5_set()'s first SUPER6_ROWS rows; Super7 on
     mega-128 (shrub_size 32, the SW tree: Q against the truth), on
     mega-8 at shrub_size 3 (the card's text must equal the port's CPU
-    text, raises) and on the degapped rdrp-16 golden at shrub_size
-    RDRP16_SHRUB: each an alignment of its input through its kernels."""
+    text, from the CPU references' child `refs`; raises) and on the
+    degapped rdrp-16 golden at shrub_size RDRP16_SHRUB: each an alignment
+    of its input through its kernels."""
     import tempfile
 
     import torch
@@ -3691,6 +3855,7 @@ def phase_super67(dev, sets) -> dict:
         if rc != 0 or got["nw_viterbi"] <= 0 or max(errs.values()) > 5e-4:
             raise SmokeFailure(f"{name}: distances off the reference binary's")
         out[name] = {"wall_s": wall, "dists": errs}
+        out["protdists-wide"] = protdists_wide(workdir)
 
         # Super6 on synthetic-1000
         seqs = MultiSequence(list(super5_set())[:SUPER6_ROWS])
@@ -3730,15 +3895,12 @@ def phase_super67(dev, sets) -> dict:
                   f"launches={json.dumps(got)}", flush=True)
             out[name] = {"wall_s": wall, "stages": stages, "q": q}
             if key == "mega-8":
-                cpu_out = os.path.join(workdir, "super7-mega-8-cpu.afa")
-                DP_CHECK.left.clear()
                 t0 = time.perf_counter()
-                run_align_command("super7", inp, cpu_out,
-                                  dict(opts, device="cpu"))
-                with open(cpu_out) as f:
-                    same = f.read() == msa.to_fasta_text()
-                print(f"{name} on the CPU (plain versions): "
-                      f"{time.perf_counter() - t0:.2f}s, text equal to the "
+                same = (cpu_ref_text(refs, "super7_mega8.afa")
+                        == msa.to_fasta_text())
+                print(f"{name} on the CPU (plain versions; the CPU "
+                      f"references' child, waited "
+                      f"{time.perf_counter() - t0:.2f}s): text equal to the "
                       f"card's: {same}", flush=True)
                 if not same:
                     raise SmokeFailure(f"{name}: the card's text differs from "
@@ -3992,16 +4154,31 @@ def rdrp16_greedy(device):
 
 def cpu_refs_main(outdir) -> int:
     """`chip_smoke.py --cpu-refs DIR` (started by main as a child): the
-    port's CPU texts of -uclust -minea 0.9 and of the greedy PProg over
-    the degapped rdrp-16 golden, into DIR (uclust.fa, greedy.afa, then
-    walls.json last)."""
+    port's CPU texts of mega-8 (`align(mega=)` and Super7 at shrubs of 3,
+    on its own copy of the set), of -uclust -minea 0.9 and of the greedy
+    PProg over the degapped rdrp-16 golden, into DIR (mega8_align.afa,
+    super7_mega8.afa, uclust.fa, greedy.afa, then walls.json last)."""
     import torch
     sys.path.insert(0, ROOT)
     os.nice(10)
     torch.set_num_threads(CPU_REF_THREADS)
-    from muscle_tpu_torch import MultiSequence
+    from muscle_tpu_torch import MultiSequence, align
     from muscle_tpu_torch.cli import main as cli_main
+    from muscle_tpu_torch.pipeline.ensemble import run_align_command
     walls = {}
+    ms, _ = mega_set(*MEGA_8, where=outdir)
+    n, _, _, seed = MEGA_8
+    for name, run in (
+            ("mega8_align", lambda out: ms_text(out, align(
+                mega_seqs(ms), mega=ms, device="cpu"))),
+            ("super7_mega8", lambda out: run_align_command(
+                "super7", os.path.join(outdir, f"mega-{n}-{seed}.mega"),
+                out, {"shrub_size": "3", "device": "cpu"}))):
+        t0 = time.perf_counter()
+        tmp = os.path.join(outdir, f"{name}.tmp")
+        run(tmp)
+        os.replace(tmp, os.path.join(outdir, f"{name}.afa"))
+        walls[name] = time.perf_counter() - t0
     fa = os.path.join(outdir, "rdrp16.fa")
     MultiSequence.from_fasta(os.path.join(ROOT, RDRP16),
                              strip_gaps=True).write_fasta(fa)
@@ -4016,6 +4193,27 @@ def cpu_refs_main(outdir) -> int:
     with open(os.path.join(outdir, "walls.json"), "w") as f:
         json.dump(walls, f)
     return rc
+
+
+def ms_text(path, msa) -> None:
+    with open(path, "w") as f:
+        f.write(msa.to_fasta_text())
+
+
+def cpu_ref_text(refs, name) -> str:
+    """The CPU references' text `name` (cpu_refs_main), waiting for it up
+    to CPU_REFS_LIMIT_S; raises if the child ends without it."""
+    proc, outdir = refs
+    path = os.path.join(outdir, name)
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if (proc.poll() is not None
+                or time.perf_counter() - t0 > CPU_REFS_LIMIT_S):
+            raise SmokeFailure(f"no CPU reference {name} (rc={proc.poll()}; "
+                               "build/chip_smoke/cpu_refs.log)")
+        time.sleep(0.5)
+    with open(path) as f:
+        return f.read()
 
 
 def start_cpu_refs():
@@ -4050,7 +4248,8 @@ def wait_cpu_refs(refs) -> dict:
     return walls
 
 
-# the longest wait for the CPU references at phase_surface
+# the longest wait for a CPU reference (phase_mega, phase_super67,
+# phase_surface)
 CPU_REFS_LIMIT_S = 300
 # -eadistmx's EAs: the kernels against the CPU's scan, the kernel gate's
 # EA tolerance (ROADMAP.md) and the last printed digit's rounding
@@ -4819,9 +5018,9 @@ def run_phases(card, refs) -> int:
         phase_synthetic(dev)
         phase_long_families(dev)
         s5 = phase_super5(dev)
-        legacy_errs = phase_mega(dev, sets)["legacy_errs"]
+        legacy_errs = phase_mega(dev, sets, refs)["legacy_errs"]
         ens = phase_ensembles(dev)
-        phase_super67(dev, sets)
+        phase_super67(dev, sets, refs)
         surf = phase_surface(dev, sets, refs)
     print(f"main path: {time.perf_counter() - t0:.1f}s (kernel-7 checks "
           f"{GRID_CHECK.seconds:.2f}s, {len(GRID_CHECK.cases)} launches "
@@ -4910,12 +5109,12 @@ def run_phases(card, refs) -> int:
                       in rungs.items()}
     km.update(held_launches=len(MEA_CHECK.cases),
               held_ms_summed=sum(c["ms"] for c in MEA_CHECK.cases))
-    # nw_viterbi / sw_scores: their times, plain times and bounds at
-    # phase 2's second pad (several columns a thread), the held launches
+    # nw_viterbi / sw_scores: their times, plain times, bounds and floors
+    # at phase 2's second pad (a block of warps a pair) and the wide rows
+    # (a cluster a pair), the held launches
     for name, wide in DP_WIDE.items():
         next(k for k in kernels if k["name"] == name).update(
-            {f"{key}_{DP_WIDTHS[1]}": v for key, v in wide.items()},
-            held_launches=len(held[name]))
+            wide, held_launches=len(held[name]))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -9,14 +9,21 @@ hand-written CUDA kernels.
   muscle_tpu.ops.sw.sw_scores_batch (an XLA scan too): the local
   affine SW score of each pair.
 
-Both run one block a pair, the threads over the row's columns (a thread
-owns `geometry(width)[1]` columns when the row is wider than 1024), the
+Both run a team of warps a pair (`geometry(width)`: one warp up to 128
+lanes, a block of warps up to 4096, a thread-block cluster up to 65536),
+a lane holding contiguous columns of the row in registers, the
 substitution table in shared memory and the row's max-plus gap scan as
-the JAX package's Hillis-Steele rounds, double-buffered in shared memory
-(csrc/dp_rows.cuh). Their plain versions are ops/nw.nw_viterbi_plain
-and ops/sw.sw_scores_plain, which follow the JAX op order; every
-operation is an IEEE add or max in the same order, so kernels and plain
-versions agree bit for bit. A CPU tensor runs the plain version; a CUDA
+the JAX package's Hillis-Steele rounds, in registers and shuffles (in a
+block each warp also runs the warp below's columns, so that the rounds
+within a warp need no barrier), the rounds that cross warps through
+shared memory (csrc/dp_rows.cuh). Their
+plain versions are ops/nw.nw_viterbi_plain and ops/sw.sw_scores_plain,
+which follow the JAX op order; every operation is an IEEE add or max in
+the same order, so kernels and plain versions agree bit for bit on what
+a reader uses: NW's bits of rows < lx and columns <= ly, its final rows'
+columns <= ly and the scores; SW's scores. Each pair stops at its own
+(lx, ly): NW's bit rows >= lx and its bit and final columns > ly are
+unspecified on the card. A CPU tensor runs the plain version; a CUDA
 tensor launches the kernel or raises. `LAUNCHES` counts the launches.
 """
 
@@ -28,12 +35,19 @@ import torch
 
 LAUNCHES = {"nw_viterbi": 0, "sw_scores": 0}
 
-# csrc/dp_rows.cuh: at most kMaxThreads threads a block, each owning at
-# most kMaxCols columns of the row; a substitution table of at most
-# kMaxAlpha x kMaxAlpha
-MAX_THREADS = 1024
-MAX_COLS_PER_THREAD = 20
-MAX_WIDTH = MAX_THREADS * MAX_COLS_PER_THREAD
+# csrc/dp_rows.cuh: one warp a pair up to WARP_LANES lanes (2 or 4
+# columns a lane), a block of warps of BLOCK_COLS columns a lane up to
+# BLOCK_LANES, beyond a cluster of up to MAX_CLUSTER blocks of
+# CLUSTER_LANES lanes at CLUSTER_COLS columns a lane; a substitution
+# table of at most MAX_ALPHA x MAX_ALPHA
+WARP = 32
+WARP_LANES = 128
+BLOCK_COLS = 4
+BLOCK_LANES = 4096
+CLUSTER_COLS = 8
+CLUSTER_LANES = 8192
+MAX_CLUSTER = 8
+MAX_WIDTH = CLUSTER_LANES * MAX_CLUSTER
 MAX_ALPHA = 32
 
 _fns: dict = {}
@@ -52,14 +66,26 @@ def kernel_specs():
     return [cuda_spec(k, deps=dep) for k in LAUNCHES]
 
 
-def geometry(width: int) -> tuple[int, int]:
-    """(threads a block, columns a thread) for a row of `width` lanes,
-    as the C entries pick them: one column a thread up to 1024 lanes,
-    else ceil(width / 1024) columns a thread (column c * threads + t of
-    thread t)."""
-    cols = max(1, -(-width // MAX_THREADS))
-    threads = -(-width // cols)
-    return (threads + 31) // 32 * 32, cols
+def geometry(width: int) -> tuple[int, int, int]:
+    """(columns a lane, warps a block, blocks a pair) for a row of `width`
+    lanes, as the C entries pick them: one warp of the least C in 2, 4
+    that holds the row up to WARP_LANES; ceil(width / (32
+    BLOCK_COLS)) warps of BLOCK_COLS columns up to BLOCK_LANES; beyond, a
+    cluster of ceil(width / CLUSTER_LANES) blocks of 32 warps at
+    CLUSTER_COLS columns a lane. Raises past MAX_WIDTH."""
+    if not 1 <= width <= MAX_WIDTH:
+        raise ValueError(f"a row of {width} lanes: the kernels take 1 to "
+                         f"{MAX_WIDTH} (a cluster of {MAX_CLUSTER} blocks "
+                         f"of {CLUSTER_LANES})")
+    if width <= WARP_LANES:
+        cols = 2
+        while cols * WARP < width:
+            cols *= 2
+        return cols, 1, 1
+    if width <= BLOCK_LANES:
+        return BLOCK_COLS, -(-width // (WARP * BLOCK_COLS)), 1
+    return (CLUSTER_COLS, CLUSTER_LANES // (WARP * CLUSTER_COLS),
+            -(-width // CLUSTER_LANES))
 
 
 def _kernel(name: str):
@@ -99,13 +125,18 @@ def _check(xb, yb, lxb, lyb, subst, width: int) -> None:
                          f"{MAX_ALPHA} letters on {dev}")
     if width > MAX_WIDTH:
         raise ValueError(f"a row of {width} lanes: the kernels take at most "
-                         f"{MAX_WIDTH}")
+                         f"{MAX_WIDTH} (a cluster of {MAX_CLUSTER} blocks of "
+                         f"{CLUSTER_LANES})")
 
 
 def nw_viterbi(xb, yb, lxb, lyb, subst):
     """Global NW of a batch: codes (B, BX), (B, BY) int32, lengths (B,)
     int32, subst (K1, K1) f32 -> (bits (B, BX, BY+1) uint8, final
-    (B, 3, BY+1) f32, scores (B,) f32), as ops/nw.nw_viterbi_plain."""
+    (B, 3, BY+1) f32, scores (B,) f32), as ops/nw.nw_viterbi_plain on
+    each pair's bit rows < lx and columns <= ly, its final columns <= ly
+    and its score; on the card the other cells are unspecified (the
+    kernel stops at (lx, ly)), and a pair with lx > BX or ly > BY keeps
+    zero final rows and score."""
     if xb.device.type == "cpu":
         from .nw import nw_viterbi_plain
         return nw_viterbi_plain(xb, yb, lxb, lyb, subst)
@@ -128,7 +159,9 @@ def nw_viterbi(xb, yb, lxb, lyb, subst):
 
 def sw_scores(xb, yb, lxb, lyb, subst):
     """SW scores of a batch: codes (B, BX), (B, BY) int32, lengths (B,)
-    int32, subst (K1, K1) f32 -> (B,) f32, as ops/sw.sw_scores_plain."""
+    int32, subst (K1, K1) f32 -> (B,) f32, as ops/sw.sw_scores_plain (the
+    kernel runs each pair's min(lx, BX) rows of min(ly, BY) columns, the
+    only cells that can raise its score)."""
     if xb.device.type == "cpu":
         from .sw import sw_scores_plain
         return sw_scores_plain(xb, yb, lxb, lyb, subst)

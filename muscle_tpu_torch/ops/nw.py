@@ -99,7 +99,10 @@ def nw_viterbi_plain(xb, yb, lxb, lyb, subst):
 def nw_viterbi_batch(xb, yb, lxb, lyb, subst):
     """(bits, final rows, scores) as nw_viterbi_plain: the plain version
     on CPU tensors, the nw_viterbi kernel on CUDA tensors
-    (ops/dp_cuda.py)."""
+    (ops/dp_cuda.py). What a reader may use is each pair's bit rows < lx
+    and columns <= ly, its final columns <= ly and its score (all that
+    _traceback and _last_row_bits_np read); on the card the cells past
+    (lx, ly) are unspecified."""
     from .dp_cuda import nw_viterbi
     return nw_viterbi(xb, yb, lxb, lyb, subst)
 
@@ -155,6 +158,12 @@ def _last_row_bits_np(final: np.ndarray) -> np.ndarray:
     return (match_bits | md | mi).astype(np.uint8)
 
 
+# The trace bits of one launch, at most (on the device, then again on
+# the host): a batch is cut into launches of fewer pairs past it. The
+# pairs of a batch do not interact, so the cut changes no result.
+BITS_BUDGET = 2 << 30
+
+
 def nw_align_batch(codes: np.ndarray, lens: np.ndarray,
                    pairs: list[tuple[int, int]],
                    batch_size: int = 64,
@@ -162,7 +171,8 @@ def nw_align_batch(codes: np.ndarray, lens: np.ndarray,
                    device=None) -> list[tuple[float, str]]:
     """(score, M/D/I path) per (i, j) pair of encoded sequences; the DP
     runs on `device` (the card unless the CPU is asked for) in batches
-    of `batch_size` pairs, the walk on the host."""
+    of `batch_size` pairs, fewer where a batch's bits would pass
+    BITS_BUDGET, the walk on the host."""
     from ..utils.device import resolve_device
     if not pairs:
         return []
@@ -170,7 +180,8 @@ def nw_align_batch(codes: np.ndarray, lens: np.ndarray,
     subst = torch.as_tensor(BLOSUM62_21 if subst is None else subst,
                             device=device)
     out: list[tuple[float, str]] = []
-    b = min(batch_size, len(pairs))
+    pad = codes.shape[1]
+    b = max(1, min(batch_size, len(pairs), BITS_BUDGET // (pad * (pad + 1))))
     for lo in range(0, len(pairs), b):
         chunk = pairs[lo:lo + b]
         xi = np.array([p[0] for p in chunk])

@@ -6,11 +6,14 @@ This file imports neither jax nor muscle_tpu:
     MUSCLE_TPU_TEST_TPU=1 python -m pytest -m cuda tests/test_torch_cuda_dp.py
 
 Each kernel equals its plain version (ops/nw.nw_viterbi_plain,
-ops/sw.sw_scores_plain) bit for bit: on ragged amino pairs at pads that
-give one to twenty columns a thread, on lx = 0 / ly = 0 and one-residue
-pairs, on codes outside the table (clamped, as the plain versions do)
-and on a nucleotide table; the wrappers reject what the kernels do not
-take.
+ops/sw.sw_scores_plain) bit for bit on what a reader uses (NW's bit
+rows < lx and columns <= ly, its final columns <= ly and the scores;
+SW's scores): on ragged amino pairs at pads that give every geometry
+(one warp of 2 or 4 columns a lane, a block of warps, a cluster of 1 to
+5 blocks at 8192, 20479, 24576 and 32768), on lx = 0 / ly = 0 and
+one-residue pairs, on codes outside the table (clamped, as the plain
+versions do) and on a nucleotide table; the wrappers reject what the
+kernels do not take.
 """
 
 import numpy as np
@@ -44,10 +47,17 @@ def _args(b, bx, by, seed, dev, k1=21, lo=1):
 
 
 def _same(args):
+    """Kernel = plain on the real cells: each pair's bit rows < lx and
+    columns <= ly, its final columns <= ly, the scores."""
     bits, fin, sc = dp_cuda.nw_viterbi(*args)
     pb, pf, ps = nw.nw_viterbi_plain(*args)
-    assert torch.equal(bits, pb)
-    assert torch.equal(fin.view(torch.int32), pf.view(torch.int32))
+    bx, by = args[0].shape[1], args[1].shape[1]
+    for k, (lx, ly) in enumerate(zip(args[2].tolist(), args[3].tolist())):
+        if lx > bx or ly > by:
+            continue
+        assert torch.equal(bits[k, :lx, :ly + 1], pb[k, :lx, :ly + 1])
+        assert torch.equal(fin[k, :, :ly + 1].view(torch.int32),
+                           pf[k, :, :ly + 1].view(torch.int32))
     assert torch.equal(sc.view(torch.int32), ps.view(torch.int32))
     got, want = dp_cuda.sw_scores(*args), sw.sw_scores_plain(*args)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -56,7 +66,8 @@ def _same(args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bx,by", [(40, 40), (128, 100), (100, 128),
                                    (384, 384), (64, 1024), (64, 1100),
-                                   (32, 4095), (16, 20479)])
+                                   (32, 4095), (16, 8192), (16, 20479),
+                                   (64, 24576), (32, 32768)])
 def test_kernels_equal_plain(cuda_device, bx, by):
     before = dict(dp_cuda.LAUNCHES)
     _same(_args(6, bx, by, bx + by, cuda_device))
@@ -92,3 +103,13 @@ def test_wrappers_reject_bad_inputs(cuda_device):
                        device=cuda_device)
     with pytest.raises(ValueError, match="lanes"):
         dp_cuda.nw_viterbi(xb[:1], wide, lx[:1], ly[:1], subst)
+    wider = torch.zeros((1, dp_cuda.MAX_WIDTH + 1), dtype=torch.int32,
+                        device=cuda_device)
+    with pytest.raises(ValueError, match="lanes"):
+        dp_cuda.sw_scores(xb[:1], wider, lx[:1], ly[:1], subst)
+    # the widest row each takes runs (20480 lanes was the limit before)
+    before = dict(dp_cuda.LAUNCHES)
+    dp_cuda.nw_viterbi(xb[:1], wide[:, :-1], lx[:1], ly[:1], subst)
+    dp_cuda.sw_scores(xb[:1], wide, lx[:1], ly[:1], subst)
+    torch.cuda.synchronize()
+    assert dp_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}

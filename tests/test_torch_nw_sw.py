@@ -210,26 +210,48 @@ def test_cpu_tensors_run_the_twins_and_count_nothing():
 
 
 def test_geometry_and_specs_match_the_sources(monkeypatch):
-    """MAX_* repeat csrc/dp_rows.cuh's constants; geometry is the C
-    entries' (one column a thread up to 1024 lanes, then ceil(W/1024)
-    columns, threads a whole number of warps); both libraries build for
+    """The width constants repeat csrc/dp_rows.cuh's; geometry is the C
+    entries' (one warp of 2-4 columns a lane up to 128 lanes, a block of
+    4-column warps up to 4096, a cluster of 8192-lane blocks beyond, at
+    most 8: 65536 lanes, past which it raises); both libraries build for
     sm_90a without FMA contraction, keyed on the shared header."""
     from muscle_tpu_torch.utils import build
     with open(build.package_path("csrc", "dp_rows.cuh")) as f:
         src = f.read()
     consts = {k: int(v) for k, v in re.findall(
         r"constexpr int (k\w+) = (\d+);", src)}
-    assert consts == {"kMaxThreads": dp_cuda.MAX_THREADS,
-                      "kMaxCols": dp_cuda.MAX_COLS_PER_THREAD,
-                      "kMaxAlpha": dp_cuda.MAX_ALPHA}
-    assert dp_cuda.geometry(385) == (416, 1)
-    assert dp_cuda.geometry(1024) == (1024, 1)
-    assert dp_cuda.geometry(1025) == (544, 2)
-    assert dp_cuda.geometry(2049) == (704, 3)
-    assert dp_cuda.geometry(dp_cuda.MAX_WIDTH) == (1024, 20)
-    for w in range(1, 5000, 37):
-        t, c = dp_cuda.geometry(w)
-        assert t % 32 == 0 and t <= 1024 and (t - 32) * c < w <= t * c
+    assert consts == {"kWarp": dp_cuda.WARP,
+                      "kMaxAlpha": dp_cuda.MAX_ALPHA,
+                      "kWarpLanes": dp_cuda.WARP_LANES,
+                      "kBlockCols": dp_cuda.BLOCK_COLS,
+                      "kBlockLanes": dp_cuda.BLOCK_LANES,
+                      "kClusterCols": dp_cuda.CLUSTER_COLS,
+                      "kClusterLanes": dp_cuda.CLUSTER_LANES,
+                      "kMaxCluster": dp_cuda.MAX_CLUSTER}
+    assert dp_cuda.geometry(128) == (4, 1, 1)
+    assert dp_cuda.geometry(385) == (4, 4, 1)
+    assert dp_cuda.geometry(1025) == (4, 9, 1)
+    assert dp_cuda.geometry(2049) == (4, 17, 1)
+    assert dp_cuda.geometry(4097) == (8, 32, 1)
+    assert dp_cuda.geometry(20481) == (8, 32, 3)
+    assert dp_cuda.geometry(dp_cuda.MAX_WIDTH) == (8, 32, 8)
+    for bad in (0, dp_cuda.MAX_WIDTH + 1):
+        with pytest.raises(ValueError, match="lanes"):
+            dp_cuda.geometry(bad)
+    for w in list(range(1, 9000, 37)) + list(range(8193, 70000, 4093)):
+        if w > dp_cuda.MAX_WIDTH:
+            continue
+        c, t, q = dp_cuda.geometry(w)
+        lanes = dp_cuda.WARP * c * t
+        assert c in (2, 4, 8, 16) and 1 <= t <= 1024 // dp_cuda.WARP
+        assert (q - 1) * lanes < w <= q * lanes and q <= dp_cuda.MAX_CLUSTER
+        if w <= dp_cuda.WARP_LANES:   # the least C of one warp
+            assert t == 1 and (c == 2 or c // 2 * dp_cuda.WARP < w)
+        elif w <= dp_cuda.BLOCK_LANES:   # the least warps of BLOCK_COLS
+            assert c == dp_cuda.BLOCK_COLS and q == 1
+            assert (t - 1) * dp_cuda.WARP * c < w
+        else:
+            assert lanes == dp_cuda.CLUSTER_LANES
     monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
     specs = dp_cuda.kernel_specs()
     assert [s.name for s in specs] == ["nw_viterbi", "sw_scores"]
