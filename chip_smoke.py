@@ -195,8 +195,9 @@ Phases (each raises on failure, so the run exits non-zero):
    --exact DIR`) under MUSCLE_TPU_EXACT_ASSOC=1: the reference-order
    kernels pairhmm_fwd_exact / pairhmm_bwd_exact against their plain
    versions (max |d| = 0; letters, per-pair tables, a mega lattice, a
-   2100-row pair), timed at 512 x 512² beside kernels A/B with their
-   bound and dependency floor; every in-repo family through them,
+   batch of 170- and 512-row pairs, a 2100-row pair whose rounds of
+   bands run on several SMs), timed at 512 x 512² beside kernels A/B
+   with their bound and floor; every in-repo family through them,
    required column-identical to its golden (BB11005 included; BB11001's
    text = the port's CPU text), every kernel-4 launch of that route held
    to pairhmm._mea_score; -testfb on BB11004 (totals on the card = the
@@ -4528,28 +4529,37 @@ def phase_surface(dev, sets, refs) -> dict:
 
 EXACT_KERNELS = ("pairhmm_fwd_exact", "pairhmm_bwd_exact")
 EXACT_LIMIT_S = 900
-# The dependency floor of the exact kernels (csrc/pairhmm_exact.cu): a
-# step of a block is a chain of the M fold (four dependent LOG_ADDs) and
-# two adds; a LOG_ADD is 9 dependent f32 operations (max/min, sub, clamp
-# 2, segment compare, 2 coefficient selects, the final select and add)
-# and 13 on the f64 pipe (x to double, then three Horner steps of a
-# conversion, a multiply, an add and the rounding back); then a
-# shared-memory round trip and a barrier. Assumed latencies as
-# ROW_FLOOR's (4 cycles an f32 operation, 30 a shared-memory round trip,
-# 24 a barrier) and 8 cycles an f64 operation or conversion; a pair takes
-# lx + ly steps (its rows past MAX_THREADS in rounds: T + ly steps each).
-EXACT_STEP = (2 + 4 * 9, 4 * 13, 1, 1)
+# The floor of the exact kernels (csrc/pairhmm_exact.cu, a wavefront of
+# row bands), the larger of two times. The chain: cell (i, j) runs at
+# band step i + j at the earliest, so a pair takes lx + ly steps, each at
+# least the row above's hand-over (a shuffle) and one LOG_ADD, the M
+# fold's four every other step: 2.5 LOG_ADDs of 11 dependent f32
+# operations (the argument's add, max / min, sub, compare, two selects,
+# three FMAs, the add, the select), 2 adds and 1.5 shuffles, at 4 cycles
+# an f32 operation and 24 a shuffle. The issue time: each band of 32
+# rows runs ly + 32 steps (rounded up to a run of EXACT_HC), and a warp
+# issues EXACT_ISSUE[kernel] instructions a step, over 132 SMs of 4
+# schedulers at one instruction a cycle: ~223 a forward step in the
+# SASS (a step's block and its branches around lane 31's stores), and
+# 1,389-1,735 a backward run of 8 steps where it is one block
+# (`tools/torch_exact_probe.py --sass` on an H100; no f64 or conversion
+# instruction is left).
+EXACT_CHAIN = (2.5 * 11 + 2, 1.5)
+EXACT_ISSUE = {"pairhmm_fwd_exact": 223, "pairhmm_bwd_exact": 200}
 
 
-def exact_floor_ms(lxb, lyb, clock_hz) -> float:
-    """The longest pair's chain of steps (the pairs run side by side)."""
-    from muscle_tpu_torch.ops.pairhmm_exact_cuda import threads
-    f32_ops, f64_ops, smem, bars = EXACT_STEP
-    cycles = 4 * f32_ops + 8 * f64_ops + 30 * smem + 24 * bars
-    t = threads(int(max(lxb)))
-    steps = max(-(-int(lx) // t) * (t + int(ly)) if lx > t else lx + ly
-                for lx, ly in zip(lxb, lyb))
-    return steps * cycles / clock_hz * 1e3
+def exact_floor_ms(name, lxb, lyb, clock_hz, sms=132) -> float:
+    """The larger of the longest pair's chain and the launch's issue
+    time (the pairs run side by side)."""
+    from muscle_tpu_torch.ops.pairhmm_exact_cuda import EXACT_HC
+    f32_ops, shuffles = EXACT_CHAIN
+    chain = (max(int(lx) + int(ly) for lx, ly in zip(lxb, lyb))
+             * (4 * f32_ops + 24 * shuffles))
+    warp_steps = sum(max(1, -(-int(lx) // 32))
+                     * -(-(int(ly) + 32) // EXACT_HC) * EXACT_HC
+                     for lx, ly in zip(lxb, lyb))
+    issue = warp_steps * EXACT_ISSUE[name] / (4 * sms)
+    return max(chain, issue) / clock_hz * 1e3
 
 
 def exact_inside(t, lx, ly, bwd):
@@ -4589,9 +4599,11 @@ def exact_case(name, src, lx, ly, params, what):
 def exact_kernel_checks(dev) -> dict:
     """(a) Each exact kernel against its plain version, max |d| = 0: 16
     ragged letter pairs at 256, 8 pairs with per-pair tables at 256, 8
-    mega-128 pairs at 384 (the lattice), one 2100 x 300 letter pair
-    (rows past one block's MAX_THREADS: rounds handed over through device
-    memory). Returns {kernel: max |d|}."""
+    mega-128 pairs at 384 (the lattice), 16 pairs at pad 512 mixing 170
+    and 512 rows (a short pair's blocks stop at its own bands), one 2100
+    x 300 letter pair (66 bands: more than a round holds, so its rounds
+    run on several SMs at once, each taking the round above's last row
+    through device memory). Returns {kernel: max |d|}."""
     import torch
     from muscle_tpu_torch.hmm.params import HMMParams
     from muscle_tpu_torch.ops import pairhmm_cuda as pc
@@ -4618,10 +4630,16 @@ def exact_kernel_checks(dev) -> dict:
     e, ins_x, ins_y, lxm, lym = mega_batch(ms128, pairs, MEGA_128_PAD, dev)
     cases.append(("8 mega-128 pairs at 384 (the lattice)",
                   pec.Lattice(e, ins_x, ins_y), lxm, lym, params))
+    mixed = [170 + k if k % 2 else 512 - k for k in range(16)]
+    xb, yb, lx, ly = batch_of(mixed, mixed[::-1], 512, 512, 20, seed=1504)
+    t = [torch.from_numpy(a).to(dev) for a in (xb, yb, lx, ly)]
+    cases.append(("16 pairs at pad 512 of 170-185 and 497-512 rows",
+                  pec.Letters(t[0], t[1], match, insert), t[2], t[3], params))
     xb, yb, lx, ly = batch_of([2100], [300], 2176, 384, 20, seed=1503)
     t = [torch.from_numpy(a).to(dev) for a in (xb, yb, lx, ly)]
-    cases.append((f"a 2100 x 300 letter pair ({-(-2100 // pec.MAX_THREADS)} "
-                  "rounds of rows)",
+    warps, rounds = pec.exact_geometry(2176)
+    cases.append((f"a 2100 x 300 letter pair ({rounds} rounds of {warps} "
+                  "bands)",
                   pec.Letters(t[0], t[1], match, insert), t[2], t[3], params))
     errs = {k: 0.0 for k in EXACT_KERNELS}
     for what, src, lxt, lyt, prm in cases:
@@ -4635,7 +4653,7 @@ def exact_kernel_times(dev, b=512, width=512) -> list[dict]:
     """(b) Both exact kernels at B = 512 ragged amino pairs at 512 x 512
     (phase_kernels' inputs), held to their plain versions there and timed
     (CUDA events), beside kernels A and B in the same process, with the
-    bytes/operations bound and the dependency floor (exact_floor_ms).
+    bytes/operations bound and the floor (exact_floor_ms).
     Returns the two kernels' entries of the kernels line."""
     import torch
     from muscle_tpu_torch.hmm.params import HMMParams
@@ -4653,7 +4671,7 @@ def exact_kernel_times(dev, b=512, width=512) -> list[dict]:
                   + 16)
     entries = []
     clock = max_sm_clock_hz()
-    floor = exact_floor_ms(lx, ly, clock)
+    warps, rounds = pec.exact_geometry(width)
     for name, ops, line in (
             ("pairhmm_fwd_exact", FWD_OPS_PER_CELL, 185),
             ("pairhmm_bwd_exact", BWD_OPS_PER_CELL, 283)):
@@ -4662,10 +4680,11 @@ def exact_kernel_times(dev, b=512, width=512) -> list[dict]:
         fn = getattr(pec, name)
         ms = steady_ms(lambda: fn(src, lxt, lyt, params))
         bnd = bound_ms(inputs + 4 * cells + 4 * 5 * b, cells * ops)
+        floor = exact_floor_ms(name, lx, ly, clock)
         print(f"{name} at {b} x {width}^2: {ms:.3f} ms (plain {plain_ms:.1f}"
-              f" ms, bound {bnd[0]:.4f} ms by {bnd[1]}, dependency floor "
-              f"{floor:.3f} ms at {clock / 1e9:.2f} GHz: one pair's "
-              f"{int(max(lx + ly))} steps)", flush=True)
+              f" ms, bound {bnd[0]:.4f} ms by {bnd[1]}, floor {floor:.3f} ms"
+              f" at {clock / 1e9:.2f} GHz; blocks of {warps} bands, "
+              f"{rounds} rounds a pair)", flush=True)
         entries.append({
             "name": name, "route": "cuda",
             "source": "muscle_tpu_torch/csrc/pairhmm_exact.cu",

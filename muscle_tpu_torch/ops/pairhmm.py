@@ -335,7 +335,7 @@ def fwd_exact_wave(e, ins_x, ins_y, lxb, lyb, start, tv):
     from the cells (i-1, j-1), (i-1, j) and (i, j-1) of the two
     diagonals before, with the row steps' expressions, so the same bits;
     row 0 and column 0 are the boundary chains. The plain version of
-    kernel pairhmm_fwd_exact, whose threads run the same schedule.
+    kernel pairhmm_fwd_exact, whose bands compute the same cells.
     Returns (M lattice (B, Bx+1, By+1), the 5 states at (lx, ly))."""
     b, bx, by = e.shape
     dev = e.device

@@ -12,11 +12,16 @@ same recurrences run as two kernels (csrc/pairhmm_exact.cu):
 * `pairhmm_bwd_exact`: the reversed backward M lattice (RB_M) and its
   five states at (lx, ly), the far corner that -testfb folds;
 
-each an anti-diagonal wavefront over the pair's lattice, one thread a
-DP row, rows past one block's threads in further rounds handed over
-through device memory. Their plain versions are ops/pairhmm.py's
+each a wavefront of row bands over the pair's lattice: a warp a band of
+32 rows (one a lane, a column a step, the row above handed on by
+shuffles), a block a round of up to 4 bands, rounds on as many
+SMs at once, each taking the round above's last row from device memory
+(`exact_geometry`). Their plain versions are ops/pairhmm.py's
 `fwd_exact_wave` / `bwd_exact_wave` (the same cells, one diagonal at a
 time, in torch); kernel and plain version agree bit for bit.
+`exact_band_plain` runs the kernels' schedule itself on the CPU (its
+lanes, bands, hand-over ring, link and M tile, step by step) and checks
+every hand-over read.
 
 Emission sources: `Letters` (codes with one table set, or one a pair:
 the letter path and the ensembles' replicate batching) and `Lattice`
@@ -38,9 +43,13 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import pairhmm as ph
+from . import wavefront
+from .devjoin_cuda import MEA_WAIT_CYCLES
+from .logspace import LOG_ZERO
 from .pairhmm_cuda import (P_TSI, P_TSJ, P_TSM, _on_card, _ptr, _stream,
                            params_rows, params_vec, tables)
 
@@ -49,8 +58,15 @@ LAUNCHES = {"pairhmm_fwd_exact": 0, "pairhmm_bwd_exact": 0}
 # among them (pipeline/posteriors.py's long-pair router)
 ROUTES = {"letters": 0, "tables": 0, "lattice": 0, "long_pairs": 0}
 
-# DP rows a round of one block (one thread a row; csrc's MAX_T)
-MAX_THREADS = 512
+# csrc/pairhmm_exact.cu's constants (a CPU test reads them there): bands
+# (warps) a block at most, steps a run (columns a take from the band
+# above), hand-over ring slots, M tile columns, columns a write of the
+# tile
+EXACT_MAX_WARPS = 4
+EXACT_HC = 8
+EXACT_RING = 128
+EXACT_MC = 64
+EXACT_CWM = 16
 # pairs a posterior combine takes at once: its temporaries stay near
 # 1 GB each
 COMBINE_CELLS = 1 << 28
@@ -83,9 +99,22 @@ def reset_routes() -> None:
         ROUTES[k] = 0
 
 
-def threads(lx: int) -> int:
-    """Threads (rows) a round for a padded row count lx."""
-    return min(MAX_THREADS, -(-lx // 32) * 32)
+def exact_geometry(lx: int, warps: int | None = None) -> tuple[int, int]:
+    """(warps a block, rounds a pair) of a launch over `lx` padded rows: a
+    round is one block of `warps` bands of 32 rows (EXACT_MAX_WARPS, at
+    most one a band, by default); the launch has B * rounds blocks, those
+    past a pair's own lx rows end at once. A block's warps share its SM's
+    4 schedulers and a pair's bands all run at the pace of the slowest,
+    so a long pair (~45 bands at work at once) wants a warp a scheduler;
+    and blocks of at most 4 warps let a thread have up to 255 registers,
+    which sped every shape but the backward at 512 x 512^2 up, by up to
+    29 % (tools/torch_exact_probe.py on an H100 80GB HBM3 at 700 W; 8
+    and 16 warps a block were no faster anywhere)."""
+    nb = -(-lx // 32)
+    warps = warps or max(1, min(nb, EXACT_MAX_WARPS))
+    if not 1 <= warps <= EXACT_MAX_WARPS:
+        raise ValueError(f"warps {warps} not in 1..{EXACT_MAX_WARPS}")
+    return warps, -(-nb // warps)
 
 
 def start_scores(params, b: int) -> torch.Tensor:
@@ -150,6 +179,298 @@ def bwd_exact_plain(src, lxb, lyb, params):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' schedule on the CPU
+# ---------------------------------------------------------------------------
+
+_SCORES = ("tSM", "tSI", "tSJ", "tMM", "tMI", "tMJ", "tII", "tIM", "tJJ",
+           "tJM")
+
+
+class _Block:
+    """A block of the band schedule: ticket t runs round t // B of pair
+    t % B; its warps' hand-over rings (with the column each slot holds,
+    the kernel's slot tag) and their counts of columns read and used."""
+
+    def __init__(self, t, b_count, warps, nh, lx, ly):
+        self.t, self.r, self.b = t, t // b_count, t % b_count
+        self.lx, self.ly = lx, ly
+        self.ring = torch.zeros((warps, nh, EXACT_RING))
+        self.ring_pos = torch.full((warps, EXACT_RING), -1, dtype=torch.long)
+        self.taken = [0] * warps
+
+
+class _Schedule:
+    """The shared state of one exact_band_plain run: the lattice (the
+    backward's reversed), the outputs, the link rows with the column
+    each slot holds."""
+
+    # a ring's producer puts column c once its consumer has used column
+    # c - ROOM (the kernel's RING: the slot it overwrites)
+    ROOM = EXACT_RING
+
+    def __init__(self, e, ins_x, ins_y, lxb, lyb, params, bwd, warps):
+        self.e, self.ins_x, self.ins_y = e.float(), ins_x.float(), \
+            ins_y.float()
+        self.b_count, self.n_rows, self.width = e.shape
+        self.warps, self.rounds = exact_geometry(self.n_rows, warps)
+        self.bwd, self.nh = bwd, 3 if bwd else 5
+        self.lxs = [min(int(v), self.n_rows) for v in lxb]
+        self.lys = [min(int(v), self.width) for v in lyb]
+        tickets = self.b_count * self.rounds
+        self.lat = torch.zeros((self.b_count, self.n_rows, self.width))
+        self.ends = torch.zeros((self.b_count, 5))
+        self.links = torch.zeros((tickets, self.nh, self.width + 1))
+        self.link_pos = torch.full((tickets, self.width + 1), -1,
+                                   dtype=torch.long)
+        self.rows = (params if params.dim() == 2
+                     else params.expand(self.b_count, 16)).float()
+
+    def link_holds(self, src_t, c0, n):
+        """Do ticket src_t's link slots hold columns c0 .. c0 + n - 1?"""
+        return torch.equal(self.link_pos[src_t, c0:c0 + n],
+                           torch.arange(c0, c0 + n))
+
+    def read_link(self, src_t, c0, n):
+        """(nh, EXACT_HC) columns c0 .. c0 + n - 1 of ticket src_t's row."""
+        out = torch.zeros((self.nh, EXACT_HC))
+        out[:, :n] = self.links[src_t, :, c0:c0 + n]
+        return out
+
+    def warp(self, blk: _Block, w: int):
+        """Warp w of blk as a generator: yields True after each run of
+        EXACT_HC steps, False while a wait holds it."""
+        hc, ring_n, mc, cwm = EXACT_HC, EXACT_RING, EXACT_MC, EXACT_CWM
+        bwd, nh, b, lx, ly, t = (self.bwd, self.nh, blk.b, blk.lx, blk.ly,
+                                 blk.t)
+        nb = max(1, -(-lx // 32))
+        band = blk.r * self.warps + w
+        if band >= nb:
+            return
+        has_out = band + 1 < nb
+        row0_in, ring_in = band == 0, w > 0
+        link_in = w == 0 and blk.r > 0
+        ring_out = has_out and w < self.warps - 1
+        link_out = has_out and w == self.warps - 1
+        sc = {k: self.rows[b, n] for n, k in enumerate(_SCORES)}
+        lanes = torch.arange(32)
+        lz = torch.tensor(LOG_ZERO, dtype=torch.float32)
+        row0 = band * 32
+        i = row0 + lanes + 1
+        live = i <= lx
+        xrow = torch.where(live, i - 1, 0)
+        insx = torch.where(live, self.ins_x[b, xrow], 0.0)
+        end_lane = lx - 1 - row0
+        end_step = (ly + end_lane if 0 <= end_lane < 32
+                    else ly if lx == 0 else -1)
+        tile = torch.zeros((32, mc))
+        tile_pos = torch.full((32, mc), -1, dtype=torch.long)
+        if bwd:
+            nrows = min(32, min(lx, self.n_rows - 1) - row0)
+            ncols, out_row0, d_col = min(ly + 1, self.width), row0 + 1, 0
+            cur = [lz.expand(32)] * 3
+            dm = torch.zeros(32)
+            liy = ljy = lz.expand(32)
+            r0 = [sc["tSI"], sc["tSJ"]]
+        else:
+            nrows, ncols, out_row0, d_col = min(32, lx - row0), ly, row0, 1
+            dg = lf = [lz.expand(32)] * 5
+            r0 = [lz, lz]
+        hcol = torch.zeros((nh, hc))
+        flushed = 0
+
+        def flush(c0):
+            for rr in range(max(nrows, 0)):
+                for col in range(c0, min(c0 + cwm, ncols)):
+                    if int(tile_pos[rr, col % mc]) != col:
+                        raise RuntimeError(
+                            f"ticket {t} warp {w}: M tile slot of row {rr} "
+                            f"column {col} overwritten before its write")
+                    self.lat[b, out_row0 + rr, col] = tile[rr, col % mc]
+
+        for s0 in range(0, ly + 32, hc):
+            # lane 0's row above for columns s0 .. s0 + n - 1: taken once
+            # every slot holds its column (the kernel's tags)
+            n = max(0, min(hc, ly + 1 - s0))
+            if ring_in:
+                blk.taken[w - 1] = min(s0, ly + 1)
+                want = torch.arange(s0, s0 + n)
+                while not torch.equal(blk.ring_pos[w - 1, want % ring_n],
+                                      want):
+                    yield False
+                hcol = torch.zeros((nh, hc))
+                hcol[:, :n] = blk.ring[w - 1][:, want % ring_n]
+            elif link_in:
+                while not self.link_holds(t - self.b_count, s0, n):
+                    yield False
+                hcol = self.read_link(t - self.b_count, s0, n)
+            if ring_out:
+                last = min(s0 + hc - 32, ly)
+                while (last >= self.ROOM
+                       and blk.taken[w] < last + 1 - self.ROOM):
+                    yield False
+            for kk in range(hc):
+                s = s0 + kk
+                j = s - lanes
+                yc = torch.clamp(j - 1, 0, max(ly - 1, 0))
+                em, iny = self.e[b, xrow, yc], self.ins_y[b, yc]
+                if row0_in and bwd:
+                    # row 0: M, IY, JY chained along the row (lane 0's)
+                    nyi, nyj = r0[0] + iny[0], r0[1] + iny[0]
+                    m = ph.log_add(sc["tMI"] + nyi, sc["tMJ"] + nyj)
+                    if s > 0:
+                        r0 = [sc["tII"] + nyi, sc["tJJ"] + nyj]
+                    hin = ([sc["tSM"], sc["tSI"], sc["tSJ"]] if s == 0
+                           else [m, lz, lz])
+                    if s <= ly and s < self.width:
+                        self.lat[b, 0, s] = hin[0]
+                    if lx == 0 and s == ly:
+                        self.ends[b] = torch.stack(
+                            [hin[0], hin[1], r0[0], hin[2], r0[1]])
+                elif row0_in:
+                    # row 0: IY, JY chained along the row, the rest zero
+                    r0 = ([lz, lz] if s == 0 else
+                          [sc["tSI"] + iny[0], sc["tSJ"] + iny[0]] if s == 1
+                          else [(r0[0] + sc["tII"]) + iny[0],
+                                (r0[1] + sc["tJJ"]) + iny[0]])
+                    hin = [lz, lz, r0[0], lz, r0[1]]
+                else:
+                    hin = [hcol[k, kk] for k in range(nh)]
+                prev = cur if bwd else lf
+                up = [torch.cat([hin[k].reshape(1), prev[k][:-1]])
+                      for k in range(nh)]
+                c0 = j == 0
+                if bwd:
+                    nix, njx = up[1] + insx, up[2] + insx
+                    nm = dm + em
+                    nyi, nyj = liy + iny, ljy + iny
+                    l1 = ph.log_add(
+                        torch.where(c0, sc["tMI"] + nix, sc["tII"] + nix),
+                        torch.where(c0, sc["tMJ"] + njx, sc["tIM"] + nm))
+                    jx = ph.log_add(sc["tJJ"] + njx, sc["tJM"] + nm)
+                    iy = ph.log_add(sc["tII"] + nyi, sc["tIM"] + nm)
+                    jy = ph.log_add(sc["tJJ"] + nyj, sc["tJM"] + nm)
+                    mf = ph.log_add5(sc["tMM"] + nm, sc["tMI"] + nix,
+                                     sc["tMJ"] + njx, sc["tMI"] + nyi,
+                                     sc["tMJ"] + nyj)
+                    cur = [torch.where(c0, l1, mf),
+                           torch.where(c0, sc["tII"] + nix, l1),
+                           torch.where(c0, sc["tJJ"] + njx, jx)]
+                    dm = up[0]
+                    liy = torch.where(c0, lz, iy)
+                    ljy = torch.where(c0, lz, jy)
+                    five = [cur[0], cur[1], liy, cur[2], ljy]
+                    hand = cur
+                else:
+                    mf = ph.log_add5(dg[0] + sc["tMM"], dg[1] + sc["tIM"],
+                                     dg[3] + sc["tJM"], dg[2] + sc["tIM"],
+                                     dg[4] + sc["tJM"])
+                    cm = torch.where((i == 1) & (j == 1), sc["tSM"], mf) + em
+                    g = ph.log_add(torch.stack([up[1] + sc["tII"],
+                                                up[3] + sc["tJJ"],
+                                                lf[2] + sc["tII"],
+                                                lf[4] + sc["tJJ"]]),
+                                   torch.stack([up[0] + sc["tMI"],
+                                                up[0] + sc["tMJ"],
+                                                lf[0] + sc["tMI"],
+                                                lf[0] + sc["tMJ"]]))
+                    ix0 = torch.where(i == 1, sc["tSI"] + insx,
+                                      (up[1] + sc["tII"]) + insx)
+                    jx0 = torch.where(i == 1, sc["tSJ"] + insx,
+                                      (up[3] + sc["tJJ"]) + insx)
+                    five = [torch.where(c0, lz, cm),
+                            torch.where(c0, ix0, g[0] + insx),
+                            torch.where(c0, lz, g[2] + iny),
+                            torch.where(c0, jx0, g[1] + insx),
+                            torch.where(c0, lz, g[3] + iny)]
+                    dg, lf = up, five
+                    hand = five
+                # the M tile (every lane, every step: columns outside the
+                # pair too), lane 31 to the band below, the end states
+                col = j - d_col
+                tile[lanes, col % mc] = five[0]
+                tile_pos[lanes, col % mc] = col
+                col31 = s - 31
+                if 0 <= col31 <= ly:
+                    put = torch.stack([hand[k][31] for k in range(nh)])
+                    if ring_out:
+                        old = int(blk.ring_pos[w, col31 % ring_n])
+                        if old >= blk.taken[w]:
+                            raise RuntimeError(
+                                f"ticket {t} warp {w}: ring column {old} "
+                                "overwritten before it was read")
+                        blk.ring[w, :, col31 % ring_n] = put
+                        blk.ring_pos[w, col31 % ring_n] = col31
+                    if link_out:
+                        self.links[t, :, col31] = put
+                        self.link_pos[t, col31] = col31
+                if s == end_step:
+                    if lx == 0 and not bwd:
+                        self.ends[b] = torch.stack([lz, lz, r0[0], lz, r0[1]])
+                    elif lx > 0:
+                        self.ends[b] = torch.stack([f[end_lane] for f in five])
+            s_end = s0 + hc - 1
+            while flushed < ncols and s_end >= flushed + cwm + 30 + d_col:
+                flush(flushed)
+                flushed += cwm
+            yield True
+        for c0 in range(flushed, ncols, cwm):
+            flush(c0)
+
+
+def exact_band_plain(src, lxb, lyb, params, bwd: bool = False,
+                     warps: int | None = None, resident: int | None = None,
+                     seed: int = 0):
+    """The exact kernels' schedule on the CPU (csrc/pairhmm_exact.cu),
+    returning what `pairhmm_fwd_exact` (bwd=False) or `pairhmm_bwd_exact`
+    returns inside each pair. Blocks take tickets in order (at most
+    `resident` at once, all if None); ticket t runs round t // B of pair
+    t % B with `warps` bands (exact_geometry), one warp a band of 32
+    rows, whose lanes (torch vectors of 32) compute column s - lane at
+    band step s in the kernel's expressions (ops/logspace's LOG_ADD,
+    whose double Horner steps give the kernel's FMA bits), lane t's row
+    above from lane t-1's cell of the step before. Each warp runs
+    EXACT_HC steps at a time, in an order a seeded generator picks among
+    the warps whose waits allow: lane 0 takes the band above's columns
+    from warp w-1's ring once each slot holds its column (the kernel's
+    slot tags; freeing them a run later), warp 0 of a later round from
+    the link row of ticket t - B likewise, band 0 from row 0's chain;
+    lane 31 puts its states into its ring (after waiting for room) or
+    the link; every lane puts its M cell into the warp's tile, written
+    out EXACT_CWM columns at a time. A ring slot overwritten before its
+    column was used, or a tile slot before its write-out, raises; so does
+    a sweep in which no warp moves and no block can start (a
+    deadlock)."""
+    if bwd:
+        e, ins_x, ins_y = _reversed(src, lxb, lyb)
+    else:
+        e, ins_x, ins_y = src if isinstance(src, Lattice) else _lattice(src)
+    sch = _Schedule(e, ins_x, ins_y, lxb, lyb, params, bwd, warps)
+    rng = np.random.default_rng(seed)
+    tickets = sch.b_count * sch.rounds
+    cap = resident or tickets
+    running: list = []  # (block, generator) of the resident blocks
+    nxt = 0
+    while nxt < tickets or running:
+        while nxt < tickets and len({id(b) for b, _ in running}) < cap:
+            b = nxt % sch.b_count
+            blk = _Block(nxt, sch.b_count, sch.warps, sch.nh, sch.lxs[b],
+                         sch.lys[b])
+            running += [(blk, sch.warp(blk, w)) for w in range(sch.warps)]
+            nxt += 1
+        moved, done = False, []
+        for k in rng.permutation(len(running)):
+            try:
+                moved |= next(running[k][1])
+            except StopIteration:
+                done.append(k)
+                moved = True
+        running = [r for k, r in enumerate(running) if k not in set(done)]
+        if not moved:
+            raise RuntimeError("exact band schedule: deadlock")
+    return sch.lat, sch.ends
+
+
+# ---------------------------------------------------------------------------
 # kernel build + launch
 # ---------------------------------------------------------------------------
 
@@ -159,7 +480,8 @@ _lib_cache: dict = {}
 def kernel_specs():
     from ..utils.build import cuda_spec, package_path
     return [cuda_spec("pairhmm_exact",
-                      deps=(package_path("csrc", "pairhmm_common.cuh"),))]
+                      deps=(package_path("csrc", "pairhmm_common.cuh"),
+                            package_path("csrc", "mea_wave.cuh")))]
 
 
 def _lib():
@@ -172,7 +494,7 @@ def _lib():
             fn = getattr(lib, name)
             fn.restype = ci
             fn.argtypes = ([ci] + [vp] * 4 + [ci] * 2 + [vp] * 6 + [ci] * 5
-                           + [vp] * 4)
+                           + [ctypes.c_longlong] + [vp] * 6)
         lib.pairhmm_error_string.restype = ctypes.c_char_p
         lib.pairhmm_error_string.argtypes = [ci]
         _lib_cache["lib"] = lib
@@ -212,9 +534,15 @@ def _check(src, lxb, lyb, params):
 def _launch(name, src, lxb, lyb, params):
     b, lx, ly = _check(src, lxb, lyb, params)
     dev = lxb.device
+    warps, rounds = exact_geometry(lx)
     lat = torch.empty((b, lx, ly), dtype=torch.float32, device=dev)
     ends = torch.empty((b, 5), dtype=torch.float32, device=dev)
-    link = torch.empty((b, 2, 5, ly + 1), dtype=torch.float32, device=dev)
+    # the ticket; a block hands its last row's states (5 forward, 3
+    # backward) on in 64-bit slots, empty (zero), a row a ticket
+    sync = torch.zeros(1, dtype=torch.int32, device=dev)
+    states = 5 if name == "pairhmm_fwd_exact" else 3
+    links = torch.zeros(b * rounds * states * (ly + 1), dtype=torch.int64,
+                        device=dev)
     null = ctypes.c_void_p(0)
     if isinstance(src, Letters):
         source = (0, _ptr(src.xb), _ptr(src.yb), _ptr(src.match),
@@ -225,8 +553,10 @@ def _launch(name, src, lxb, lyb, params):
                   _ptr(src.ins_x), _ptr(src.ins_y))
     lib = _lib()
     rc = getattr(lib, name)(*source, _ptr(lxb), _ptr(lyb), _ptr(params),
-                            int(params.dim() == 2), b, lx, ly, threads(lx),
-                            _ptr(link), _ptr(lat), _ptr(ends), _stream(lxb))
+                            int(params.dim() == 2), b, lx, ly, warps,
+                            MEA_WAIT_CYCLES, _ptr(sync),
+                            _ptr(wavefront.fault_flag(dev)), _ptr(links),
+                            _ptr(lat), _ptr(ends), _stream(lxb))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.pairhmm_error_string(rc).decode()}")
@@ -237,7 +567,10 @@ def _launch(name, src, lxb, lyb, params):
 def pairhmm_fwd_exact(src, lxb, lyb, params):
     """The reference-order forward: (fm (B, Lx, Ly), fm[:, i-1, j-1] =
     F_M(i, j), written inside each pair's (lx, ly) only; fend (B, 5)).
-    CPU tensors run `fwd_exact_plain`."""
+    Blocks of exact_geometry's bands. A hand-over that waited past
+    MEA_WAIT_CYCLES sets the fault flag: the caller runs
+    `wavefront.check_waits`, as exact_posteriors does. CPU tensors run
+    `fwd_exact_plain`."""
     if not _on_card(lxb):
         return fwd_exact_plain(src, lxb, lyb, params)
     return _launch("pairhmm_fwd_exact", src, lxb, lyb, params)
@@ -246,7 +579,8 @@ def pairhmm_fwd_exact(src, lxb, lyb, params):
 def pairhmm_bwd_exact(src, lxb, lyb, params):
     """The reference-order backward: (rbm (B, Lx, Ly) = RB_M(u, v),
     written for u <= lx, v <= ly only; far (B, 5), the states at RB(lx,
-    ly)). CPU tensors run `bwd_exact_plain`."""
+    ly)). As pairhmm_fwd_exact otherwise; CPU tensors run
+    `bwd_exact_plain`."""
     if not _on_card(lxb):
         return bwd_exact_plain(src, lxb, lyb, params)
     return _launch("pairhmm_bwd_exact", src, lxb, lyb, params)
@@ -275,15 +609,19 @@ def exact_posteriors(src, lxb, lyb, params, with_mea: bool = True):
                                          total[lo:hi], lxb[lo:hi],
                                          lyb[lo:hi])
     del rbm
+    on_card = _on_card(fm)
     if not with_mea:
-        return fm, torch.zeros(b, dtype=torch.float32, device=fm.device)
-    if _on_card(fm):
-        from . import wavefront
+        mea = torch.zeros(b, dtype=torch.float32, device=fm.device)
+    elif on_card:
         from .pairhmm_emis_cuda import mea_scores
         mea = mea_scores(fm, lxb, lyb)
-        wavefront.check_waits(fm.device)    # raises on a stuck hand-over
     else:
         mea = ph._mea_score(fm)
+    if on_card:
+        # the exact kernels' and kernel 4's hand-overs: raises on a stuck one
+        wavefront.check_waits(fm.device)
+    if not with_mea:
+        return fm, mea
     return fm, mea / torch.minimum(lxb, lyb).float()
 
 

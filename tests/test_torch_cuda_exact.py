@@ -68,6 +68,52 @@ def test_letters_match_plain(cuda_device, shape):
     _hold(pec.Letters(t[0], t[1], match, insert), t[2], t[3], params)
 
 
+def _pairs_of(lens_x, lens_y, width_x, width_y, seed):
+    rng = np.random.default_rng(seed)
+    b = len(lens_x)
+    xb = np.full((b, width_x), 20, np.int32)
+    yb = np.full((b, width_y), 20, np.int32)
+    for i in range(b):
+        xb[i, :lens_x[i]] = rng.integers(0, 20, lens_x[i])
+        yb[i, :lens_y[i]] = rng.integers(0, 20, lens_y[i])
+    return (xb, yb, np.asarray(lens_x, np.int32),
+            np.asarray(lens_y, np.int32))
+
+
+def _hold_letters(device, arrays):
+    match, insert, params = pc.tables(HMMParams.from_defaults().to_scores(),
+                                      device)
+    t = [torch.from_numpy(a).to(device) for a in arrays]
+    _hold(pec.Letters(t[0], t[1], match, insert), t[2], t[3], params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lx", [1, 31, 33, 2100])
+def test_edges_of_bands_match_plain(cuda_device, lx):
+    """A pair of lx rows (one lane, a band short of one or one past, 66
+    bands: rounds on several SMs) against ly of 1 to 4096 columns."""
+    ly = [1, 2, 31, 33, 640, 2047, 4096]
+    _hold_letters(cuda_device, _pairs_of([lx] * len(ly), ly, lx, 4096,
+                                         seed=lx))
+
+
+@pytest.mark.cuda
+def test_mixed_lengths_match_plain(cuda_device):
+    """170-row and 512-row pairs in one batch at pad 512: a short pair's
+    blocks stop at its own bands."""
+    lens = [170, 512, 171, 511, 185, 497, 170, 512]
+    _hold_letters(cuda_device, _pairs_of(lens, lens[::-1], 512, 512,
+                                         seed=170))
+
+
+@pytest.mark.cuda
+def test_long_pair_matches_plain(cuda_device):
+    """One 8300 x 2000 pair (the long-pair router's exact route): 260
+    bands in rounds across the SMs."""
+    _hold_letters(cuda_device, _pairs_of([8300], [2000], 8320, 2048,
+                                         seed=8300))
+
+
 @pytest.mark.cuda
 def test_per_pair_tables_match_plain(cuda_device):
     xb, yb, lx, ly = _letters(8, 40, 256, 256, 256, seed=8)

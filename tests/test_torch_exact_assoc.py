@@ -231,4 +231,5 @@ def test_wrapper_rejects_bad_inputs():
                    torch.zeros(3, 16))
     assert pec._check(pec.Letters(xb, yb, match, insert), lx, ly,
                       params) == (2, 72, 72)
-    assert pec.threads(72) == 96 and pec.threads(2100) == pec.MAX_THREADS
+    assert pec.exact_geometry(72) == (3, 1)
+    assert pec.exact_geometry(2100) == (4, 17)
