@@ -12,7 +12,13 @@ Phases (each raises on failure, so the run exits non-zero):
    main path's shapes, and time kernel, plain version and (where one
    exists) the one torch call computing the same function with CUDA
    events: pair-HMM forward and backward+posterior at B = 512 ragged
-   amino pairs padded to 512; densify (one shared-memory tile a block,
+   amino pairs padded to 512; the sparsify's top-K selection
+   (phase_topk_kernels) against the stable sort it replaces, values,
+   columns and max_nnz equal, on kernel B's posteriors there at K = 16,
+   32 and 56, on a tie-heavy posterior and its transpose, on rows of 0,
+   K, K+1 and 4K entries at widths 512, 12288 and 301 and with one key
+   a lane (two passes), timed beside a stable torch.sort and
+   torch.topk; densify (one shared-memory tile a block,
    written once) on one z-tile of the n = 200 Gram panel (blk = 16, L =
    512, K = 24) and on one of long mixed's f32 panel (n = 6, L = 12288,
    one sequence a block), each in f32 and bf16; densify-reduce
@@ -53,8 +59,9 @@ Phases (each raises on failure, so the run exits non-zero):
    version on those rows, 3's rows u < 128 against the plain version on
    each pair's last 128 rows of x and its rows u >= lx against zero, 4
    (a wavefront of row bands, a round of bands a block) on the whole
-   posterior); their ptxas registers and spills and their times at
-   those shapes (1E's, 3's and 4's beside their times before the wave
+   posterior), and the top-K on that posterior pair by pair against the
+   sort (timed there beside the sort and torch.topk); their ptxas
+   registers and spills and their times at those shapes (1E's, 3's and 4's beside their times before the wave
    and their dependency floors); the fused route against the legacy
    route on 8 mega pairs at 2048, at the kernel gate; then the
    ensembles' kernels (phase_ensemble_kernels): 1M and 2M (per-pair
@@ -142,9 +149,17 @@ Phases (each raises on failure, so the run exits non-zero):
      happens, to the plain versions on its own inputs as in phase 2, the
      checks' time and memory kept out of the wall and the peak; the
      sha256 of its FASTA text required to be MEGA_LONG_SHA256, the text
-     before 1E ran on the wave), each
+     before 1E ran on the wave, its peak below MEGA_LONG_PEAK_LIMIT),
+     mega-16k (4 chains of 12,500-16,000 residues, pad 16384, held as
+     mega-long; its text's sha256 MEGA_16K_SHA256), each
      route counted and required, Q against the construction's true
-     alignment printed;
+     alignment printed; every top-K launch of mega-long and mega-16k,
+     and the first HELD_TOPK of every other align() call, held as it
+     happens to the sort pair by pair (TopKCheck); then the Muscle-3D
+     pair stage alone at pad 24576 (phase_mega_wide: 4 chains of
+     16,500-24,000 residues, one chunk of the legacy route, its kernel
+     and top-K launches held; its peak printed), run again in
+     sub-batches of 2 pairs and required equal bit for bit;
    - the ensembles through `pipeline.ensemble.run_align_command`, the
      function the CLI calls (phase_ensembles): ensemble-48 (a synthetic
      protein family of n = 48, L 300-384, pad 384, under -stratified: 16
@@ -218,7 +233,9 @@ Phases (each raises on failure, so the run exits non-zero):
    times, plain times and bounds at pad 2048 beside 384, and their held
    launches;
    each max |d| over phase 2 and the launches held in phase 3; 3K's
-   times at 512 with the corner output off and on),
+   times at 512 with the corner output off and on; the top-K's launches
+   by width and K, its times at 512 x 512^2 and mega-long's chunk beside
+   the stable sort's and torch.topk's),
    then the card line and the final {"ok": true, ...} line.
 
 Exits non-zero, printing no result, without a CUDA device.
@@ -571,6 +588,7 @@ def phase_kernels(dev, b=512, width=512) -> list[dict]:
           f"{int(((post == 0) != (post2 == 0)).sum())} "
           f"{'ok' if ok_b else 'FAIL'}", flush=True)
     del fm2, fend2, post2, mea2, d, flip, d_fm, tol_fm
+    TOPK_INPUTS["kernel B"] = post
 
     # 5 launches between the events: the wrapper's host time (~0.05-0.25
     # ms a call, before its launch) stays out of the kernels' time
@@ -622,11 +640,12 @@ def ptxas_lines(names) -> list[str]:
     import re
     from muscle_tpu_torch.ops import (devjoin_cuda, dp_cuda, pairhmm_cuda,
                                       pairhmm_emis_cuda, pairhmm_exact_cuda,
-                                      pairhmm_striped)
+                                      pairhmm_striped, sparse)
     from muscle_tpu_torch.utils.build import build_log
     specs = (pairhmm_cuda.kernel_specs() + pairhmm_striped.kernel_specs()
              + pairhmm_emis_cuda.kernel_specs() + devjoin_cuda.kernel_specs()
-             + dp_cuda.kernel_specs() + pairhmm_exact_cuda.kernel_specs())
+             + dp_cuda.kernel_specs() + pairhmm_exact_cuda.kernel_specs()
+             + sparse.kernel_specs())
     out = []
     for name in names:
         cur, spill = None, ""
@@ -654,6 +673,13 @@ def ptxas_lines(names) -> list[str]:
             if re.search(r"Compiling entry function '\w*mea_scores_kernel",
                          line):  # kernel 4, in an unnamed namespace too
                 cur = "mea_scores_kernel"
+                continue
+            m = re.search(r"Compiling entry function '\w*topk_kernelILi(\d+)"
+                          r"ELb([01])E", line)
+            if m:  # the top-K kernel, in an unnamed namespace
+                cur = (f"topk_kernel<S={m.group(1)}, "
+                       f"{'16-byte' if m.group(2) == '1' else 'strided'} "
+                       "loads>")
                 continue
             m = re.search(r"Compiling entry function '\w*(fwd|bwd)_exact_"
                           r"kernelI(\w*?)(Code|Lattice)Emission", line)
@@ -1475,18 +1501,21 @@ REFINE_KERNELS = ("densify_reduce", "mea_dirs")
 LIST_KERNELS = ("densify_reduce_list",)
 DENSIFY = ("densify",)
 
-# launches of each kernel over the main path's runs (phase 3), and of
-# kernels A/B/1M/2M by (name, schedule, Ly)
+# launches of each kernel over the main path's runs (phase 3), of
+# kernels A/B/1M/2M by (name, schedule, Ly), and of the top-K kernel by
+# (Ly, K, keys a lane)
 MAIN_PATH: dict[str, int] = {}
 MAIN_SCHEDULES: dict[tuple, int] = {}
+MAIN_TOPK_WIDTHS: dict[tuple, int] = {}
 
 
 def _kernel_modules():
     from muscle_tpu_torch.ops import (densify_cuda, devjoin_cuda, dp_cuda,
                                       pairhmm_cuda, pairhmm_emis_cuda,
-                                      pairhmm_exact_cuda, pairhmm_striped)
+                                      pairhmm_exact_cuda, pairhmm_striped,
+                                      sparse)
     return (pairhmm_cuda, pairhmm_striped, densify_cuda, devjoin_cuda,
-            pairhmm_emis_cuda, dp_cuda, pairhmm_exact_cuda)
+            pairhmm_emis_cuda, dp_cuda, pairhmm_exact_cuda, sparse)
 
 
 def reset_launches():
@@ -1503,13 +1532,17 @@ def launches() -> dict[str, int]:
 
 def count_main_path() -> dict[str, int]:
     """The launches since reset_launches(), added to MAIN_PATH, and
-    kernels A/B/1M/2M's by schedule and width to MAIN_SCHEDULES."""
+    kernels A/B/1M/2M's by schedule and width to MAIN_SCHEDULES, the
+    top-K kernel's by width to MAIN_TOPK_WIDTHS."""
     from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    from muscle_tpu_torch.ops import sparse
     got = launches()
     for k, v in got.items():
         MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
     for k, v in pc.SCHEDULES.items():
         MAIN_SCHEDULES[k] = MAIN_SCHEDULES.get(k, 0) + v
+    for k, v in sparse.WIDTHS.items():
+        MAIN_TOPK_WIDTHS[k] = MAIN_TOPK_WIDTHS.get(k, 0) + v
     return got
 
 
@@ -1692,41 +1725,237 @@ def print_mea_rungs() -> None:
               f"{held} held, {ms:.4f} ms summed over the held", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the sparsify's top-K kernel (ops/sparse.py, csrc/sparsify_topk.cu)
+# ---------------------------------------------------------------------------
+
+# top-K launches held to the sort at the start of each run_path call
+# (mega-long and mega-16k hold every one, as the wide pair stage does)
+HELD_TOPK = 2
+# mega-long's peak device memory must stay below this: 40.579 GiB while
+# the sparsify sorted whole rows (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
+MEGA_LONG_PEAK_LIMIT = 24 << 30
+# the held comparisons sort at most this many posterior cells at once
+TOPK_SORT_CELLS = 1 << 28
+# kernel B's posteriors at 512 x 512^2 (phase_kernels), for phase 2's
+# top-K checks, and the top-K's numbers at mega-long's chunk
+TOPK_INPUTS: dict = {}
+WIDE_TOPK: dict = {}
+
+
+def topk_bound(post, k) -> tuple[float, str]:
+    """Bytes: the posterior read once (4 B a cell), the K slots of each
+    row written once (8 B) and max_nnz; operations: a compare a cell."""
+    b, lx, ly = post.shape
+    return bound_ms(4.0 * b * lx * ly + 8.0 * b * lx * k + 4,
+                    float(b) * lx * ly)
+
+
+def topk_case(post, k, got=None, stripes=None) -> dict:
+    """The top-K kernel's (vals, cols, max_nnz) on `post` (or `got`, a
+    launch's output) against the sort's (sparsify_plain), a few pairs at
+    a time (TOPK_SORT_CELLS): {"err": max |d| of the values, "same":
+    values, columns and max_nnz equal, "nnz", "pairs"}."""
+    import torch
+    from muscle_tpu_torch.ops import sparse as sp
+    v, c, n = got if got is not None else sp.sparsify_topk(post, k, stripes)
+    b, lx, ly = post.shape
+    step = max(1, TOPK_SORT_CELLS // max(1, lx * ly))
+    err, same, nnz = 0.0, True, 0
+    for lo in range(0, b, step):
+        wv, wc, wn = sp.sparsify_plain(post[lo:lo + step], k)
+        err = max(err, float((v[lo:lo + step] - wv).abs().max()))
+        same = (same and torch.equal(v[lo:lo + step], wv)
+                and torch.equal(c[lo:lo + step], wc))
+        nnz = max(nnz, int(wn))
+        del wv, wc
+    return {"err": err, "same": same and int(n) == nnz, "nnz": nnz,
+            "pairs": b}
+
+
+def counted_rows(k, ly, seed, dev):
+    """(1, 8, ly): rows of exactly 0, K, K + 1 and 4K entries > 0
+    (distinct values), then the same counts tied at 0.25 and 0.5."""
+    import torch
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((8, ly), np.float32)
+    for r, n in enumerate((0, k, k + 1, 4 * k) * 2):
+        at = rng.choice(ly, size=min(n, ly), replace=False)
+        rows[r, at] = (rng.choice(np.float32([0.25, 0.5]), size=len(at))
+                       if r >= 4 else
+                       rng.uniform(0.01, 1, size=len(at)).astype(np.float32))
+    return torch.as_tensor(rows[None], device=dev)
+
+
+class TopKCheck(HeldLaunches):
+    """Stands in for the top-K kernel's wrapper (ops/sparse.sparsify_topk,
+    which sparsify calls on a CUDA tensor) while the main path runs: the
+    launches of an armed run (the first `arm(n)`, every one with
+    arm(None)) are held to the sort pair by pair as they happen
+    (topk_case), the checks' time and memory kept out of the walls and
+    peaks; `held_since` prints and requires them."""
+
+    def __init__(self):
+        super().__init__()
+        self.left = 0
+        self._saved = None
+
+    def arm(self, n) -> None:
+        self.left = n
+
+    def __call__(self, post, k=32, stripes=None):
+        out = self._saved(post, k, stripes)
+        if self.left is None or self.left > 0:
+            if self.left is not None:
+                self.left -= 1
+            self.hold(lambda args, got: topk_case(*args, got=got), (post, k),
+                      out)
+        return out
+
+    def __enter__(self):
+        from muscle_tpu_torch.ops import sparse as sp
+        self._saved = sp.sparsify_topk
+        sp.sparsify_topk = self
+        return self
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.ops import sparse as sp
+        sp.sparsify_topk = self._saved
+        self._saved = None
+
+    def held_since(self, name: str, n_cases: int, launched: int) -> None:
+        """Print and require the cases held since there were `n_cases`
+        (none while the check is not entered: the exact phase's child)."""
+        new = self.cases[n_cases:]
+        if self._saved is None:
+            return
+        if launched and not new:
+            raise SmokeFailure(f"{name}: {launched} top-K launches, none "
+                               "held")
+        if not new:
+            return
+        ok = all(c["same"] for c in new)
+        print(f"{name}: sparsify_topk, {len(new)} of {launched} launch(es) "
+              f"held to the sort pair by pair ({sum(c['pairs'] for c in new)}"
+              f" pairs, max_nnz {max(c['nnz'] for c in new)}): max |d| "
+              f"{max(c['err'] for c in new):.3e}, columns and max_nnz "
+              f"{'equal' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SmokeFailure(f"{name}: a top-K launch differs from the "
+                               "sort")
+
+
+TOPK_CHECK = TopKCheck()
+
+
+def phase_topk_kernels(dev) -> list[dict]:
+    """The top-K kernel against the sort (sparsify_plain), bit for bit:
+    on kernel B's posteriors at 512 x 512^2 (phase_kernels) at K = 16,
+    32, 56; on a tie-heavy posterior and its transpose (read through its
+    strides); on rows of 0, K, K + 1 and 4K entries at K = 16, 32, 56 at
+    widths 512, 12288 (16-byte loads) and 301 (one column a lane), and
+    at K = 56 with one key a lane (two passes). Its time at 512 x 512^2
+    beside its bound, the plain version's, a stable torch.sort's (the
+    path it replaces) and torch.topk's."""
+    import torch
+    from muscle_tpu_torch.ops import sparse as sp
+    for line in ptxas_lines(["sparsify_topk"]):
+        print(f"ptxas: {line}", flush=True)
+    post = TOPK_INPUTS.pop("kernel B")
+    errs = []
+
+    def check(what, p, k, stripes=None):
+        s_n = stripes or sp.topk_stripes(k)
+        c = topk_case(p, k, stripes=stripes)
+        print(f"sparsify_topk vs the sort on {what}, K = {k} ({s_n} key(s) "
+              f"a lane, {-(-k // (32 * s_n))} pass(es) at most, "
+              f"{'16-byte' if sp.topk_vector_loads(p) else 'strided'} "
+              f"loads): max |d| {c['err']:.3e}, columns and max_nnz "
+              f"({c['nnz']}) {'equal' if c['same'] else 'FAIL'}", flush=True)
+        if not c["same"]:
+            raise SmokeFailure(f"sparsify_topk differs from the sort on "
+                               f"{what}, K = {k}")
+        errs.append(c["err"])
+
+    for k in (16, 32, 56):
+        check("kernel B's posteriors (512 pairs at 512^2)", post, k)
+    ties = tie_heavy((64, 512, 512), 64, dev)
+    check("a tie-heavy posterior (64 x 512^2, 0 / 0.25 / 0.5)", ties, 32)
+    check("its transpose (a view)", ties.transpose(1, 2), 32)
+    del ties
+    for k in (16, 32, 56):
+        for ly in (512, 12288, 301):
+            check(f"rows of 0, K, K+1, 4K entries at Ly {ly}",
+                  counted_rows(k, ly, k * ly, dev), k)
+    check("rows of 0, K, K+1, 4K entries at Ly 512",
+          counted_rows(56, 512, 5, dev), 56, stripes=1)
+    k = 32
+    ms = time_cuda(lambda: sp.sparsify_topk(post, k), per=5)
+    _, plain = timed_once(lambda: sp.sparsify_plain(post, k))
+    sort_ms = time_cuda(lambda: torch.sort(post, dim=-1, descending=True,
+                                           stable=True), reps=3)
+    topk_ms = time_cuda(lambda: torch.topk(post, k, dim=-1), reps=3)
+    bnd = topk_bound(post, k)
+    print(f"sparsify_topk at 512 x 512^2, K = {k}: {ms:.4f} ms (bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]}); plain (the stable sort and its "
+          f"masks) {plain:.3f} ms; torch.sort (stable) {sort_ms:.3f} ms; "
+          f"torch.topk {topk_ms:.3f} ms", flush=True)
+    del post
+    torch.cuda.empty_cache()
+    return [{"name": "sparsify_topk", "route": "cuda",
+             "source": "muscle_tpu_torch/csrc/sparsify_topk.cu",
+             "replaces": "muscle_tpu/ops/sparse.py:38", "launches": 0,
+             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": topk_ms,
+             "sort_ms": sort_ms}]
+
+
 def peak_bytes() -> int:
     """Peak device memory since the last reset, the kernel-7 and
     mea_dirs checks' own memory left out."""
     import torch
     return max(torch.cuda.max_memory_allocated(), GRID_CHECK.peak,
-               MEA_CHECK.peak)
+               MEA_CHECK.peak, TOPK_CHECK.peak)
 
 
-def run_path(name, seqs, dev, kernels, **kwargs):
+def run_path(name, seqs, dev, kernels, all_topk=False, **kwargs):
     """One align() call of the main path: the launch counts are set to 0
     just before it and read just after; each kernel of `kernels` must
-    have launched. Held kernel-7 and mea_dirs launches (GRID_CHECK,
-    MEA_CHECK) are printed and their time taken out of the wall and the
-    refine stage. Returns (msa, wall s, stage walls, launches)."""
+    have launched. Held kernel-7, mea_dirs and top-K launches
+    (GRID_CHECK, MEA_CHECK; TOPK_CHECK, the first HELD_TOPK launches, or
+    every one with all_topk) are printed and
+    their time taken out of the wall and its stage (refine; posteriors
+    for the top-K's). Returns (msa, wall s, stage walls, launches)."""
     import torch
     from muscle_tpu_torch import align
     from muscle_tpu_torch.utils import logging as mlog
     mlog.STAGE_TIMES.clear()
     n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
     m_cases, m0 = len(MEA_CHECK.cases), MEA_CHECK.seconds
-    GRID_CHECK.peak = MEA_CHECK.peak = 0
+    t_cases, t0_held = len(TOPK_CHECK.cases), TOPK_CHECK.seconds
+    GRID_CHECK.peak = MEA_CHECK.peak = TOPK_CHECK.peak = 0
+    TOPK_CHECK.arm(None if all_topk else HELD_TOPK)
     reset_launches()
     t0 = time.perf_counter()
-    msa = align(seqs, device=dev, **kwargs)
-    torch.cuda.synchronize()
+    try:
+        msa = align(seqs, device=dev, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        TOPK_CHECK.arm(0)
     held = GRID_CHECK.seconds - s0 + MEA_CHECK.seconds - m0
-    wall = time.perf_counter() - t0 - held
+    held_topk = TOPK_CHECK.seconds - t0_held
+    wall = time.perf_counter() - t0 - held - held_topk
     got = count_main_path()
     missing = [k for k in kernels if got[k] <= 0]
     if missing:
         raise SmokeFailure(f"{name}: {missing} not launched")
     GRID_CHECK.held_since(name, n_cases, got["densify_reduce"])
     MEA_CHECK.held_since(name, m_cases, got["mea_dirs"])
+    TOPK_CHECK.held_since(name, t_cases, got["sparsify_topk"])
     check_alignment(seqs, msa, name)
-    stages = {k: round(v - (held if k == "refine" else 0), 4)
+    take = {"refine": held, "posteriors": held_topk,
+            "posteriors+consistency": held_topk}
+    stages = {k: round(v - take.get(k, 0), 4)
               for k, v in mlog.STAGE_TIMES.items()}
     return msa, wall, stages, got
 
@@ -2092,7 +2321,7 @@ def run_super5(name, seqs, dev, kernels):
     n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
     m_cases, m0 = len(MEA_CHECK.cases), MEA_CHECK.seconds
     mp0 = MEA_CHECK.pprog_seconds
-    GRID_CHECK.peak = MEA_CHECK.peak = 0
+    GRID_CHECK.peak = MEA_CHECK.peak = TOPK_CHECK.peak = 0
     reset_launches()
     devjoin.densify_reduce_list = check
     try:
@@ -2226,6 +2455,22 @@ MEGA_LONG_REFINE_ITERS = 20
 # mega-long): the wave keeps every bit, so the text must not move
 MEGA_LONG_SHA256 = (
     "e525e7b9a48271f82f116fe6fbaccfcdeb209197b88b0ddc0a6975b0365a2800")
+# mega-16k: 4 chains of 12,500-16,000 residues, pad 16384 (the JAX
+# package's rung past 12288; refine cut as mega-long's), and the sha256
+# of its FASTA text on the H100 when the legacy route first took that
+# pad (tools/torch_long_family_sha.py --family mega-16k prints it)
+MEGA_16K = (4, 12500, 16000, 16)
+MEGA_16K_SHA256 = (
+    "3cac75deee2d3af4af50856cdc995ec9d4fef081560a29660c4991884753ce6c")
+# the pair stage alone at pad 24576 (the ladder's last rung): 4 chains of
+# 16,500-24,000 residues, 6 pairs and 2 fillers in one chunk, run whole
+# and again with the legacy route cut to sub-batches of MEGA_WIDE_SUB
+MEGA_WIDE = (4, 16500, 24000, 24)
+MEGA_WIDE_PAD = 24576
+MEGA_WIDE_SUB = 2
+# rows of each pair its kernel 1E and 3 launches are held on (the plain
+# versions take ~0.1 s a row at 24576)
+MEGA_WIDE_HELD_ROWS = 32
 
 
 def mega_set(n, lo, hi, seed, where=None):
@@ -2378,7 +2623,8 @@ class LegacyKernelCheck:
 
     NAMES = ("pairhmm_fwd_emis", "pairhmm_bwd", "mea_scores")
 
-    def __init__(self):
+    def __init__(self, rows: int = HELD_ROWS):
+        self.rows = rows
         self.errs = {k: [] for k in self.NAMES}
         self.seconds = 0.0
         self.peak = 0
@@ -2396,12 +2642,13 @@ class LegacyKernelCheck:
 
     def fwd(self, *args):
         fm, fend = self.saved["pairhmm_fwd_emis"](*args)
-        self._held("pairhmm_fwd_emis", lambda: hold_fwd(args, fm)[0])
+        self._held("pairhmm_fwd_emis",
+                   lambda: hold_fwd(args, fm, self.rows)[0])
         return fm, fend
 
     def bwd(self, *args):
         rb = self.saved["pairhmm_bwd"](*args)
-        self._held("pairhmm_bwd", lambda: hold_bwd(args, rb)[0])
+        self._held("pairhmm_bwd", lambda: hold_bwd(args, rb, self.rows)[0])
         return rb
 
     def mea(self, post, lxb, lyb):
@@ -2633,6 +2880,28 @@ def phase_mega_kernels(dev, sets) -> list[dict]:
     out["mea_scores"] = (d4, ms4, plain4, bnd4,
                          "muscle_tpu_torch/csrc/mea_scores.cu",
                          "muscle_tpu/ops/pairhmm_pallas.py:875")
+    # the top-K kernel on the chunk's posteriors, pair by pair against the
+    # sort; its time beside its bound, the stable sort's (the path it
+    # replaces: ~8x the posterior's bytes) and torch.topk's on the chunk
+    from muscle_tpu_torch.ops import sparse as sp
+    ct = topk_case(post, 32)
+    mst = time_cuda(lambda: sp.sparsify_topk(post, 32), reps=3)
+    sort_ms = time_cuda(lambda: torch.sort(post, dim=-1, descending=True,
+                                           stable=True), reps=1)
+    topk_ms = time_cuda(lambda: torch.topk(post, 32, dim=-1), reps=3)
+    bndt = topk_bound(post, 32)
+    print(f"sparsify_topk vs the sort on mega-long's posteriors (8 x 12288 x "
+          f"12288, K = 32), pair by pair: max |d| {ct['err']:.3e}, columns "
+          f"and max_nnz ({ct['nnz']}) {'equal' if ct['same'] else 'FAIL'}; "
+          f"{mst:.3f} ms (bound {bndt[0]:.4f} ms by {bndt[1]}), torch.sort "
+          f"(stable) {sort_ms:.3f} ms, torch.topk {topk_ms:.3f} ms",
+          flush=True)
+    if not ct["same"]:
+        raise SmokeFailure("sparsify_topk differs from the sort on "
+                           "mega-long's chunk")
+    WIDE_TOPK.update(ms_12288=mst, bound_ms_12288=bndt[0],
+                     sort_ms_12288=sort_ms, library_ms_12288=topk_ms,
+                     max_abs_err=ct["err"])
     del largs, fm, post
     torch.cuda.empty_cache()
 
@@ -2664,6 +2933,96 @@ def pairs_of(n, count):
 
 MEGA_KERNELS = ("pairhmm_fwd_emis", "pairhmm_bwd_post_emis")
 LEGACY_KERNELS = ("pairhmm_fwd_emis", "pairhmm_bwd", "mea_scores")
+TOPK = ("sparsify_topk",)
+
+
+def phase_mega_wide(dev) -> dict:
+    """The Muscle-3D pair stage alone at pad MEGA_WIDE_PAD:
+    all_pairs_posteriors_mega_sparse on MEGA_WIDE's 4 chains (6 pairs and
+    2 fillers, one chunk of the legacy route), each launch of kernels 1E,
+    3 and 4 held to the plain versions (LegacyKernelCheck, on
+    MEGA_WIDE_HELD_ROWS first and last rows) and each top-K
+    launch to the sort pair by pair; its wall and peak printed. Then the
+    stage again with the legacy route cut to sub-batches of MEGA_WIDE_SUB
+    pairs (free_bytes set to what they need): its store, EA and max_nnz
+    must equal the whole chunk's bit for bit."""
+    import torch
+    from muscle_tpu_torch.hmm.params import HMMParams
+    from muscle_tpu_torch.ops import emissions as em
+    from muscle_tpu_torch.ops import pairhmm_emis_cuda as pe
+    from muscle_tpu_torch.pipeline import posteriors as post_mod
+    from muscle_tpu_torch.pipeline.mpc import PAIR_BATCH
+    name = f"mega pair stage at {MEGA_WIDE_PAD}"
+    ms, _ = mega_set(*MEGA_WIDE)
+    lens = np.array([p.shape[0] for p in ms.profiles], np.int32)
+    # the pad MPC gives these chains (pipeline/mpc.py)
+    pad = post_mod._bucket_of(int(lens.max()), post_mod.BUCKET_LADDER[-1])
+    if pad != MEGA_WIDE_PAD:
+        raise SmokeFailure(f"{name}: pad {pad}")
+    profiles = em.pad_profiles(ms.profiles, pad)
+    pairs = pairs_of(len(lens), 6)
+    pack = HMMParams.from_defaults(nucleo=False).to_scores()
+
+    def stage():
+        return post_mod.all_pairs_posteriors_mega_sparse(
+            profiles, lens, ms, pack, pairs, dev, batch_size=PAIR_BATCH,
+            k=32)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pe.reset_routes()
+    reset_launches()
+    t_cases, t0_held = len(TOPK_CHECK.cases), TOPK_CHECK.seconds
+    TOPK_CHECK.peak = 0
+    TOPK_CHECK.arm(None)
+    check = LegacyKernelCheck(MEGA_WIDE_HELD_ROWS)
+    t0 = time.perf_counter()
+    try:
+        with check:
+            whole = stage()
+            torch.cuda.synchronize()
+    finally:
+        TOPK_CHECK.arm(0)
+    held = check.seconds + TOPK_CHECK.seconds - t0_held
+    wall = time.perf_counter() - t0 - held
+    peak = max(torch.cuda.max_memory_allocated(), check.peak,
+               TOPK_CHECK.peak)
+    got = launches()
+    subs = list(pe.SUB_BATCHES)
+    hold_legacy_launches(name, check, got)
+    TOPK_CHECK.held_since(name, t_cases, got["sparsify_topk"])
+    errs = check.errs
+    print(f"{name}: {len(pairs)} pairs of chains {int(lens.min())}-"
+          f"{int(lens.max())}, wall {wall:.2f}s (checks {held:.2f}s out), "
+          f"peak_device_mem={peak / 2**30:.3f} GiB, routes "
+          f"{json.dumps(pe.ROUTES)}, (pairs, a sub-batch) {subs}, max_nnz "
+          f"{whole[3]}, launches {json.dumps(got)}", flush=True)
+    if pe.ROUTES != {"fused": 0, "legacy": 1}:
+        raise SmokeFailure(f"{name}: routes {pe.ROUTES}")
+    saved = pe.free_bytes
+    budget = pe.legacy_need_bytes(8, MEGA_WIDE_SUB, pad, pad)
+    pe.free_bytes = lambda device: budget
+    pe.reset_routes()
+    t0 = time.perf_counter()
+    try:
+        cut = stage()
+        torch.cuda.synchronize()
+    finally:
+        pe.free_bytes = saved
+    wall_cut = time.perf_counter() - t0
+    same = (torch.equal(whole[0], cut[0]) and torch.equal(whole[1], cut[1])
+            and np.array_equal(whole[2], cut[2]) and whole[3] == cut[3])
+    print(f"{name}, the legacy route in sub-batches {pe.SUB_BATCHES} (free "
+          f"memory set to {budget / 2**30:.2f} GiB): wall {wall_cut:.2f}s; "
+          f"store, EA and max_nnz {'equal to' if same else 'DIFFER from'} "
+          "the whole chunk's", flush=True)
+    if pe.SUB_BATCHES != [(8, MEGA_WIDE_SUB)] or not same:
+        raise SmokeFailure(f"{name}: sub-batches {pe.SUB_BATCHES}, equal "
+                           f"{same}")
+    del whole, cut
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "peak_bytes": peak, "sub_batches": subs,
+            "legacy_errs": errs}
 
 
 def hold_legacy_launches(name, check, got) -> None:
@@ -2689,9 +3048,13 @@ def phase_mega(dev, sets, refs) -> dict:
     consistency, device refine), mega-long (the legacy route, f32 Gram
     consistency, host refine cut to MEGA_LONG_REFINE_ITERS; each of its
     kernel 1E, 3 and 4 launches held to the plain versions on its own
-    inputs, LegacyKernelCheck). Each must be a valid alignment through the
-    kernels of its branch; Q against the construction's truth printed.
-    (mega-8's CPU text: the CPU references' child, `refs`.)"""
+    inputs, LegacyKernelCheck; its text's sha256 MEGA_LONG_SHA256, its
+    peak below MEGA_LONG_PEAK_LIMIT), mega-16k (pad 16384, as mega-long:
+    its sha256 MEGA_16K_SHA256 once recorded). Every top-K launch of
+    mega-long and mega-16k is held to the sort pair by pair. Each must be
+    a valid alignment through the kernels of its branch; Q against the
+    construction's truth printed. (mega-8's CPU text: the CPU
+    references' child, `refs`.)"""
     import hashlib
 
     import torch
@@ -2705,16 +3068,21 @@ def phase_mega(dev, sets, refs) -> dict:
             ("mega-8", MEGA_KERNELS, {"fused": 1, "legacy": 0}, 100),
             ("mega-128", MEGA_KERNELS + DENSIFY + REFINE_KERNELS,
              {"fused": chunks, "legacy": 0}, 100),
-            ("mega-long", LEGACY_KERNELS + DENSIFY,
+            ("mega-long", LEGACY_KERNELS + DENSIFY + TOPK,
+             {"fused": 0, "legacy": 1}, MEGA_LONG_REFINE_ITERS),
+            ("mega-16k", LEGACY_KERNELS + DENSIFY + TOPK,
              {"fused": 0, "legacy": 1}, MEGA_LONG_REFINE_ITERS)):
         ms, origins = sets[name]
         seqs = mega_seqs(ms)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         pe.reset_routes()
-        check = LegacyKernelCheck() if name == "mega-long" else None
+        wide = name in ("mega-long", "mega-16k")
+        check = LegacyKernelCheck() if wide else None
         with check or contextlib.nullcontext():
-            msa, wall, stages, got = run_path(name, seqs, dev, kernels,
-                                              mega=ms, refine_iters=iters)
+            msa, wall, stages, got = run_path(
+                name, seqs, dev, kernels, all_topk=wide, mega=ms,
+                refine_iters=iters)
         peak = peak_bytes()
         if check:
             hold_legacy_launches(name, check, got)
@@ -2722,7 +3090,9 @@ def phase_mega(dev, sets, refs) -> dict:
             stages["posteriors"] = round(stages["posteriors"] - check.seconds,
                                          4)
             peak = max(peak, check.peak)
-            out["legacy_errs"] = check.errs
+            for k, errs in check.errs.items():
+                out.setdefault("legacy_errs", {}).setdefault(k, []).extend(
+                    errs)
         q = q_true(msa, ms.labels, origins)
         got_routes = dict(pe.ROUTES)
         print(f"{name}: n={len(seqs)} lengths "
@@ -2730,7 +3100,8 @@ def phase_mega(dev, sets, refs) -> dict:
               f"wall={wall:.2f}s width={msa.col_count()} Q(truth)={q:.4f} "
               f"peak_device_mem={peak / 2**30:.3f} GiB "
               f"stages={json.dumps(stages)} routes={json.dumps(got_routes)} "
-              f"refine_iters={iters} launches={json.dumps(got)}", flush=True)
+              f"refine_iters={iters} launches={json.dumps(got)} "
+              f"sub_batches={pe.SUB_BATCHES}", flush=True)
         if got_routes != routes:
             raise SmokeFailure(f"{name}: routes {got_routes}, want {routes}")
         if name == "mega-long":
@@ -2740,6 +3111,21 @@ def phase_mega(dev, sets, refs) -> dict:
                   " the text before kernel 1E ran on the wave)", flush=True)
             if not same:
                 raise SmokeFailure("mega-long: the alignment's text moved")
+            under = peak < MEGA_LONG_PEAK_LIMIT
+            print(f"mega-long: peak device memory {peak / 2**30:.3f} GiB "
+                  f"({'below' if under else 'NOT below'} "
+                  f"{MEGA_LONG_PEAK_LIMIT / 2**30:.0f} GiB; 40.579 GiB while "
+                  "the sparsify sorted whole rows)", flush=True)
+            if not under:
+                raise SmokeFailure("mega-long: peak device memory")
+        if name == "mega-16k":
+            digest = hashlib.sha256(msa.to_fasta_text().encode()).hexdigest()
+            same = digest == MEGA_16K_SHA256
+            print(f"mega-16k: sha256 {digest} ("
+                  f"{'the same as' if same else 'NOT'} the text recorded)",
+                  flush=True)
+            if not same:
+                raise SmokeFailure("mega-16k: the alignment's text moved")
         if name == "mega-8":
             t0 = time.perf_counter()
             same = cpu_ref_text(refs, "mega8_align.afa") == msa.to_fasta_text()
@@ -3695,8 +4081,10 @@ REF_PROTDISTS = {
     ("2lef_A", "1j46_A"): 1.42,
     ("2lef_A", "1k99_A"): 1.406,
 }
-# Super6's set: the first SUPER6_ROWS rows of super5_set()
-SUPER6_ROWS = 1000
+# Super6's set: the first SUPER6_ROWS rows of super5_set() (all 1,000
+# before mega-16k and the pair stage at 24576 joined; cut to keep the
+# script inside its time limit on a slower host)
+SUPER6_ROWS = 500
 # Super7 on the degapped rdrp-16 golden at this shrub size
 RDRP16_SHRUB = 4
 SUPER6_STAGES = ("uclustpd", "cluster_dists", "cluster_mpcs", "pprog")
@@ -3777,7 +4165,7 @@ def run_super67(name, cmd, inp, seqs, workdir, kernels, opts):
     n_cases, s0 = len(GRID_CHECK.cases), GRID_CHECK.seconds
     m_cases, m0 = len(MEA_CHECK.cases), MEA_CHECK.seconds
     mp0 = MEA_CHECK.pprog_seconds
-    GRID_CHECK.peak = MEA_CHECK.peak = DP_CHECK.peak = 0
+    GRID_CHECK.peak = MEA_CHECK.peak = DP_CHECK.peak = TOPK_CHECK.peak = 0
     reset_launches()
     DP_CHECK.arm()
     t0 = time.perf_counter()
@@ -3858,7 +4246,7 @@ def phase_super67(dev, sets, refs) -> dict:
         out[name] = {"wall_s": wall, "dists": errs}
         out["protdists-wide"] = protdists_wide(workdir)
 
-        # Super6 on synthetic-1000
+        # Super6 on the first SUPER6_ROWS rows of synthetic-1000
         seqs = MultiSequence(list(super5_set())[:SUPER6_ROWS])
         name = f"super6 synthetic-{len(seqs)}"
         inp = os.path.join(workdir, "super6.fa")
@@ -5022,29 +5410,38 @@ def run_phases(card, refs) -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     sets = {name: mega_set(*spec) for name, spec in (
-        ("mega-8", MEGA_8), ("mega-128", MEGA_128), ("mega-long", MEGA_LONG))}
+        ("mega-8", MEGA_8), ("mega-128", MEGA_128), ("mega-long", MEGA_LONG),
+        ("mega-16k", MEGA_16K))}
     print(f"mega sets built, written and parsed: "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    kernels = (phase_kernels(dev) + phase_long_kernels(dev)
+    t0 = time.perf_counter()
+    kernels = (phase_kernels(dev) + phase_topk_kernels(dev)
+               + phase_long_kernels(dev)
                + phase_gram_join_kernels(dev) + [phase_list_kernel(dev)]
                + phase_mega_kernels(dev, sets) + phase_ensemble_kernels(dev)
                + phase_dp_kernels(dev))
+    print(f"kernels against their plain versions: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
-    with GRID_CHECK, MEA_CHECK:
+    with GRID_CHECK, MEA_CHECK, TOPK_CHECK:
         phase_families(dev)
         phase_synthetic(dev)
         phase_long_families(dev)
         s5 = phase_super5(dev)
         legacy_errs = phase_mega(dev, sets, refs)["legacy_errs"]
+        for k, errs in phase_mega_wide(dev)["legacy_errs"].items():
+            legacy_errs[k] = legacy_errs[k] + errs
         ens = phase_ensembles(dev)
         phase_super67(dev, sets, refs)
         surf = phase_surface(dev, sets, refs)
     print(f"main path: {time.perf_counter() - t0:.1f}s (kernel-7 checks "
           f"{GRID_CHECK.seconds:.2f}s, {len(GRID_CHECK.cases)} launches "
           f"held; mea_dirs checks {MEA_CHECK.seconds:.2f}s, "
-          f"{len(MEA_CHECK.cases)} launches held)", flush=True)
+          f"{len(MEA_CHECK.cases)} launches held; top-K checks "
+          f"{TOPK_CHECK.seconds:.2f}s, {len(TOPK_CHECK.cases)} launches "
+          "held)", flush=True)
     print_mea_rungs()
     phase_scan_route(dev)
     torch.cuda.empty_cache()    # the child takes the card's memory
@@ -5082,6 +5479,7 @@ def run_phases(card, refs) -> int:
     held["mea_scores"] = (held.get("mea_scores", [])
                           + ens["legacy-BB11001"]["mea_errs"])
     held["densify_reduce"] = [c["err"] for c in GRID_CHECK.cases]
+    held["sparsify_topk"] = [c["err"] for c in TOPK_CHECK.cases]
     held["mea_dirs"] = [c["err"] for c in MEA_CHECK.cases]
     for name in HELD_DP:
         held[name] = [c["err"] for c in DP_CHECK.cases if c["name"] == name]
@@ -5119,6 +5517,15 @@ def run_phases(card, refs) -> int:
         ms_12288=WIDE_1E["ms"], bound_ms_12288=WIDE_1E["bound"])
     # kernel 4: its time and bound at the legacy letter route's 512 x 512^2
     # beside mega-long's chunk
+    # the top-K kernel: its launches on the main path by (Ly, K, keys a
+    # lane), its numbers at mega-long's chunk beside 512 x 512^2's
+    kt = next(k for k in kernels if k["name"] == "sparsify_topk")
+    kt["schedule"] = {f"Ly {ly} K {k} S {s_n}": n for (ly, k, s_n), n
+                      in sorted(MAIN_TOPK_WIDTHS.items())}
+    kt.update({key: v for key, v in WIDE_TOPK.items()
+               if key != "max_abs_err"},
+              max_abs_err=max(kt["max_abs_err"], WIDE_TOPK["max_abs_err"]),
+              held_launches=len(TOPK_CHECK.cases))
     k4 = next(k for k in kernels if k["name"] == "mea_scores")
     k4.update(ms_512=MEA_512["ms"], bound_ms_512=MEA_512["bound"],
               max_abs_err=max(k4["max_abs_err"], MEA_512["err"]))

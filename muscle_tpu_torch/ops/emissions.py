@@ -43,14 +43,22 @@ def mega_insert_scores(profs: torch.Tensor, weights, log_probs
 
 def mega_emission_matrix(profx: torch.Tensor, profy: torch.Tensor,
                          weights, log_prob_mx) -> torch.Tensor:
-    """(B, Lx, F), (B, Ly, F) profiles -> (B, Lx, Ly) emission lattice."""
+    """(B, Lx, F), (B, Ly, F) profiles -> (B, Lx, Ly) emission lattice.
+
+    Each feature's entries are gathered from x's table rows (B, Lx, K)
+    along y's letters, an index broadcast over the rows without a copy:
+    the lattice and one feature's products are the only (B, Lx, Ly)
+    tensors (an index pair broadcast to (B, Lx, Ly) would take two int64
+    lattices more)."""
     b, lx, _ = profx.shape
     ly = profy.shape[1]
     total = torch.zeros((b, lx, ly), dtype=torch.float32,
                         device=profx.device)
     for f, mx in enumerate(log_prob_mx):
-        sel = mx[profx[:, :, f].long()[:, :, None],
-                 profy[:, :, f].long()[:, None, :]]
+        rows = mx[profx[:, :, f].long()]
+        cols = profy[:, :, f].long()[:, None, :].expand(b, lx, ly)
+        sel = torch.gather(rows, 2, cols)
+        del rows
         total += sel.mul_(weights[f])
         del sel
     return total

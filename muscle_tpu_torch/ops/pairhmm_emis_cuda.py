@@ -11,11 +11,14 @@ the padded lane width Ly, at the JAX package's FUSED_MAX_LY:
   total-probability fold, kernel 2E, `pairhmm_bwd_post_emis`
   (csrc/pairhmm_bwd_post_emis.cu, replaces `_bwd_post_kernel` with
   kk=None, flip_e=True): backward, posterior and MEA in one pass;
-* legacy, beyond it (`emissions_path_legacy`): kernel 1E, kernel 3,
-  `pairhmm_bwd` (csrc/pairhmm_bwd.cu, replaces `_bwd_kernel`: the
-  reversed backward M lattice), `finish_posteriors` (plain torch, JAX
-  `_finish_posteriors`), kernel 4, `mea_scores` (csrc/mea_scores.cu,
-  replaces `_mea_kernel`).
+* legacy, beyond it at any width (`emissions_path_legacy`): kernel 1E,
+  kernel 3, `pairhmm_bwd` (csrc/pairhmm_bwd.cu, replaces `_bwd_kernel`:
+  the reversed backward M lattice), `finish_posteriors` (plain torch,
+  JAX `_finish_posteriors`), kernel 4, `mea_scores` (csrc/mea_scores.cu,
+  replaces `_mea_kernel`); a chunk whose lattices would not fit the
+  device's free memory runs in sub-batches of pairs (`legacy_sub_batch`),
+  its lattice built a sub-batch at a time where the caller passes a
+  function for it.
 
 Kernel 1E runs on kernel A's two schedules (`pairhmm_cuda.ab_geometry`):
 one block a pair up to WAVE_MIN_LY = 2048 lanes, beyond it each pair's
@@ -62,13 +65,18 @@ from .pairhmm_cuda import (NEG_BIG, SCHEDULES, _cumsum_lanes, _log_add,
                            reversed_lanes)
 
 # lane-axis cap of the fused route, the JAX package's value (there, the
-# fused backward's VMEM scratch); the legacy route takes wider pads
+# fused backward's VMEM scratch); the legacy route takes every wider pad
+# (kernels 1E and 3 on the wave, kernel 4 a wavefront of row bands)
 FUSED_MAX_LY = 9856
-# lane-axis cap of the emissions path: the legacy route's rung 12288,
-# chains of up to 12288 residues. Kernels 1E and 3 run wider rows on the
-# wave; what stops wider pads is the sparsify's whole-row sort
-# (ops/sparse.py; ROADMAP.md, queue 1, item 4)
-MAX_LY = 12288
+
+# the legacy route's device memory in (Lx, Ly) f32 lattices: a sub-batch
+# of s pairs holds e, fm and RB_M (3 s) while kernel 3 runs, and
+# finish_posteriors a pair's temporaries (flip and roll of RB_M, the
+# score, its mask, clamp, exp and select: at most LEGACY_PAIR_TEMPS); a
+# chunk cut into sub-batches also holds the whole chunk's posterior. Kept
+# free beside them: LEGACY_HEADROOM bytes
+LEGACY_PAIR_TEMPS = 4
+LEGACY_HEADROOM = 1 << 30
 
 LAUNCHES = {"pairhmm_fwd_emis": 0, "pairhmm_bwd_post_emis": 0,
             "pairhmm_bwd": 0, "mea_scores": 0}
@@ -80,8 +88,10 @@ LAUNCHES = {"pairhmm_fwd_emis": 0, "pairhmm_bwd_post_emis": 0,
 MEA_SCORES_MAX_WARPS = 16
 MEA_SCORES_LINK_HAND = 32
 
-# batches each route took since the last reset_routes()
+# batches each route took since the last reset_routes(), and the legacy
+# route's (pairs, pairs a sub-batch) of each batch
 ROUTES = {"fused": 0, "legacy": 0}
+SUB_BATCHES: list[tuple[int, int]] = []
 
 
 def reset_launches() -> None:
@@ -92,6 +102,7 @@ def reset_launches() -> None:
 def reset_routes() -> None:
     for k in ROUTES:
         ROUTES[k] = 0
+    SUB_BATCHES.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +543,7 @@ def _lib(name: str):
     return _libs[name]
 
 
-def _check(e, ins_x, ins_y, lxb, lyb, params, max_ly):
+def _check(e, ins_x, ins_y, lxb, lyb, params, max_ly=None):
     dev = e.device
     for name, t in (("e", e), ("ins_x", ins_x), ("ins_y", ins_y),
                     ("params", params)):
@@ -546,9 +557,9 @@ def _check(e, ins_x, ins_y, lxb, lyb, params, max_ly):
             or lxb.shape != (b,) or lyb.shape != (b,)
             or params.shape not in ((16,), (b, 16))):
         raise ValueError("shapes disagree")
-    if ly % 128 or not 0 < ly <= max_ly or lx < 1:
+    if ly % 128 or ly < 128 or (max_ly and ly > max_ly) or lx < 1:
         raise ValueError(f"Ly={ly} must be a multiple of 128 in "
-                         f"[128, {max_ly}]")
+                         f"[128, {max_ly or 'any'}]")
     return b, lx, ly
 
 
@@ -567,7 +578,7 @@ def pairhmm_fwd_emis(e, ins_x, ins_y, lxb, lyb, params,
     geo = ab_geometry(e.shape[0], e.shape[2], schedule, g)
     if not _on_card(e):
         return fwd_emis_plain(e, ins_x, ins_y, lxb, lyb, params)
-    b, lx, ly = _check(e, ins_x, ins_y, lxb, lyb, params, MAX_LY)
+    b, lx, ly = _check(e, ins_x, ins_y, lxb, lyb, params)
     fm = torch.empty((b, lx, ly), dtype=torch.float32, device=e.device)
     fend = torch.empty((b, 5), dtype=torch.float32, device=e.device)
     lib = _lib("pairhmm_fwd_emis")
@@ -620,7 +631,7 @@ def pairhmm_bwd(e, ins_x, ins_y, lxb, lyb, params):
     `emissions_path_legacy` does)."""
     if not _on_card(e):
         return bwd_plain(e, ins_x, ins_y, lxb, lyb, params)
-    b, lx, ly = _check(e, ins_x, ins_y, lxb, lyb, params, MAX_LY)
+    b, lx, ly = _check(e, ins_x, ins_y, lxb, lyb, params)
     geo = bwd_geometry(b, ly)
     rbm = torch.empty((b, lx, ly), dtype=torch.float32, device=e.device)
     lib = _lib("pairhmm_bwd")
@@ -706,38 +717,96 @@ def finish_posteriors(fm, rbm, fend, lxb, lyb, params):
     return fm
 
 
+def free_bytes(device) -> int | None:
+    """Device memory the legacy route may take on `device`: the free
+    memory plus what torch's allocator holds unused, less
+    LEGACY_HEADROOM; None (no limit) off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    held = (torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    return free + held - LEGACY_HEADROOM
+
+
+def legacy_need_bytes(b: int, sub: int, lx: int, ly: int) -> int:
+    """Bytes the legacy route takes for a chunk of b pairs at (Lx, Ly)
+    run in sub-batches of `sub` pairs (the whole chunk's posterior
+    beside them when sub < b)."""
+    lattices = 3 * sub + LEGACY_PAIR_TEMPS + (b if sub < b else 0)
+    return 4 * lx * ly * lattices
+
+
+def legacy_sub_batch(b: int, lx: int, ly: int, budget: int | None) -> int:
+    """Pairs a sub-batch of the legacy route: the whole chunk where it
+    fits `budget` (or no budget is set), else the most pairs that do.
+    Raises MemoryError where one pair alone does not fit."""
+    for sub in range(b, 0, -1):
+        if budget is None or legacy_need_bytes(b, sub, lx, ly) <= budget:
+            return sub
+    raise MemoryError(
+        f"Muscle-3D pad {ly}: the legacy route needs "
+        f"{legacy_need_bytes(b, 1, lx, ly)} bytes for a chunk of {b} pairs "
+        f"run a pair at a time ({lx} x {ly} lattices), {budget} available")
+
+
 def emissions_path_legacy(e, ins_x, ins_y, lxb, lyb, params):
     """Kernel 1E, kernel 3, finish_posteriors, kernel 4 (JAX
-    `batch_posteriors_pallas_emissions` beyond FUSED_MAX_LY). Returns
-    (post (B, Lx, Ly), ea (B,))."""
-    fm, fend = pairhmm_fwd_emis(e, ins_x, ins_y, lxb, lyb, params)
-    rbm = pairhmm_bwd(e, ins_x, ins_y, lxb, lyb, params)
-    post = finish_posteriors(fm, rbm, fend, lxb, lyb, params)
-    del rbm
+    `batch_posteriors_pallas_emissions` beyond FUSED_MAX_LY). `e` is the
+    (B, Lx, Ly) lattice or a function (lo, hi) -> the lattice of pairs
+    lo..hi-1, built as a sub-batch needs it and freed once kernel 3 has
+    read it. The pairs run in sub-batches of `legacy_sub_batch` pairs
+    against `free_bytes`; kernels 1E and 3 and finish_posteriors work
+    pair by pair, and kernel 4 runs once on the whole posterior, so
+    sub-batches change no bit. Returns (post (B, Lx, Ly), ea (B,))."""
+    lattice = e if callable(e) else (lambda lo, hi: e[lo:hi])
+    b, lx, ly = lxb.shape[0], ins_x.shape[1], ins_y.shape[1]
+    sub = legacy_sub_batch(b, lx, ly, free_bytes(ins_x.device))
+    SUB_BATCHES.append((b, sub))
+    post = None
+    for lo in range(0, b, sub):
+        hi = min(b, lo + sub)
+        rest = (ins_x[lo:hi], ins_y[lo:hi], lxb[lo:hi], lyb[lo:hi],
+                params[lo:hi] if params.dim() == 2 else params)
+        el = lattice(lo, hi)
+        fm, fend = pairhmm_fwd_emis(el, *rest)
+        rbm = pairhmm_bwd(el, *rest)
+        del el
+        part = finish_posteriors(fm, rbm, fend, *rest[2:])
+        del rbm, fm
+        if sub >= b:
+            post = part
+            break
+        if post is None:
+            post = torch.empty((b, lx, ly), dtype=torch.float32,
+                               device=part.device)
+        post[lo:hi] = part
+        del part
     mea = mea_scores(post, lxb, lyb)
-    if _on_card(e):
-        wavefront.check_waits(e.device)    # raises on a stuck hand-over
+    if _on_card(ins_x):
+        wavefront.check_waits(ins_x.device)    # raises on a stuck hand-over
     return post, mea / torch.minimum(lxb, lyb).float()
 
 
 def batch_posteriors_emissions_cuda(e, ins_x, ins_y, lxb, lyb, pack):
     """Posteriors (B, Lx, Ly) f32 and EA (B,) f32 from an emission lattice
-    e (B, Lx, Ly) and insert scores (B, Lx), (B, Ly); transitions from
-    `pack`. The route follows the padded width as in the JAX package:
-    fused up to FUSED_MAX_LY, legacy beyond (no reversed lattice is
+    e (B, Lx, Ly), or a function (lo, hi) -> the lattice of pairs lo..hi-1
+    (which lets the legacy route build it a sub-batch at a time), and
+    insert scores (B, Lx), (B, Ly); transitions from `pack`. The route
+    follows the padded width as in the JAX package: fused up to
+    FUSED_MAX_LY, legacy beyond, at any width (no reversed lattice is
     built: kernel 3 reads e through reversed indices)."""
-    ly = e.shape[2]
-    if ly > MAX_LY:
-        raise NotImplementedError(
-            f"Muscle-3D pads beyond {MAX_LY} (chains over {MAX_LY} residues) "
-            "are not ported yet: ROADMAP.md, queue 1, item 4")
-    params = params_vec(pack, e.device)
+    ly = ins_y.shape[1]
+    params = params_vec(pack, ins_x.device)
     lxb = lxb.to(torch.int32).contiguous()
     lyb = lyb.to(torch.int32).contiguous()
-    args = (e.contiguous(), ins_x.contiguous(), ins_y.contiguous(), lxb, lyb,
-            params)
+    ins_x, ins_y = ins_x.contiguous(), ins_y.contiguous()
     if ly <= FUSED_MAX_LY:
         ROUTES["fused"] += 1
-        return emissions_path_fused(*args)
+        e = e(0, lxb.shape[0]) if callable(e) else e
+        return emissions_path_fused(e.contiguous(), ins_x, ins_y, lxb, lyb,
+                                    params)
     ROUTES["legacy"] += 1
-    return emissions_path_legacy(*args)
+    return emissions_path_legacy(e if callable(e) else e.contiguous(), ins_x,
+                                 ins_y, lxb, lyb, params)

@@ -647,15 +647,23 @@ def _make_mega_chunk_fn(mega, pack, device):
     if default_backend(device) == "cuda":
         if pairhmm.EXACT_ASSOC:
             from ..ops.pairhmm_exact_cuda import \
-                batch_posteriors_emissions_exact as \
-                batch_posteriors_emissions_cuda
-        else:
-            from ..ops.pairhmm_emis_cuda import \
-                batch_posteriors_emissions_cuda
+                batch_posteriors_emissions_exact
+
+            def chunk(px, py, lx, ly):
+                return batch_posteriors_emissions_exact(
+                    mega_emission_matrix(px, py, weights, log_prob_mx),
+                    mega_insert_scores(px, weights, log_probs),
+                    mega_insert_scores(py, weights, log_probs), lx, ly, pack)
+            return chunk
+        from ..ops.pairhmm_emis_cuda import batch_posteriors_emissions_cuda
 
         def chunk(px, py, lx, ly):
+            # the lattice of pairs lo..hi-1, built where the route needs
+            # it (the legacy route: a sub-batch at a time, freed once
+            # kernel 3 has read it)
             return batch_posteriors_emissions_cuda(
-                mega_emission_matrix(px, py, weights, log_prob_mx),
+                lambda lo, hi: mega_emission_matrix(px[lo:hi], py[lo:hi],
+                                                    weights, log_prob_mx),
                 mega_insert_scores(px, weights, log_probs),
                 mega_insert_scores(py, weights, log_probs), lx, ly, pack)
         return chunk

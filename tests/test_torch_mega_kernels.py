@@ -292,7 +292,10 @@ def _pack_fields():
 
 def test_entry_point_routes_and_limits(case, monkeypatch):
     """The legacy route beyond FUSED_MAX_LY (shrunk here) gives the
-    legacy composition; pads beyond MAX_LY are not ported yet."""
+    legacy composition; a pad past 12288 (the chains of the JAX package's
+    rungs 16384 and 24576 and beyond) takes the legacy route too, and
+    where one pair of the chunk cannot fit the device memory the entry
+    point raises MemoryError naming the pad."""
     _, _, _, _, tp = case
     e, ins_x, ins_y, lxt, lyt, params = _args(case)
     monkeypatch.setattr(t_emis, "FUSED_MAX_LY", 64)
@@ -302,8 +305,20 @@ def test_entry_point_routes_and_limits(case, monkeypatch):
     assert t_emis.ROUTES == {"fused": 0, "legacy": 1}
     want = t_emis.emissions_path_legacy(e, ins_x, ins_y, lxt, lyt, params)
     assert torch.equal(post, want[0]) and torch.equal(ea, want[1])
-    wide = torch.zeros((1, 128, t_emis.MAX_LY + 128))
-    with pytest.raises(NotImplementedError, match="queue 1, item 4$"):
-        t_emis.batch_posteriors_emissions_cuda(
-            wide, torch.zeros((1, 128)), torch.zeros((1, wide.shape[2])),
-            lxt[:1], lyt[:1], tp)
+    monkeypatch.setattr(t_emis, "FUSED_MAX_LY", 9856)
+    rng = np.random.default_rng(12416)
+    width = 12288 + 128
+    wide = (torch.from_numpy(rng.uniform(-4, 1, (1, 4, width))
+                             .astype(np.float32)),
+            torch.from_numpy(rng.uniform(-3, -1, (1, 4)).astype(np.float32)),
+            torch.from_numpy(rng.uniform(-3, -1, (1, width))
+                             .astype(np.float32)),
+            torch.tensor([4]), torch.tensor([12300]))
+    t_emis.reset_routes()
+    post, ea = t_emis.batch_posteriors_emissions_cuda(*wide, tp)
+    assert t_emis.ROUTES == {"fused": 0, "legacy": 1}
+    assert post.shape == (1, 4, width) and bool(torch.isfinite(ea).all())
+    assert bool((post[:, :, 12300:] == 0).all())
+    monkeypatch.setattr(t_emis, "free_bytes", lambda device: 1 << 20)
+    with pytest.raises(MemoryError, match=f"pad {width}: "):
+        t_emis.batch_posteriors_emissions_cuda(*wide, tp)

@@ -8,7 +8,8 @@ Aligns chip_smoke.py's "long mixed" (six proteins of 8,700-11,000
 residues, refine cut as there) and "long pair" (two ~19 kb nucleotide
 sequences), or the families named by --family (also "mega-long": four
 synthetic `.mega` chains of 8,300-9,800 residues at pad 12288, the
-Muscle-3D legacy route, refine cut as there), with
+Muscle-3D legacy route, refine cut as there; "mega-16k": four of
+12,500-16,000 at pad 16384, the same route), with
 `muscle_tpu_torch.align(..., device="cuda")` and prints the sha256 of
 each alignment's FASTA text. The families come from this
 checkout's chip_smoke.py; the package comes from DIR (default: this
@@ -34,7 +35,8 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--family", action="append",
-                    choices=["long mixed", "long pair", "mega-long"])
+                    choices=["long mixed", "long pair", "mega-long",
+                             "mega-16k"])
     opts = ap.parse_args()
     sys.path.insert(0, os.path.abspath(opts.root))
     spec = importlib.util.spec_from_file_location(
@@ -52,8 +54,9 @@ def main() -> int:
     wanted = opts.family or ["long mixed", "long pair"]
     families = []
     for name in wanted:
-        if name == "mega-long":
-            ms = cs.mega_set(*cs.MEGA_LONG)[0]
+        if name in ("mega-long", "mega-16k"):
+            ms = cs.mega_set(*(cs.MEGA_LONG if name == "mega-long"
+                               else cs.MEGA_16K))[0]
             families.append((name, cs.mega_seqs(ms),
                              cs.MEGA_LONG_REFINE_ITERS, {"mega": ms}))
         elif name == "long mixed":
