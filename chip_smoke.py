@@ -166,7 +166,7 @@ Phases (each raises on failure, so the run exits non-zero):
      replicates, 4 seeds in one pair stage of 4,512 lanes, Gram
      consistency and host refine per replicate; its none.0 must equal
      align() of the same family), diversified-BB11002 (the degapped
-     golden under -diversified: 100 replicates, 100 HMMs in one stream;
+     golden under -diversified -replicates 25: 25 HMMs in one stream;
      none.0's identity to the golden and Q printed), every launch of
      kernels 1M and 2M held, as it happens, lane by lane to kernels A/B
      on each pack's lanes (MultiKernelCheck; the checks' launches, time
@@ -206,7 +206,20 @@ Phases (each raises on failure, so the run exits non-zero):
      command once, its wall printed;
 4. one 512 x 480 pair through the checkpoint/recompute scan on the
    card, held to kernels A/B at the kernel gate;
-5. the opt-in modes (phase_exact), in a child process (`chip_smoke.py
+5. the pair grid and the Gram consistency over a torch.distributed
+   process group (phase_distributed, parallel/mesh.py): align() of the
+   synthetic n = 24 family at 700-1000 (the sparse store, the Gram
+   consistency), of mega-8 (the `.mega` small family) and
+   run_align_command of BB11001 under -diversified -replicates 4 (four
+   packs in one (replicate, pair) stream), and consistency_sparse(mesh=)
+   on the n = 24 store, each with no process group, in a NCCL world of
+   one in this process and as two gloo ranks sharing the card in child
+   processes (`chip_smoke.py --dist-rank DIR R`, half of every chunk's
+   lanes each, rendezvous by a file store in a temporary directory):
+   every text's and store's sha256, and the consistency's, required
+   equal to the run with no group's; the walls, chunks, gathers and
+   bytes gathered a chunk printed;
+6. the opt-in modes (phase_exact), in a child process (`chip_smoke.py
    --exact DIR`) under MUSCLE_TPU_EXACT_ASSOC=1: the reference-order
    kernels pairhmm_fwd_exact / pairhmm_bwd_exact against their plain
    versions (max |d| = 0; letters, per-pair tables, a mega lattice, a
@@ -221,7 +234,7 @@ Phases (each raises on failure, so the run exits non-zero):
    pairs on the long-pair router's exact route, its store in one chunk
    and a chunk a pair held to each pair alone at another padding; its
    launches are added to the main path's;
-6. print kernels 7L's and 7's times summed over their held main-path
+7. print kernels 7L's and 7's times summed over their held main-path
    launches, then the kernels' JSON line (launch counts summed over
    phase 3, kernels A/B's, 1E's, 3's and 3K's also by schedule and
    width, with A/B's wave times and bounds at 11264 x 10240, 1E's time
@@ -789,11 +802,17 @@ def phase_long_kernels(dev) -> list[dict]:
     # every rung the long families launch them at, under both schedules
     # (the block a pair, and the wave at the geometry's G and at G = 1):
     # 2 pairs, Lx 192, one pair at the full width, one with padding
-    # across two segments; each wave launch bounded in wall time
+    # across two segments; each wave launch bounded in wall time. The
+    # twins run once a width, end to end (B's on A's twin's fm and
+    # total): they read fm only on the real cells, where every schedule's
+    # fm must equal it
     d_ab = 0.0
     for width in AB_CHECK_WIDTHS:
         x, y, lxt, lyt = cuda(*batch_of([192, 150], [width, width - 131],
                                         192, width, 20, seed=width))
+        fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *amino)
+        post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *amino,
+                                        pc._total_prob(fend2, amino[2]), fm2)
         nseg = width // 64
         s_ = -(-nseg // 32)
         g_auto = pc.ab_geometry(2, width).g
@@ -805,9 +824,7 @@ def phase_long_kernels(dev) -> list[dict]:
                 return fm, fend, tot, pc.pairhmm_bwd_post(
                     x, y, lxt, lyt, *amino, tot, fm, schedule=sched, g=g)
             what = f"kernels A/B at Ly = {width}, {sched} G = {g}"
-            fm, fend, tot, (post, mea) = bounded_pass(ab, what, dev)
-            fm2, fend2 = pc.fwd_plain(x, y, lxt, lyt, *amino)
-            post2, mea2 = pc.bwd_post_plain(x, y, lxt, lyt, *amino, tot, fm)
+            fm, fend, _, (post, mea) = bounded_pass(ab, what, dev)
             torch.cuda.synchronize()
             d = max(float((real_cells(fm, lxt, lyt)
                            - real_cells(fm2, lxt, lyt)).abs().max()),
@@ -825,7 +842,8 @@ def phase_long_kernels(dev) -> list[dict]:
             if d != 0:
                 raise SmokeFailure(f"kernels A/B at Ly = {width} ({sched}, "
                                    f"G = {g}) differ from their twins")
-            del fm, fm2, post, post2
+            del fm, post
+        del fm2, post2
 
     # their time at the long mixed family's in-cap rung (one pair
     # 11000 x 9800, padded 11264 x 10240), on the router's schedule (the
@@ -3687,13 +3705,19 @@ def print_efa_tools(name, efa):
 # n * pad = 18,432 > SMALL_DENSE_NL and the serial MPC takes the same
 # Gram-consistency, host-refine branch as the batched loop
 ENSEMBLE_48 = (48, 300, 384, 48)
+# diversified-BB11002's replicates (-diversified's default is 100): cut
+# to keep the script inside its time limit; one pair stage of 25 packs
+# still mixes packs lane by lane. At 100 the run took 12.26 s and its
+# EFA tools 25.15 s on an NVIDIA H100 80GB HBM3 machine's host
+DIVERSIFIED_REPLICATES = 25
 
 
 def phase_ensembles(dev) -> dict:
     """The ensembles through run_align_command (the CLI's function):
     ensemble-48 (-stratified: seeds 0-3 x none/abc/acb/bca, default
     consiters and refineiters; its none.0 must equal align() of the same
-    family), diversified-BB11002 (-diversified: 100 replicates, seed 0
+    family), diversified-BB11002 (-diversified -replicates
+    DIVERSIFIED_REPLICATES, seed 0
     unperturbed, on the degapped golden; none.0's identity to the golden
     and Q printed), each with every kernel-1M/2M launch held lane by lane
     and the first of each held to its plain version (MultiKernelCheck);
@@ -3743,7 +3767,9 @@ def phase_ensembles(dev) -> dict:
             strip_gaps=True)
         name = "diversified-BB11002"
         efa, blocks, wall, stages, peak, got, check = run_ensemble(
-            name, seqs, dev, {"diversified": True}, workdir)
+            name, seqs, dev, {"diversified": True,
+                              "replicates": str(DIVERSIFIED_REPLICATES)},
+            workdir)
         none0 = MultiSequence.from_fasta_text(blocks[0][1])
         ident = ({s.label: s.text() for s in none0}
                  == {s.label: s.text() for s in gold})
@@ -3753,7 +3779,8 @@ def phase_ensembles(dev) -> dict:
               f"stages={json.dumps(stages)} launches={json.dumps(got)}; "
               f"none.0 column-identical to the golden: {ident}, "
               f"Q={q_score(none0, gold):.4f}", flush=True)
-        if len(blocks) != 100 or blocks[0][0] != "none.0":
+        if (len(blocks) != DIVERSIFIED_REPLICATES
+                or blocks[0][0] != "none.0"):
             raise SmokeFailure(f"{name}: {len(blocks)} replicates")
         print_efa_tools(name, efa)
         out[name] = {"wall_s": wall, "stages": stages, "peak_bytes": peak,
@@ -5380,6 +5407,247 @@ def phase_exact() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase_distributed: the pair grid and the consistency over a process group
+# ---------------------------------------------------------------------------
+
+# the runs of phase_distributed: (name, what)
+DIST_RUNS = (("synthetic n=24 L=700-1000", "align(), sparse store, Gram"),
+             ("mega-8", "align(mega=), the .mega small family"),
+             ("BB11001 -diversified -replicates 4",
+              "run_align_command, 4 packs in one stream"))
+# a child of phase_distributed that runs past this is killed and fails
+# the phase
+DIST_CHILD_LIMIT_S = 150
+DIST_WORLD = 2
+
+
+class StoreHashes:
+    """While entered, the pair stage's store routes
+    (pipeline/posteriors.py) are wrapped: the sha256 of every store they
+    return (vals, cols, ea, max_nnz) is kept, and the last store."""
+    ROUTES = ("small_family_store", "all_pairs_posteriors_sparse",
+              "all_pairs_posteriors_mega_sparse",
+              "ensemble_pairs_posteriors_sparse")
+
+    def __enter__(self):
+        from muscle_tpu_torch.pipeline import posteriors as post
+        self.saved = {name: getattr(post, name) for name in self.ROUTES}
+        self.hashes, self.last = [], None
+        for name, fn in self.saved.items():
+            setattr(post, name, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        import hashlib
+
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            vals, cols, ea, nnz = out
+            h = hashlib.sha256()
+            for t in (vals, cols):
+                h.update(t.contiguous().cpu().numpy().tobytes())
+            h.update(np.ascontiguousarray(ea, np.float32).tobytes())
+            h.update(str(int(nnz)).encode())
+            self.hashes.append(h.hexdigest())
+            self.last = out
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        from muscle_tpu_torch.pipeline import posteriors as post
+        for name, fn in self.saved.items():
+            setattr(post, name, fn)
+        return False
+
+
+def dist_runs(dev, workdir) -> dict:
+    """The runs of phase_distributed in this process's world (none, a
+    NCCL world of one, or a rank of the gloo world): for each, the
+    sha256 of its alignment's text and of every store of its pair stage,
+    its wall, and the collectives' counts (parallel/mesh.py); for the
+    n = 24 store also the sha256 of consistency_sparse(mesh=) on it (2
+    iterations, as MPC runs it). The mega-8 file and BB11001's FASTA are
+    read from `workdir`."""
+    import hashlib
+    import torch
+    from muscle_tpu_torch import align
+    from muscle_tpu_torch.io.mega import parse_mega
+    from muscle_tpu_torch.ops.consistency import consistency_sparse
+    from muscle_tpu_torch.parallel import mesh as pm
+    from muscle_tpu_torch.pipeline.ensemble import run_align_command
+    mesh = pm.make_mesh()
+    out = {}
+    for name, _ in DIST_RUNS:
+        pm.reset_counts()
+        t0 = time.perf_counter()
+        with StoreHashes() as stores:
+            if name.startswith("synthetic"):
+                seqs = synthetic_family(24, 700, 1000, seed=24)
+                text = align(seqs, device=dev).to_fasta_text()
+            elif name == "mega-8":
+                ms = parse_mega(os.path.join(workdir, "mega-8.mega"))
+                text = align(mega_seqs(ms), mega=ms,
+                             device=dev).to_fasta_text()
+            else:
+                efa = os.path.join(workdir, f"ens.rank{mesh.rank}.efa")
+                run_align_command("align",
+                                  os.path.join(workdir, "BB11001.fa"), efa,
+                                  {"diversified": True, "replicates": "4",
+                                   "device": str(dev)})
+                with open(efa) as f:
+                    text = f.read()
+            torch.cuda.synchronize()
+        row = {"wall_s": time.perf_counter() - t0,
+               "text": hashlib.sha256(text.encode()).hexdigest(),
+               "stores": stores.hashes, "counts": dict(pm.COUNTS)}
+        if name.startswith("synthetic"):
+            vals, cols, _, nnz = stores.last
+            pm.reset_counts()
+            t0 = time.perf_counter()
+            cons = consistency_sparse(vals, cols, 24, 2, seq_block=8,
+                                      max_nnz=min(int(nnz), 32), mesh=mesh)
+            torch.cuda.synchronize()
+            row.update(cons=hashlib.sha256(
+                cons.cpu().numpy().tobytes()).hexdigest(),
+                cons_s=time.perf_counter() - t0,
+                cons_counts=dict(pm.COUNTS))
+        out[name] = row
+    return out
+
+
+def dist_rank_main(workdir, rank) -> int:
+    """One rank of phase_distributed's gloo world of two, on cuda:0:
+    writes dist_runs' results to workdir/rank<rank>.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from muscle_tpu_torch.parallel import mesh as pm
+    t0 = time.perf_counter()
+    got = pm.init_distributed(f"file://{os.path.join(workdir, 'gloo')}",
+                              DIST_WORLD, rank, backend="gloo",
+                              device="cuda:0")
+    joined = time.perf_counter() - t0
+    try:
+        out = dist_runs(torch.device("cuda", 0), workdir)
+    finally:
+        pm.shutdown()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"world": got.world, "backend": "gloo", "join_s": joined,
+                   "runs": out}, f)
+    return 0
+
+
+def print_dist(what, runs, ref=None) -> None:
+    """One line a run of phase_distributed; raises where a sha256
+    differs from `ref`'s."""
+    for name, row in runs.items():
+        c = row["counts"]
+        per = c["gathered_bytes"] / max(1, c["chunks"])
+        same = ""
+        if ref is not None:
+            want = ref[name]
+            keys = ("text", "stores") + (("cons",) if "cons" in row else ())
+            diff = [k for k in keys if row[k] != want[k]]
+            if diff:
+                raise SmokeFailure(f"phase distributed, {what}, {name}: "
+                                   f"{diff} differ from the run with no "
+                                   "process group")
+            same = " text, stores" + (", consistency" if "cons" in row
+                                      else "") + " = no group"
+        extra = ""
+        if "cons" in row:
+            cc = row["cons_counts"]
+            extra = (f"; consistency_sparse(mesh=) {row['cons_s']:.2f}s, "
+                     f"{cc['sums']} sums of {cc['summed_bytes']} B")
+        print(f"phase distributed, {what}, {name}: wall={row['wall_s']:.2f}s"
+              f" text sha256 {row['text'][:16]} stores {len(row['stores'])};"
+              f" {c['chunks']} chunks, {c['gathers']} gathers, "
+              f"{c['gathered_bytes']} B gathered ({per:.0f} B a chunk)"
+              f"{extra};{same}", flush=True)
+
+
+def phase_distributed(dev, sets) -> dict:
+    """The pair grid and the Gram consistency over a torch.distributed
+    process group (parallel/mesh.py), in three worlds, on DIST_RUNS: the
+    run with no process group, a NCCL world of one in this process
+    (every collective on the card), and two child processes over gloo,
+    both on cuda:0, each running half of every chunk's lanes (NCCL takes
+    one rank a device). Each world's texts, stores and n = 24
+    consistency must equal the run with no group's, sha256 for sha256.
+    Rendezvous by FileStore in a temporary directory."""
+    import shutil
+    import tempfile
+    import torch
+    from muscle_tpu_torch import MultiSequence
+    from muscle_tpu_torch.io.mega import write_mega
+    from muscle_tpu_torch.parallel import mesh as pm
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dist_",
+                               dir=os.path.join(ROOT, "build", "chip_smoke"))
+    try:
+        write_mega(sets["mega-8"][0], os.path.join(workdir, "mega-8.mega"))
+        MultiSequence.from_fasta(os.path.join(ROOT, FAMILIES[0][1]),
+                                 strip_gaps=True).write_fasta(
+            os.path.join(workdir, "BB11001.fa"))
+        alone = dist_runs(dev, workdir)
+        print_dist("no process group", alone)
+
+        pm.init_distributed(f"file://{os.path.join(workdir, 'nccl')}", 1, 0,
+                            backend="nccl",
+                            device=torch.device("cuda",
+                                                torch.cuda.current_device()))
+        try:
+            one = dist_runs(dev, workdir)
+        finally:
+            pm.shutdown()
+        print_dist("NCCL world of 1", one, alone)
+
+        torch.cuda.empty_cache()    # the children share the card
+        sys.stdout.flush()
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(workdir, f"rank{r}.log"), "w")
+                for r in range(DIST_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--dist-rank", workdir, str(r)],
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(DIST_WORLD)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DIST_CHILD_LIMIT_S
+                                   - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        children = time.perf_counter() - t0
+        ranks = []
+        for r, p in enumerate(procs):
+            path = os.path.join(workdir, f"rank{r}.json")
+            if p.returncode != 0 or not os.path.exists(path):
+                with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                raise SmokeFailure(f"phase distributed: rank {r} failed "
+                                   f"(rc={p.returncode}):\n{tail}")
+            with open(path) as f:
+                ranks.append(json.load(f))
+        for r, got in enumerate(ranks):
+            print_dist(f"gloo world of {got['world']} on one card, rank {r} "
+                       f"(joined in {got['join_s']:.2f}s)", got["runs"],
+                       alone)
+        wall = time.perf_counter() - t_phase
+        print(f"phase distributed: {wall:.1f}s (children {children:.1f}s, "
+              "startup included); NCCL world of 1 and two gloo ranks on "
+              "one card = no process group", flush=True)
+        return {"alone": alone, "nccl1": one,
+                "gloo2": [g["runs"] for g in ranks], "wall_s": wall,
+                "children_s": children}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5404,8 +5672,16 @@ def main() -> int:
         refs[0].wait()
 
 
+def walled(phase, *args):
+    """phase(*args), its wall printed."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def run_phases(card, refs) -> int:
-    """Phases 2-6 (refs: the CPU references' child, start_cpu_refs)."""
+    """Phases 2-7 (refs: the CPU references' child, start_cpu_refs)."""
     import torch
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -5416,25 +5692,27 @@ def run_phases(card, refs) -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
-    kernels = (phase_kernels(dev) + phase_topk_kernels(dev)
-               + phase_long_kernels(dev)
-               + phase_gram_join_kernels(dev) + [phase_list_kernel(dev)]
-               + phase_mega_kernels(dev, sets) + phase_ensemble_kernels(dev)
-               + phase_dp_kernels(dev))
+    kernels = (walled(phase_kernels, dev) + walled(phase_topk_kernels, dev)
+               + walled(phase_long_kernels, dev)
+               + walled(phase_gram_join_kernels, dev)
+               + [walled(phase_list_kernel, dev)]
+               + walled(phase_mega_kernels, dev, sets)
+               + walled(phase_ensemble_kernels, dev)
+               + walled(phase_dp_kernels, dev))
     print(f"kernels against their plain versions: "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
     with GRID_CHECK, MEA_CHECK, TOPK_CHECK:
-        phase_families(dev)
-        phase_synthetic(dev)
-        phase_long_families(dev)
-        s5 = phase_super5(dev)
-        legacy_errs = phase_mega(dev, sets, refs)["legacy_errs"]
-        for k, errs in phase_mega_wide(dev)["legacy_errs"].items():
+        walled(phase_families, dev)
+        walled(phase_synthetic, dev)
+        walled(phase_long_families, dev)
+        s5 = walled(phase_super5, dev)
+        legacy_errs = walled(phase_mega, dev, sets, refs)["legacy_errs"]
+        for k, errs in walled(phase_mega_wide, dev)["legacy_errs"].items():
             legacy_errs[k] = legacy_errs[k] + errs
-        ens = phase_ensembles(dev)
-        phase_super67(dev, sets, refs)
+        ens = walled(phase_ensembles, dev)
+        walled(phase_super67, dev, sets, refs)
         surf = phase_surface(dev, sets, refs)
     print(f"main path: {time.perf_counter() - t0:.1f}s (kernel-7 checks "
           f"{GRID_CHECK.seconds:.2f}s, {len(GRID_CHECK.cases)} launches "
@@ -5444,6 +5722,7 @@ def run_phases(card, refs) -> int:
           "held)", flush=True)
     print_mea_rungs()
     phase_scan_route(dev)
+    phase_distributed(dev, sets)
     torch.cuda.empty_cache()    # the child takes the card's memory
     kernels += phase_exact()["kernels"]
     # kernel 7L's entry: its times and bound at the main path's largest
@@ -5555,4 +5834,6 @@ if __name__ == "__main__":
         sys.exit(cpu_refs_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--exact":
         sys.exit(exact_main(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--dist-rank":
+        sys.exit(dist_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

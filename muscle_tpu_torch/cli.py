@@ -36,11 +36,26 @@ Options are parsed as muscle_tpu.cli parses them, and unused ones are
 warned about after the command in the same words. Every command of
 muscle_tpu.cli has its handler here; -guide_tree, which muscle_tpu
 parses but does not handle, stops with "unknown command" as there.
+
+Under a launcher (WORLD_SIZE > 1), one process a card:
+
+    python -m torch.distributed.run --nproc-per-node W \
+        -m muscle_tpu_torch.cli -align seqs.fa -output aln.afa
+
+every rank joins the process group (parallel/mesh.py: NCCL on
+cuda:LOCAL_RANK, or gloo with -device cpu), the pair stage and the
+consistency are sharded over the ranks, and every rank runs the host
+stages; rank 0 alone writes -output, the other output files and the
+log, and prints.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import shutil
 import sys
+import tempfile
 
 from .sequence import MultiSequence
 
@@ -153,6 +168,8 @@ BOOL_OPTS = frozenset({"stratified", "diversified", "quiet", "nt", "amino",
 # (-device is the port's own)
 HARNESS_OPTS = frozenset({"log", "quiet", "threads", "help", "version",
                           "fa2efa_files", "device"})
+# the options that name files a command writes
+OUTPUT_OPTS = ("output", "hmmout", "tsvout", "guidetreeout")
 
 
 class OptDict(dict):
@@ -230,13 +247,54 @@ def main(argv: list[str] | None = None) -> int:
         return 0 if opts.get("help") or not argv else 1
 
     from .utils import logging as mlog
-    mlog.configure(log_path=opts.get("log"), quiet=bool(opts.get("quiet")))
+    mesh, joined = _join_world(opts)
+    silent = mesh is not None and mesh.rank != 0
+    if silent:
+        # a rank past 0 writes its outputs where nobody reads them
+        scratch = tempfile.mkdtemp(prefix=f"muscle_tpu_rank{mesh.rank}_")
+        for name in OUTPUT_OPTS:
+            if dict.get(opts, name):
+                dict.__setitem__(opts, name, os.path.join(
+                    scratch, os.path.basename(str(dict.get(opts, name)))))
+    mlog.configure(log_path=None if silent else opts.get("log"),
+                   quiet=silent or bool(opts.get("quiet")))
     mlog.log("muscle_tpu_torch %s", " ".join(argv))
-    rc = _HANDLERS.get(cmd, _cmd_unknown)(cmd, path, opts)
-    for name in opts.unused():
-        mlog.progress("WARNING: option -%s was not used by -%s", name, cmd)
-    mlog.finish()
+    sink = open(os.devnull, "w") if silent else None
+    try:
+        with (contextlib.redirect_stdout(sink) if sink
+              else contextlib.nullcontext()):
+            rc = _HANDLERS.get(cmd, _cmd_unknown)(cmd, path, opts)
+        for name in opts.unused():
+            mlog.progress("WARNING: option -%s was not used by -%s", name,
+                          cmd)
+        mlog.finish()
+    finally:
+        if sink:
+            sink.close()
+            shutil.rmtree(scratch, ignore_errors=True)
+        if joined:
+            from .parallel.mesh import shutdown
+            shutdown()
     return rc
+
+
+def _join_world(opts: dict):
+    """(mesh, whether this call joined it): under a launcher's WORLD_SIZE
+    > 1, the process group, on cuda:LOCAL_RANK (NCCL; raising where the
+    host has fewer cards than local ranks) or, with -device cpu, on the
+    CPU (gloo); (None, False) in a world of one."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, False
+    import torch.distributed as dist
+    from .parallel.mesh import init_distributed
+    joined = not dist.is_initialized()
+    cpu = dict.get(opts, "device") == "cpu"
+    mesh = init_distributed(device="cpu" if cpu else "cuda")
+    if mesh is None:
+        raise SystemExit("WORLD_SIZE > 1 without MASTER_ADDR: start the "
+                         "ranks with torchrun")
+    dict.__setitem__(opts, "device", str(mesh.device))
+    return mesh, joined
 
 
 def _need(opts: dict, *names: str) -> None:

@@ -31,6 +31,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_sum
 from .densify_cuda import FLAG_EYE, FLAG_TRANS, densify_panel
 from .pairhmm import MIN_SPARSE_PROB
 
@@ -163,7 +164,8 @@ def _gram_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def consistency_sparse(vals: torch.Tensor, cols: torch.Tensor, n: int,
                        iters: int, *, seq_block: int = 16,
                        precision: str = "highest",
-                       max_nnz: int | None = None) -> torch.Tensor:
+                       max_nnz: int | None = None,
+                       mesh=None) -> torch.Tensor:
     """Run `iters` consistency iterations over the sparse store.
 
     vals/cols: (>= P+1, L, K) in canonical pair order; rows beyond
@@ -171,6 +173,13 @@ def consistency_sparse(vals: torch.Tensor, cols: torch.Tensor, n: int,
     slot; it stays zero). Returns the updated vals (cols, the pattern,
     unchanged — reference semantics). `precision` "default" rounds the
     panels to bf16 (the JAX package's rule for n >= 32).
+
+    With `mesh` (parallel/mesh.py) under a process group, each z-tile's
+    rectangles are dealt round-robin by rank (the JAX package's wave of
+    one rectangle a device), every rank densifying every panel, and the
+    ranks' output rows are summed after each iteration: a row belongs to
+    one rectangle, the other ranks hold exact zeros there, so the result
+    is one process's bit for bit.
     """
     p1, l, k = vals.shape
     k_full = k
@@ -193,6 +202,9 @@ def consistency_sparse(vals: torch.Tensor, cols: torch.Tensor, n: int,
     dev = vals.device
     rects = [(bi, bj0, torch.as_tensor(po, device=dev).reshape(-1))
              for bi, bj0, po in _rectangles(n, blk, group, dump)]
+    sharded = mesh is not None and mesh.group is not None
+    if sharded:
+        rects = rects[mesh.rank::mesh.world]
     gw = group * blk
     bf16 = precision == "default"
     inv_n = torch.tensor(1.0 / n, dtype=torch.float32, device=dev)
@@ -223,7 +235,7 @@ def consistency_sparse(vals: torch.Tensor, cols: torch.Tensor, n: int,
                 # pattern ids are disjoint across rectangles; dump slots
                 # add exact zeros, so the dump row stays zero
                 out.index_add_(0, po, g.reshape(blk * gw, l, k))
-        vals = out
+        vals = all_sum(mesh, out) if sharded else out
     if k < k_full:
         vals = torch.nn.functional.pad(vals, (0, k_full - k))
     return vals

@@ -794,7 +794,8 @@ def pairhmm_bwd_codes(xb, yb, lxb, lyb, match, insert, params,
     more, row lx, which it does not write to RB_M: it is launched on
     codes padded to Lx + 1 rows (so that step exists where lx = Lx), and
     the first Lx rows of its RB_M are returned (a view)."""
-    geo = bwd_codes_geometry(xb.shape[0], yb.shape[1], schedule, g)
+    geo = bwd_codes_geometry(wavefront.geometry_pairs(xb.shape[0]),
+                             yb.shape[1], schedule, g)
     if not _on_card(xb):
         return bwd_codes_plain(xb, yb, lxb, lyb, match, insert, params,
                                corner)

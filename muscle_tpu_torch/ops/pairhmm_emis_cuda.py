@@ -665,7 +665,8 @@ def mea_scores(post, lxb, lyb, warps: int | None = None):
         raise ValueError("post (B, Lx, Ly) contiguous float32, Ly % 16 == "
                          "0; lxb, lyb (B,) int32 on the device")
     warps = warps or mea_scores_warps(
-        b, lx, torch.cuda.get_device_properties(dev).multi_processor_count)
+        wavefront.geometry_pairs(b), lx,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
     out = torch.empty((b,), dtype=torch.float32, device=dev)
     sync, links = mea_scores_buffers(b, lx, ly, warps, dev)
     fn, err = _lib("mea_scores")

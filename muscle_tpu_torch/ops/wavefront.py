@@ -7,10 +7,13 @@ as many SMs, each group handing its right neighbour a record a DP row
 through device memory (csrc/stripe_wavefront.cuh, csrc/pairhmm_wave.cuh).
 This module keeps what their wrappers share: the publication period,
 the watchdog's limit and its per-device fault flag, and the zeroed
-ticket, counters and records a launch takes.
+ticket, counters and records a launch takes, and the chunk whose
+lanes a rank of a process group launches (`chunk_pairs`).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -25,6 +28,10 @@ WAIT_LIMIT_NS = 10_000_000_000
 # hand-over floats a record: the forward's [fold edge, M edge, IY carry,
 # JY carry], the backward's [M, IY, JY, MEA, IY carry, JY carry, 0, 0]
 REC_FLOATS = {"fwd": 4, "bwd": 8}
+
+# pairs of the whole chunk while a rank of a process group launches only
+# its lanes of it (parallel/mesh.py, `chunk_pairs`)
+_CHUNK_PAIRS: list[int] = []
 
 # each device's fault flag: set by a launch whose wait on a left
 # neighbour passed WAIT_LIMIT_NS
@@ -63,3 +70,21 @@ def buffers(b: int, groups: int, lx: int, kind: str, device):
     hand = torch.zeros(hand_bytes(b, groups, lx, kind) // 4,
                        dtype=torch.float32, device=device)
     return sync, hand
+
+
+@contextlib.contextmanager
+def chunk_pairs(b: int):
+    """Within it, the launch shapes that the batch size enters (kernel
+    3K's schedule, kernel 4's warps a block) are picked for a chunk of b
+    pairs, whatever share of it a launch holds: each rank of a process
+    group then launches its lanes as a world of one launches the chunk."""
+    _CHUNK_PAIRS.append(b)
+    try:
+        yield
+    finally:
+        _CHUNK_PAIRS.pop()
+
+
+def geometry_pairs(b: int) -> int:
+    """The batch size a launch of b pairs picks its shape for."""
+    return _CHUNK_PAIRS[-1] if _CHUNK_PAIRS else b

@@ -33,6 +33,15 @@ Routes, as in the JAX package:
   store; the mega branch never enters the long-pair router, as in the
   JAX package.
 
+Under a process group (parallel/mesh.py) each chunk's lanes are dealt
+over the ranks and the results all-gathered, where the JAX package
+shards over its device mesh: the dense and EA-only passes, the bucketed
+store (each rank sparsifies its own lanes and the stores' rows are
+gathered), the ensembles' (replicate, pair) stream and the Muscle-3D
+chunks, every chunk a multiple of the world (`_chunk_step`). The
+long-pair router and the small-family letter call run whole on every
+rank, as in the JAX package.
+
 Under MUSCLE_TPU_EXACT_ASSOC=1 (ops/pairhmm.EXACT_ASSOC) every one of
 these routes takes, on a CUDA device, the reference-order kernels of
 ops/pairhmm_exact_cuda.py (letters, per-pair tables, the emission
@@ -50,6 +59,7 @@ import torch
 from ..alphabet import encode
 from ..ops import pairhmm
 from ..ops import sparse as sp
+from ..parallel.mesh import make_mesh, shard_lanes
 
 
 def encode_batch(seqs, alpha: str, pad_to: int | None = None):
@@ -122,10 +132,13 @@ def _bucketize(pairs, lens, cap: int, min_saving: float = 0.25):
     return sorted(buckets.items())
 
 
-def _chunk_step(backend: str) -> int:
+def _chunk_step(backend: str, n_dev: int) -> int:
     """Granularity of every chunk size: 8 pairs on the kernel path (the
-    JAX package's Pallas tile), 1 on the CPU scan."""
-    return 8 if backend == "cuda" else 1
+    JAX package's Pallas tile), 1 on the CPU scan, and an even split
+    over the n_dev ranks of a process group (the lcm, so that the
+    length clamp below keeps it)."""
+    step = 8 if backend == "cuda" else 1
+    return step * n_dev // int(np.gcd(step, n_dev))
 
 
 def _rung(x: int, step: int) -> int:
@@ -186,6 +199,8 @@ def all_pairs_posteriors(codes: np.ndarray, lens: np.ndarray, pack,
     call. Only the real pairs launch (a pair's numbers do not depend on
     the composition of its batch); on the card the chunk is capped by
     `_clamp_chunk_by_len`, since kernels A/B hold (B, Lx, Ly) lattices.
+    Under a process group each chunk's lanes are sharded over the ranks
+    (the EA-only pass gathers the EA alone).
     """
     n_pairs = len(pairs)
     l_full = codes.shape[1]
@@ -194,11 +209,14 @@ def all_pairs_posteriors(codes: np.ndarray, lens: np.ndarray, pack,
             else None
         return post0, np.zeros(0, np.float32)
     backend = default_backend(device)
-    step = _chunk_step(backend)
+    mesh = make_mesh()
+    step = _chunk_step(backend, mesh.world)
     b = _rung(min(batch_size, n_pairs), step)
     cj = torch.as_tensor(codes, device=device)
     lj = torch.as_tensor(lens, device=device)
-    fn = _make_batch_fn(pack, with_mea, device)
+    local = _make_batch_fn(pack, with_mea, device)
+    fn = shard_lanes(mesh, local if return_post
+                     else lambda *args: (None, local(*args)[1]))
 
     def run(idxs, lb):
         xi = torch.as_tensor([pairs[t][0] for t in idxs], device=device)
@@ -227,7 +245,7 @@ def all_pairs_posteriors(codes: np.ndarray, lens: np.ndarray, pack,
 
 
 def _sparse_store_loop(fn, chunk_args_fn, pairs, lens, b0: int, k: int,
-                       l_full: int, step: int, device, reps: int = 1):
+                       l_full: int, step: int, device, mesh, reps: int = 1):
     """The bucketed store loop: the pairs are length-bucketed by
     `_bucketize`, each bucket run in chunks (the last one filled with
     copies of its first entry) and sparsified into a (R, P+1.., L, K)
@@ -238,7 +256,10 @@ def _sparse_store_loop(fn, chunk_args_fn, pairs, lens, b0: int, k: int,
     (replicate, pair) entry of the R = reps replicates is one lane
     (the ensembles' replicate batching; R = 1 for one score pack):
     within a bucket the entries go replicate-major and the filler lanes
-    carry their first entry's replicate.
+    carry their first entry's replicate. Under `mesh`'s process group
+    each rank sparsifies its lanes of a chunk and the ranks gather the
+    sparse rows (vals, cols, ea, nnz: about K / Lb of the dense bytes);
+    the sparsify is per row, so the store is the one process's.
     Returns (vals (R, ..) and cols device tensors, ea (R, P) numpy,
     max_nnz)."""
     n_pairs = len(pairs)
@@ -249,6 +270,13 @@ def _sparse_store_loop(fn, chunk_args_fn, pairs, lens, b0: int, k: int,
     store_ea = torch.zeros((reps, n_pairs), dtype=torch.float32,
                            device=device)
     max_nnz = 0
+
+    def absorb(*args):
+        post, ea = fn(*args)
+        vals, cols, nnz = sp.sparsify(post, k)
+        return vals, cols, ea, nnz.reshape(1).expand(ea.shape[0])
+
+    absorb = shard_lanes(mesh, absorb)
     buckets = _bucketize(pairs, lens, l_full) or \
         [(l_full, list(range(n_pairs)))]
     for lb, idxs in buckets:
@@ -263,13 +291,11 @@ def _sparse_store_loop(fn, chunk_args_fn, pairs, lens, b0: int, k: int,
                                  device=device)
             yi = torch.as_tensor([pairs[t[1]][1] for t in full],
                                  device=device)
-            post, ea = fn(*chunk_args_fn(xi, yi, lb, ri))
-            vals, cols, nnz = sp.sparsify(post, k)
-            del post
+            vals, cols, ea, nnz = absorb(*chunk_args_fn(xi, yi, lb, ri))
             store_v[ri, pi, :lb] = vals
             store_c[ri, pi, :lb] = cols
             store_ea[ri, pi] = ea
-            max_nnz = max(max_nnz, int(nnz))
+            max_nnz = max(max_nnz, int(nnz.max()))
     return store_v, store_c, store_ea.cpu().numpy(), max_nnz
 
 
@@ -298,14 +324,15 @@ def all_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray, pack,
     """
     if codes.shape[1] > LONG_PAIR_THRESHOLD:
         return _long_pairs_sparse(codes, lens, pack, pairs, k, device)
-    step = _chunk_step(default_backend(device))
+    mesh = make_mesh()
+    step = _chunk_step(default_backend(device), mesh.world)
     cj = torch.as_tensor(codes, device=device)
     lj = torch.as_tensor(lens, device=device)
     return _one_pack(_sparse_store_loop(
         _make_batch_fn(pack, True, device),
         lambda xi, yi, lb, ri: (cj[xi, :lb], cj[yi, :lb], lj[xi], lj[yi]),
         pairs, lens, _rung(min(batch_size, len(pairs)), step), k,
-        codes.shape[1], step, device))
+        codes.shape[1], step, device, mesh))
 
 
 def ensemble_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray,
@@ -320,7 +347,8 @@ def ensemble_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray,
     chunk mixes replicates: on a CUDA device kernels 1M/2M
     (ops/pairhmm_cuda.batch_posteriors_cuda_multi), on the CPU the scan's
     batch_posteriors_multi. Buckets, chunks and fillers as the JAX
-    package's (its mesh sharding is one device here).
+    package's; under a process group a chunk's lanes, each with its own
+    tables, are sharded over the ranks as its mesh shards them.
 
     Returns (vals (R, P+1.., L, K) device tensor, cols, ea (R, P) numpy,
     max_nnz); each replicate's trailing rows are empty (the last one is
@@ -331,7 +359,8 @@ def ensemble_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray,
         raise ValueError("ensemble batching requires L <= %d"
                          % LONG_PAIR_THRESHOLD)
     backend = default_backend(device)
-    step = _chunk_step(backend)
+    mesh = make_mesh()
+    step = _chunk_step(backend, mesh.world)
     # stacked per-replicate tables, on the device once
     match_s, insert_s, start_s, tv_s = pairhmm.score_args_multi(
         packs, np.arange(len(packs)), device)
@@ -350,7 +379,7 @@ def ensemble_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray,
                                 match_s[ri], insert_s[ri], start_s[ri],
                                 tv_s[ri]),
         pairs, lens, _rung(min(batch_size, len(packs) * len(pairs)), step),
-        k, l_full, step, device, reps=len(packs))
+        k, l_full, step, device, mesh, reps=len(packs))
 
 
 # ---------------------------------------------------------------------------
@@ -593,15 +622,19 @@ def small_family_store(codes, lens, pack, pairs, n: int, k: int, iters: int,
 
     Returns (vals (P2, L, K) device, cols, ea (P,) np, max_nnz) in the
     sparse-store contract (rows beyond P empty; last row a zero dump
-    slot).
+    slot). Under a process group the mega call's lanes are sharded over
+    the ranks; the letter call runs whole on every rank, as the JAX
+    package builds it for one device.
     """
     n_pairs = len(pairs)
-    b = _rung(n_pairs, _chunk_step(default_backend(device)))
+    mesh = make_mesh() if mega is not None else None
+    b = _rung(n_pairs, _chunk_step(default_backend(device),
+                                   mesh.world if mesh else 1))
     full = list(pairs) + [pairs[0]] * (b - n_pairs)
     xi = torch.as_tensor([p[0] for p in full], device=device)
     yi = torch.as_tensor([p[1] for p in full], device=device)
     if mega is not None:
-        fn = _make_mega_chunk_fn(mega, pack, device)
+        fn = shard_lanes(mesh, _make_mega_chunk_fn(mega, pack, device))
     else:
         fn = _make_batch_fn(pack, True, device)
     cj = torch.as_tensor(codes, device=device)
@@ -687,15 +720,17 @@ def all_pairs_posteriors_mega_sparse(profiles: np.ndarray, lens: np.ndarray,
                                      batch_size: int = 16, k: int = 32):
     """Muscle-3D variant of all_pairs_posteriors_sparse: profiles
     (N, L, F) uint8 padded feature letters, bucketed and chunked as the
-    letter path's store (for every pad: no long-pair router)."""
-    step = _chunk_step(default_backend(device))
+    letter path's store (for every pad: no long-pair router), sharded
+    over a process group's ranks as that store."""
+    mesh = make_mesh()
+    step = _chunk_step(default_backend(device), mesh.world)
     pj = torch.as_tensor(profiles, device=device)
     lj = torch.as_tensor(lens, device=device)
     return _one_pack(_sparse_store_loop(
         _make_mega_chunk_fn(mega, pack, device),
         lambda xi, yi, lb, ri: (pj[xi, :lb], pj[yi, :lb], lj[xi], lj[yi]),
         pairs, lens, _rung(min(batch_size, len(pairs)), step), k,
-        profiles.shape[1], step, device))
+        profiles.shape[1], step, device, mesh))
 
 
 def store_to_csr(store_v, store_c):
