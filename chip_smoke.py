@@ -125,6 +125,26 @@ Phases (each raises on failure, so the run exits non-zero):
      LONG_FAMILY_SHA256, the text before kernels 5/6 ran as one launch
      a pass (tools/torch_long_family_sha.py prints it for another
      commit's package);
+   - the size limits derived for the card's memory (phase_capacity):
+     align() of a synthetic family of CAPACITY_N = 440 proteins at pad
+     512 (a 12.66 GB store, past the JAX package's 12 GB guard), its
+     peak required within the store guard's prediction
+     (pipeline/mpc.py); the first n past the derived limit required to
+     raise MemoryError before the pair stage; long pairs through the
+     long-pair router, each store and EA compared with the
+     reference-order (exact) route's on the same pairs (the posterior's
+     max |d| printed beside the kernel gate, with its worst cell and
+     the cells past it: the gap between the two f32 orders grows with
+     the length and passes the gate from 9,000 residues on, on kernels
+     A/B too; the EA required within it): GAP_SERIES (9,000², 19,000²)
+     for the record, then two 26,000² pairs in one launch group and a
+     34,350² (titin) pair, past the JAX package's striped budget, each
+     required on kernels 5/6 (one pass each way, no scan) with its peak
+     within the router's prediction (striped_need_bytes); kernels 5/6
+     at titin's shape held to their whole-pass twins on
+     STRIPE_HELD_ROWS rows (max |d| = 0) and timed beside their bounds;
+     the titin pair as a two-sequence -align through the CLI (striped,
+     rows intact);
    - `muscle_tpu_torch.super5(..., device="cuda")` with default
      settings: on the degapped tests/goldens/rdrp_sub16.super5.afa,
      required column-identical to that golden by label (Q printed); on
@@ -164,8 +184,9 @@ Phases (each raises on failure, so the run exits non-zero):
      function the CLI calls (phase_ensembles): ensemble-48 (a synthetic
      protein family of n = 48, L 300-384, pad 384, under -stratified: 16
      replicates, 4 seeds in one pair stage of 4,512 lanes, Gram
-     consistency and host refine per replicate; its none.0 must equal
-     align() of the same family), diversified-BB11002 (the degapped
+     consistency and host refine per replicate, refine cut to
+     ENSEMBLE_48_REFINE_ITERS; its none.0 must equal align() of the same
+     family with those iterations), diversified-BB11002 (the degapped
      golden under -diversified -replicates 25: 25 HMMs in one stream;
      none.0's identity to the golden and Q printed), every launch of
      kernels 1M and 2M held, as it happens, lane by lane to kernels A/B
@@ -237,7 +258,8 @@ Phases (each raises on failure, so the run exits non-zero):
 7. print kernels 7L's and 7's times summed over their held main-path
    launches, then the kernels' JSON line (launch counts summed over
    phase 3, kernels A/B's, 1E's, 3's and 3K's also by schedule and
-   width, with A/B's wave times and bounds at 11264 x 10240, 1E's time
+   width, with A/B's wave times and bounds at 11264 x 10240, 5's and
+   6's at titin's 34816 x 34816 (phase_capacity), 1E's time
    and bound at mega-long's chunk, 3K's on the wave at 4 x 4096 and 4's
    at 512 x 512² beside mega-long's chunk; kernel 8's times and bounds
    on the long tile; mea_dirs' by rung, with its held launches' summed
@@ -2211,6 +2233,324 @@ def phase_scan_route(dev, lengths=(512, 480), row_block=256) -> None:
         raise SmokeFailure("the scan route disagrees with kernels A/B")
 
 
+# ---------------------------------------------------------------------------
+# capacity: the size limits derived for the card's memory
+# ---------------------------------------------------------------------------
+
+# -align of a synthetic family of CAPACITY_N proteins at pad 512, K 32:
+# its 12.66 GB sparse store passes the JAX package's 12 GB guard (set for
+# a 16 GB TPU), which the port's guard now derives from the card's memory
+CAPACITY_N = 440
+# pairs past _STRIPED_CELL_BUDGET (the JAX package's 25k x 25k) through the
+# long-pair router: kernels 5/6 in a group sized to the card's memory, not
+# the scan; the longer is titin's length, also aligned as a two-sequence
+# -align through the CLI
+CAPACITY_PAIRS = ((26000, 26000), (34350, 34350))
+# pairs within the JAX package's limits whose stores are also compared with
+# the exact route's, for the record (residues, pairs): the gap between the
+# two routes' f32 associations grows with the length
+GAP_SERIES = ((9000, 1), (19000, 1))
+# rows of the titin pair on which kernels 5/6 are held to their twins (a
+# twin's row of 17 stripes takes ~0.2 s)
+STRIPE_HELD_ROWS = 32
+# the kernel gate (ROADMAP.md; tests/test_pallas_fused.py): posterior and
+# EA within 2e-3, cells that flip at the 0.01 threshold ignored. Against
+# the reference-order route the posterior passes it only below ~9,000
+# residues (PERF.md §6): printed as measured,
+# the EA required
+GATE_TOL = 2e-3
+# a family past the derived limit must raise within this many seconds
+PAST_LIMIT_S = 60.0
+
+
+def store_gate(v1, c1, v2, c2, width, rows=4096):
+    """(max |d|, its (row, column, value, other value), cells with |d|
+    past GATE_TOL) between two (Lx, K) sparse rows' dense posteriors,
+    cells that are zero in one and at most the 0.01 threshold in the
+    other ignored; dense a block of rows at a time on the card."""
+    from muscle_tpu_torch.ops import sparse
+    worst, where, over = 0.0, None, 0
+    for r0 in range(0, v1.shape[0], rows):
+        a = sparse.densify(v1[None, r0:r0 + rows], c1[None, r0:r0 + rows],
+                           width)[0]
+        b = sparse.densify(v2[None, r0:r0 + rows], c2[None, r0:r0 + rows],
+                           width)[0]
+        flip = ((a == 0) | (b == 0)) & (a.maximum(b) <= 0.0102)
+        d = (a - b).abs().where(~flip, 0.0)
+        over += int((d > GATE_TOL).sum())
+        m = float(d.max())
+        if m > worst:
+            i, j = divmod(int(d.argmax()), width)
+            worst, where = m, (r0 + i, j, float(a[i, j]), float(b[i, j]))
+    return worst, where, over
+
+
+def phase_capacity(dev) -> dict:
+    """The limits derived for the card's memory (pipeline/mpc.py's store
+    guard, the long-pair router past _STRIPED_CELL_BUDGET), on the main
+    path: align() of CAPACITY_N proteins at pad 512 (the JAX package's
+    12 GB guard raises there), its peak within the guard's prediction; a
+    family just past the derived limit, which must raise MemoryError
+    before the pair stage; GAP_SERIES and CAPACITY_PAIRS through the
+    router, each store against the reference-order (exact) route's (the
+    posterior's gap printed, the EA's required within the kernel gate),
+    CAPACITY_PAIRS required on kernels 5/6 (no scan) with the peak
+    within the router's prediction (striped_need_bytes); kernels 5/6 at
+    titin's shape held to their twins on STRIPE_HELD_ROWS rows and
+    timed; titin's pair as a two-sequence -align through the CLI."""
+    import torch
+    from muscle_tpu_torch import MultiSequence, align
+    from muscle_tpu_torch.alphabet import ALPHA_AMINO
+    from muscle_tpu_torch.cli import main as cli_main
+    from muscle_tpu_torch.hmm.params import HMMParams
+    from muscle_tpu_torch.ops import pairhmm_cuda as pc
+    from muscle_tpu_torch.ops import pairhmm_striped as ps
+    from muscle_tpu_torch.pipeline import mpc
+    from muscle_tpu_torch.pipeline import posteriors as post_mod
+    from muscle_tpu_torch.utils.device import device_memory_bytes
+    out = {}
+
+    def store_of(n):
+        return (n * (n - 1) // 2 + 1) * 512 * 32 * 8
+
+    # (1) CAPACITY_N proteins at pad 512
+    n = CAPACITY_N
+    seqs = synthetic_family(n, 400, 512, seed=n)
+    store = store_of(n)
+    predicted = mpc.STORE_PEAK_PER_BYTE * store + mpc.STORE_PEAK_BASE
+    total, avail = device_memory_bytes(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    name = f"capacity n={n} L=400-512"
+    msa, wall, stages, got = run_path(name, seqs, dev, PAIR_KERNELS + DENSIFY
+                                      + REFINE_KERNELS)
+    peak = peak_bytes()
+    reserved = torch.cuda.max_memory_reserved()
+    print(f"family {name} (pad 512, K 32; the JAX package's 12 GB guard "
+          f"raises at this store): wall={wall:.2f}s width={msa.col_count()} "
+          f"store={store / 1e9:.3f} GB peak_device_mem={peak / 1e9:.3f} GB "
+          f"(reserved {reserved / 1e9:.3f} GB; the guard predicts "
+          f"{predicted / 1e9:.3f} GB; card {total / 1e9:.3f} GB, "
+          f"{avail / 1e9:.3f} GB available before the call) "
+          f"stages={json.dumps(stages)} launches={json.dumps(got)}",
+          flush=True)
+    if store / 1e9 <= 12.0:
+        raise SmokeFailure(f"{name}: the store does not pass 12 GB")
+    if peak > predicted:
+        raise SmokeFailure(f"{name}: peak {peak} above the guard's "
+                           f"prediction {predicted:.0f}")
+    out["capacity_n"] = {"wall_s": wall, "peak_bytes": peak,
+                         "predicted": predicted, "store": store,
+                         "stages": stages}
+
+    # (2) just past the derived limit: MemoryError before the pair stage
+    past = n
+    while True:
+        try:
+            mpc.store_guard(past, past * (past - 1) // 2, 512, 32, dev)
+        except MemoryError:
+            break
+        past += 1
+    seqs = synthetic_family(past, 400, 512, seed=past)
+    stage = post_mod.all_pairs_posteriors_sparse
+
+    def reached(*args, **kwargs):
+        raise SmokeFailure(f"n = {past}: the pair stage was reached")
+
+    post_mod.all_pairs_posteriors_sparse = reached
+    t0 = time.perf_counter()
+    try:
+        align(seqs, device=dev)
+        raise SmokeFailure(f"n = {past}: no MemoryError")
+    except MemoryError as e:
+        raised = time.perf_counter() - t0
+        print(f"capacity n={past} (the first n past the derived limit, store "
+              f"{store_of(past) / 1e9:.3f} GB of (P+1) rows): MemoryError "
+              "before the pair "
+              f"stage in {raised:.2f}s: {e}", flush=True)
+    finally:
+        post_mod.all_pairs_posteriors_sparse = stage
+    if raised > PAST_LIMIT_S:
+        raise SmokeFailure(f"n = {past}: raised after {raised:.1f}s")
+    out["past_n"] = past
+
+    # (3) long pairs through the router, each store against the exact
+    # route's on the same pairs: GAP_SERIES for the record (a 9000² pair
+    # on kernels A/B, a 19000² pair striped within the JAX package's
+    # budget), then CAPACITY_PAIRS past it (two 26,000² pairs in one
+    # launch group, titin's pair alone), which must take kernels 5/6
+    pack = HMMParams.from_defaults(nucleo=False).to_scores()
+    w = post_mod._STRIPE_W
+    gaps = []
+    for lx, copies in GAP_SERIES + tuple((lx, 2 if lx < 30000 else 1)
+                                         for lx, _ in CAPACITY_PAIRS):
+        seqs = family_of_lengths((lx,) * (copies + 1), AMINO_LETTERS, lx)
+        pairs = [(0, j) for j in range(1, copies + 1)]
+        codes, lens = post_mod.encode_batch(seqs, ALPHA_AMINO)
+        px, py = post_mod._long_rung(lx), post_mod.round_up(lx, w)
+        past = lx * lx > post_mod._STRIPED_CELL_BUDGET
+        name = f"long pair {lx}² x {copies}"
+        plan = post_mod._long_pair_plan(lens, pairs, True, 32, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        post_mod.reset_routes()
+        reset_launches()
+        t0 = time.perf_counter()
+        sv, sc, ea, nnz = post_mod._long_pairs_sparse(codes, lens, pack,
+                                                      pairs, 32, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the router called directly, not through an entry point: its
+        # launches are read, not added to the main path's counts
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        need = ps.striped_need_bytes(copies, px, py, w, 32)
+        store = sv.numel() * 4 + sc.numel() * 4
+        routes = dict(post_mod.ROUTES)
+        ex = {}
+
+        def keep(ch, vals, cols, ea_b, nnz_b):
+            for j, i in enumerate(ch):
+                ex[i] = (vals[j, :lx], cols[j, :lx], float(ea_b[j]))
+            ex["nnz"] = nnz_b
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        post_mod._long_pairs_exact(codes, lens, pack, pairs, 32, dev, keep)
+        torch.cuda.synchronize()
+        ex_wall = time.perf_counter() - t0
+        gates = [store_gate(sv[i, :lx], sc[i, :lx], ex[i][0], ex[i][1],
+                            post_mod.round_up(lx, 128))
+                 for i in range(copies)]
+        d_post, where, over = max(gates, key=lambda g: g[0])
+        d_ea = max(abs(float(ea[i]) - ex[i][2]) for i in range(copies))
+        gaps.append((lx, d_post, d_ea))
+        print(f"{name} (padded {px} x {py}; {lx * lx / 2**20:.0f} Mi cells, "
+              f"{'past' if past else 'within'} the JAX package's "
+              f"{post_mod._STRIPED_CELL_BUDGET >> 20} Mi): plan {plan}, "
+              f"routes {json.dumps(routes)}, router wall {wall:.2f}s, kernel "
+              f"5/6 launches {got['pairhmm_fwd_stripe']} / "
+              f"{got['pairhmm_bwd_stripe']}, peak {peak / 1e9:.3f} GB with "
+              f"the {store / 1e9:.3f} GB store (striped prediction beside it "
+              f"{need / 1e9:.3f} GB); vs the exact route ({ex_wall:.2f}s): "
+              f"posterior max |d| {d_post:.3e} (flips at 0.01 ignored; the "
+              f"kernel gate {GATE_TOL}: "
+              f"{'within' if d_post < GATE_TOL else 'OVER'}; at (row, "
+              f"column, striped, exact) {where}; "
+              f"{sum(g[2] for g in gates)} cells past it), EA max |d| "
+              f"{d_ea:.3e} (gate {GATE_TOL}: "
+              f"{'within' if d_ea < GATE_TOL else 'OVER'}), EA "
+              f"{float(ea[0]):.6f}, max nnz {nnz} / {ex['nnz']}", flush=True)
+        del ex, sv, sc
+        if not past:
+            continue
+        want = {"in_cap": 0, "transposed": 0, "striped": copies, "scan": 0}
+        if routes != want or plan != [("striped", list(range(copies)))]:
+            raise SmokeFailure(f"{name}: routes {routes}, plan {plan}")
+        if got["pairhmm_fwd_stripe"] != 1 or got["pairhmm_bwd_stripe"] != 1:
+            raise SmokeFailure(f"{name}: launches {got}, want one pass each "
+                               "way")
+        if peak - store > need:
+            raise SmokeFailure(f"{name}: peak {peak - store} beside the store "
+                               f"above the prediction {need}")
+        if d_ea >= GATE_TOL:
+            raise SmokeFailure(f"{name}: EA off the exact route's")
+        out[name] = {"wall_s": wall, "peak_bytes": peak, "need": need,
+                     "d_post": d_post, "d_ea": d_ea}
+    out["gaps"] = gaps
+    # kernels 5/6 at titin's shape: each held to its whole-pass twin on
+    # STRIPE_HELD_ROWS rows (5: the first, on x cut to them; 6: the last
+    # real ones, on x's last rows over kernel 5's fm there, with the
+    # pair's total), then timed, one pass each at the geometry's G
+    args = post_mod._pad_pairs(codes, lens, [(0, 1)], px, py, 20, dev)
+    match, insert, params = ps.tables(pack, dev)
+    iy0, jy0, iy0b, jy0b = ps.row0_closed_forms(args[1], args[3], insert,
+                                                params)
+    args = args + (match, insert, params)
+    r = STRIPE_HELD_ROWS
+    fm, fend = bounded_pass(lambda: ps.pairhmm_fwd_striped(*args, iy0, jy0, w),
+                            f"kernel 5 at {px} x {py}", dev)
+    head, tail = fm[:, :r].clone(), fm[:, lx - r:].clone()
+    tot = pc._total_prob(fend, params).contiguous()
+    post, _ = bounded_pass(lambda: ps.pairhmm_bwd_striped(
+        *args, tot, iy0b, jy0b, fm, w), f"kernel 6 at {px} x {py}", dev)
+    ly_t = args[3]
+    t0 = time.perf_counter()
+    want5, _ = ps.fwd_striped_plain(args[0][:, :r].contiguous(), args[1],
+                                    torch.full_like(args[2], r), *args[3:],
+                                    iy0, jy0, w)
+    d5 = float((real_cells(head, args[2] * 0 + r, ly_t)
+                - real_cells(want5, args[2] * 0 + r, ly_t)).abs().max())
+    # x's last r rows with the pair's padding rows after them, as the
+    # kernel saw them
+    want6, _ = ps.bwd_striped_plain(args[0][:, lx - r:].contiguous(),
+                                    args[1], torch.full_like(args[2], r),
+                                    *args[3:], tot, iy0b, jy0b, tail, w)
+    d6 = float((real_cells(post[:, lx - r:], args[2] * 0 + r, ly_t)
+                - real_cells(want6, args[2] * 0 + r, ly_t)).abs().max())
+    held_s = time.perf_counter() - t0
+    ulp = float(np.spacing(np.float32(abs(float(tot[0])))))
+    print(f"kernels 5/6 at {lx} x {lx} held to their twins on {r} rows "
+          f"({held_s:.1f}s): kernel 5's first rows max |d| {d5:.3e}, kernel "
+          f"6's last rows max |d| {d6:.3e} "
+          f"{'equal' if d5 == d6 == 0 else 'FAIL'}; the pair's log total "
+          f"{float(tot[0]):.3f} (f32 spacing there {ulp:.3e})", flush=True)
+    if d5 != 0 or d6 != 0:
+        raise SmokeFailure(f"kernels 5/6 at {px} x {py} differ from their "
+                           "twins")
+    del fm, post, head, tail, want5, want6
+    fm, fend = ps.pairhmm_fwd_striped(*args, iy0, jy0, w)
+    ms5 = time_cuda(lambda: ps.pairhmm_fwd_striped(*args, iy0, jy0, w),
+                    reps=3)
+    ms6 = time_cuda(lambda: ps.pairhmm_bwd_striped(*args, tot, iy0b, jy0b,
+                                                   fm, w), reps=3)
+    ps.wavefront.check_waits(dev)
+    del fm
+    cells = float(lx) * lx
+    bnd5 = bound_ms(4 * (lx + py + 2 * py + cells + 5),
+                    cells * FWD_OPS_PER_CELL)
+    bnd6 = bound_ms(4 * (lx + py + 2 * py + cells + px * py + 1),
+                    cells * BWD_POST_OPS_PER_CELL)
+    print(f"kernels 5/6 at {lx} x {lx} (Lx {px}, By {py}, {py // w} stripes, "
+          f"G = {ps._geometry(1, py, w).g}), one pass each: kernel 5 "
+          f"{ms5:.3f} ms (bound {bnd5[0]:.4f} ms by {bnd5[1]}), kernel 6 "
+          f"{ms6:.3f} ms (bound {bnd6[0]:.4f} ms by {bnd6[1]})", flush=True)
+    out["titin_kernels"] = {"ms5": ms5, "ms6": ms6, "bound5": bnd5,
+                            "bound6": bnd6, "held": (d5, d6)}
+    torch.cuda.empty_cache()
+    ly = lx
+    seqs = MultiSequence(list(seqs)[:2])
+
+    # (4) the longer pair as a two-sequence -align through the CLI
+    want = {"in_cap": 0, "transposed": 0, "striped": 1, "scan": 0}
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    fa, afa = (os.path.join(work, f"titin-pair.{ext}") for ext in ("fa", "afa"))
+    seqs.write_fasta(fa)
+    post_mod.reset_routes()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli_main(["-align", fa, "-output", afa])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = count_main_path()
+    routes = dict(post_mod.ROUTES)
+    msa = MultiSequence.from_fasta(afa)
+    print(f"-align of the {lx} x {ly} pair through the CLI: rc={rc} "
+          f"wall={wall:.2f}s width={msa.col_count()} routes="
+          f"{json.dumps(routes)} peak_device_mem="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB launches="
+          f"{json.dumps(got)}", flush=True)
+    if rc != 0 or routes != want:
+        raise SmokeFailure(f"CLI -align of the {lx} x {ly} pair: rc {rc}, "
+                           f"routes {routes}")
+    check_alignment(seqs, msa, f"CLI -align of the {lx} x {ly} pair")
+    out["cli_wall_s"] = wall
+    return out
+
+
 # the synthetic Super5 set (phase 3): 1,000 proteins as the JAX package's
 # recorded `-super5 rdrp-1000` config has (docs/PARITY.md:388-407), in
 # 4 families of 150 and 8 of 50
@@ -3705,6 +4045,10 @@ def print_efa_tools(name, efa):
 # n * pad = 18,432 > SMALL_DENSE_NL and the serial MPC takes the same
 # Gram-consistency, host-refine branch as the batched loop
 ENSEMBLE_48 = (48, 300, 384, 48)
+# its refine iterations, in the ensemble and in the align() it must equal
+# (the default is 100): host refines took ~90 % of its 35.8 s, cut to
+# keep the script inside its time limit beside phase_capacity
+ENSEMBLE_48_REFINE_ITERS = 20
 # diversified-BB11002's replicates (-diversified's default is 100): cut
 # to keep the script inside its time limit; one pair stage of 25 packs
 # still mixes packs lane by lane. At 100 the run took 12.26 s and its
@@ -3715,8 +4059,9 @@ DIVERSIFIED_REPLICATES = 25
 def phase_ensembles(dev) -> dict:
     """The ensembles through run_align_command (the CLI's function):
     ensemble-48 (-stratified: seeds 0-3 x none/abc/acb/bca, default
-    consiters and refineiters; its none.0 must equal align() of the same
-    family), diversified-BB11002 (-diversified -replicates
+    consiters, refineiters ENSEMBLE_48_REFINE_ITERS; its none.0 must equal
+    align() of the same family with those iterations),
+    diversified-BB11002 (-diversified -replicates
     DIVERSIFIED_REPLICATES, seed 0
     unperturbed, on the degapped golden; none.0's identity to the golden
     and Q printed), each with every kernel-1M/2M launch held lane by lane
@@ -3737,7 +4082,9 @@ def phase_ensembles(dev) -> dict:
         seqs = synthetic_family(n, lo, hi, seed=seed)
         name = "ensemble-48"
         efa, blocks, wall, stages, peak, got, check = run_ensemble(
-            name, seqs, dev, {"stratified": True}, workdir)
+            name, seqs, dev, {"stratified": True,
+                              "refineiters": str(ENSEMBLE_48_REFINE_ITERS)},
+            workdir)
         print(f"{name}: n={n} L {min(len(s) for s in seqs)}-"
               f"{max(len(s) for s in seqs)} -stratified: {len(blocks)} "
               f"replicates wall={wall:.2f}s (checks {check.seconds:.2f}s "
@@ -3747,8 +4094,9 @@ def phase_ensembles(dev) -> dict:
         if [b[0] for b in blocks] != [f"{p}.{s}" for s in range(4)
                                       for p in ("none", "abc", "acb", "bca")]:
             raise SmokeFailure(f"{name}: replicates {[b[0] for b in blocks]}")
-        msa, swall, sstages, _ = run_path(f"{name} align", seqs, dev,
-                                          PAIR_KERNELS + DENSIFY)
+        msa, swall, sstages, _ = run_path(
+            f"{name} align", seqs, dev, PAIR_KERNELS + DENSIFY,
+            refine_iters=ENSEMBLE_48_REFINE_ITERS)
         same = msa.to_fasta_text() == blocks[0][1]
         print(f"{name}: align() of the same family wall={swall:.2f}s "
               f"stages={json.dumps(sstages)}; replicate none.0 equal to it: "
@@ -5707,6 +6055,7 @@ def run_phases(card, refs) -> int:
         walled(phase_families, dev)
         walled(phase_synthetic, dev)
         walled(phase_long_families, dev)
+        cap = walled(phase_capacity, dev)
         s5 = walled(phase_super5, dev)
         legacy_errs = walled(phase_mega, dev, sets, refs)["legacy_errs"]
         for k, errs in walled(phase_mega_wide, dev)["legacy_errs"].items():
@@ -5778,6 +6127,12 @@ def run_phases(card, refs) -> int:
                  block_ms_10240=AB_WIDE["block_ms"][i],
                  bound_ms_10240=AB_WIDE["bound"][i],
                  max_abs_err=max(k["max_abs_err"], AB_WIDE["max_abs_err"]))
+    # kernels 5/6: their times and bounds at titin's shape (phase_capacity)
+    t = cap["titin_kernels"]
+    for name, ms, bnd in (("pairhmm_fwd_stripe", t["ms5"], t["bound5"]),
+                          ("pairhmm_bwd_stripe", t["ms6"], t["bound6"])):
+        next(k for k in kernels if k["name"] == name).update(
+            ms_34816=ms, bound_ms_34816=bnd[0], bound_by_34816=bnd[1])
     # kernel 3: its launches by schedule and width; mea_dirs: its
     # launches by (cc1, cc2) rung and the held launches' summed times
     for name in ("pairhmm_bwd", "pairhmm_fwd_emis", "pairhmm_bwd_codes"):

@@ -63,6 +63,7 @@ from .pairhmm_cuda import (NEG_BIG, SCHEDULES, _cumsum_lanes, _log_add,
                            _unpack, _wave_args, ab_geometry, bwd_post_rows,
                            bwd_rows, fwd_rows, load_libs, params_vec,
                            reversed_lanes)
+from ..utils.device import free_bytes
 
 # lane-axis cap of the fused route, the JAX package's value (there, the
 # fused backward's VMEM scratch); the legacy route takes every wider pad
@@ -74,9 +75,8 @@ FUSED_MAX_LY = 9856
 # finish_posteriors a pair's temporaries (flip and roll of RB_M, the
 # score, its mask, clamp, exp and select: at most LEGACY_PAIR_TEMPS); a
 # chunk cut into sub-batches also holds the whole chunk's posterior. Kept
-# free beside them: LEGACY_HEADROOM bytes
+# free beside them: utils/device.MEMORY_HEADROOM bytes (free_bytes)
 LEGACY_PAIR_TEMPS = 4
-LEGACY_HEADROOM = 1 << 30
 
 LAUNCHES = {"pairhmm_fwd_emis": 0, "pairhmm_bwd_post_emis": 0,
             "pairhmm_bwd": 0, "mea_scores": 0}
@@ -716,19 +716,6 @@ def finish_posteriors(fm, rbm, fend, lxb, lyb, params):
         keep = (score >= MIN_SPARSE_SCORE) & (ii < lx) & (jj < ly)
         fm[k] = torch.where(keep, torch.exp(torch.clamp(score, max=0.0)), 0.0)
     return fm
-
-
-def free_bytes(device) -> int | None:
-    """Device memory the legacy route may take on `device`: the free
-    memory plus what torch's allocator holds unused, less
-    LEGACY_HEADROOM; None (no limit) off the card."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    free, _ = torch.cuda.mem_get_info(device)
-    held = (torch.cuda.memory_reserved(device)
-            - torch.cuda.memory_allocated(device))
-    return free + held - LEGACY_HEADROOM
 
 
 def legacy_need_bytes(b: int, sub: int, lx: int, ly: int) -> int:

@@ -331,6 +331,17 @@ _libs: dict = {}
 # (a group starts ~R rows after its left neighbour), more lengthen each
 # row (the carry chain, barriers over more warps)
 GROUP_SEGMENTS = 4
+# the top-K's device bytes beside the lattice (striped_need_bytes): a
+# stripe's slice copied contiguous (4 B a cell), its sort's values and
+# int64 indices (12) with as much again of the sort's own buffers (12),
+# its nonzero mask (1); a kept slot: value and column (8), their
+# concatenation (8) and the merge's sort (12), its gathered columns and
+# the outputs (8). Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+# phase_capacity), the route's peak beside its store: 5.83 / 5.43 / 5.13
+# B a lattice cell at 19456 x 20480, 2 x 26112 x 26624 and 34816 x
+# 34816, where this model gives 7.46 / 6.79 / 6.27
+STRIPE_SORT_BYTES = 29
+TOPK_SLOT_BYTES = 36
 # the hand-over's record of each kernel (ops/wavefront.py REC_FLOATS)
 _KIND = {"pairhmm_fwd_stripe": "fwd", "pairhmm_bwd_stripe": "bwd"}
 
@@ -361,6 +372,20 @@ def _geometry(b: int, by: int, w: int, g: int | None = None) -> Geometry:
         raise ValueError(f"{g} segments a group: want a divisor of 32 and "
                          f"of the stripe's {nseg_w} segments")
     return Geometry(g, by // (64 * g))
+
+
+def striped_need_bytes(b: int, px: int, py: int, w: int, k: int) -> int:
+    """Device bytes of striped_posteriors_sparse on b pairs padded to
+    (px, py) in stripes of w lanes: the (B, Lx, By) M lattice (4 B a
+    cell; the posterior is written over it) and, beside it, the larger
+    of the backward pass's hand-over records and the top-K's
+    temporaries: one stripe's sort (STRIPE_SORT_BYTES a cell of the
+    stripe) and every stripe's K slots with their merge
+    (TOPK_SLOT_BYTES a slot)."""
+    lattice = 4 * b * px * py
+    hand = _geometry(b, py, w).hand_bytes(b, px, "pairhmm_bwd_stripe")
+    topk = b * px * (STRIPE_SORT_BYTES * w + TOPK_SLOT_BYTES * (py // w) * k)
+    return lattice + max(hand, topk)
 
 
 def kernel_specs():
@@ -533,15 +558,22 @@ def striped_posteriors_sparse(xb, yb, lxb, lyb, pack, k: int = 32,
     del fm
 
     # each stripe's top-K, right to left, then the exact merge: the global
-    # top-K is the top-K of the stripes' top-Ks
+    # top-K is the top-K of the stripes' top-Ks. Only a stripe's K slots
+    # are kept (not views of its sorted row), and its nonzero count, so
+    # that the temporaries beside the lattice are one stripe's
+    # (striped_need_bytes)
     vals_parts, cols_parts = [], []
+    nnz = 0
     for sp in range(n_s):
         sigma = n_s - 1 - sp
-        v, c = _top_k(post[..., sigma * stripe_w:(sigma + 1) * stripe_w], k)
+        part = post[..., sigma * stripe_w:(sigma + 1) * stripe_w]
+        v, c = _top_k(part, k)
+        v = v.contiguous()
         vals_parts.append(v)
         cols_parts.append(torch.where(v > 0, c.to(torch.int32)
                                       + sigma * stripe_w, -1))
-    nnz = (post > 0).sum(dim=-1)
+        nnz = nnz + (part > 0).sum(dim=-1)
+        del part, c
     del post
     v, idx = _top_k(torch.cat(vals_parts, dim=-1), k)
     c = torch.gather(torch.cat(cols_parts, dim=-1), -1, idx)

@@ -32,8 +32,10 @@ from . import posteriors as post_mod
 from .mpc import MPC, consistency_precision_for
 
 # budget of one replicate group's sparse stores (vals f32 + cols i32):
-# it groups seeds only, and is the JAX package's value (moving it is
-# ROADMAP.md queue 1, item 7)
+# it groups seeds only, and is the JAX package's value, set for a 16 GB
+# TPU. Kept: the grouping decides each pair-stage chunk's lanes, whose
+# launch shapes can move bits (PERF.md, "Size constants"; its move is
+# held for after the port's benchmark)
 _STORE_BUDGET_BYTES = 3 << 30
 
 

@@ -43,7 +43,8 @@ from ..tree.joinorder import guide_tree_join_order
 from ..tree.tree import Tree
 from ..tree.upgma import LINKAGE_BIASED, fix_ea_distmx, upgma5
 from ..utils import logging as mlog
-from ..utils.device import resolve_device
+from ..utils.device import (MEMORY_HEADROOM, device_memory_bytes,
+                            resolve_device)
 from ..utils.rng import GlibcRand, MwcRng
 from . import posteriors as post_mod
 from .derep import Derep
@@ -58,6 +59,65 @@ SPARSE_K = 32                   # default slots per store row (MPC sparse_k)
 # families of this size and above refine with device joins
 # (pipeline/devjoin.py), as the JAX package's default rule
 DEVICE_REFINE_N = 64
+
+
+# The blocked branch's capacity guard (letters only; the JAX package
+# leaves `.mega` sets unguarded, and so does the port). The (P+1, L, K)
+# sparse store is 8 B a slot. The JAX package raises once it passes
+# MUSCLE_TPU_HBM_BUDGET_GB (12 GB of a 16 GB TPU), and the port admits
+# every store that rule admits. Past it, on the card, with the variable
+# unset and at the one shape measured (pad 512, K 32), the call's peak
+# device memory (what torch's allocator reserves) is predicted from the
+# store as allocated, S = store_rows(P) * L * K * 8 bytes (the pair axis
+# rounded up by up to a quarter),
+#     peak = STORE_PEAK_PER_BYTE * S + STORE_PEAK_BASE,
+# and must fit the card's available memory less MEMORY_HEADROOM
+# (utils/device.free_bytes). The line bounds from above the reserved
+# peaks of `align()` at pad 512, K 32 on NVIDIA H100 80GB HBM3, 700 W
+# (tools/torch_size_probe.py --peaks, then --fit): mutated copies of one
+# protein (their store trimmed to 24 slots) at n = 200 / 320 / 440 / 600,
+# 11.29 / 21.08 / 31.46 / 55.95 GB; unrelated proteins (no trim) at n =
+# 200 / 320 / 440 / 600 / 698, 11.63 / 24.25 / 35.80 / 63.40 / 77.77 GB
+# (n = 440 and 698 on the line). On a fresh 80 GB card (84.47 GB
+# available) the guard admits n = 698 at pad 512 and refuses 699, where
+# store_rows steps up by a quarter. Other pads and K keep the 12 GB rule
+# until they are measured.
+STORE_PEAK_PER_BYTE = 2.2291
+STORE_PEAK_BASE = 6.6803e9
+STORE_FIT_SHAPE = (512, 32)
+
+
+def store_guard(n: int, n_pairs: int, pad: int, k: int, device) -> None:
+    """Raises MemoryError, before any pair is computed, where the blocked
+    branch's sparse store for n sequences (n_pairs pairs at pad `pad`, K
+    slots a row) would not fit: past MUSCLE_TPU_HBM_BUDGET_GB (12 GB
+    unset, the JAX package's rule), unless the card's available memory
+    holds the fitted peak above."""
+    env = os.environ.get("MUSCLE_TPU_HBM_BUDGET_GB")
+    budget_gb = float(env) if env is not None else 12.0
+    store_gb = (n_pairs + 1) * pad * k * 8 / 1e9
+    if store_gb <= budget_gb:
+        return
+    mem = (device_memory_bytes(device)
+           if env is None and (pad, k) == STORE_FIT_SHAPE else None)
+    if mem is None:
+        raise MemoryError(
+            f"MPC sparse store for {n} seqs ({n_pairs} pairs, "
+            f"L={pad}, K={k}) needs ~{store_gb:.0f} GB "
+            f"device memory (> {budget_gb:.0f} GB budget). Use "
+            f"-super5, or raise MUSCLE_TPU_HBM_BUDGET_GB.")
+    store = post_mod.store_rows(n_pairs) * pad * k * 8
+    peak = STORE_PEAK_PER_BYTE * store + STORE_PEAK_BASE
+    room = mem[1] - MEMORY_HEADROOM
+    if peak > room:
+        raise MemoryError(
+            f"MPC for {n} seqs ({n_pairs} pairs, L={pad}, K={k}): its "
+            f"{store / 1e9:.2f} GB sparse store predicts a peak of "
+            f"{peak / 1e9:.1f} GB of device memory, and this card "
+            f"({mem[0] / 1e9:.1f} GB) has {mem[1] / 1e9:.1f} GB available, "
+            f"{room / 1e9:.1f} GB less its headroom. Use -super5 (the "
+            f"production path at this scale), or set "
+            f"MUSCLE_TPU_HBM_BUDGET_GB to cap the store instead.")
 
 
 def consistency_precision_for(n: int, requested: str = "auto") -> str:
@@ -166,19 +226,8 @@ class MPC:
         pack = hp.to_scores()
         mlog.log("MPC: %d unique seqs, %d pairs, pad %d, device %s", n,
                  len(pairs), pad_to, self.device)
-        # single-device capacity guard of the blocked branch, kept as the
-        # JAX package has it (letters only): the (P+1, L, K) sparse store
-        # is 8 B/slot
-        p_total = len(pairs)
-        store_gb = (p_total + 1) * pad_to * self.sparse_k * 8 / 1e9
-        budget_gb = float(os.environ.get("MUSCLE_TPU_HBM_BUDGET_GB", 12.0))
-        if (self.mega is None and store_gb > budget_gb
-                and n * pad_to > post_mod.SMALL_DENSE_NL):
-            raise MemoryError(
-                f"MPC sparse store for {n} seqs ({p_total} pairs, "
-                f"L={pad_to}, K={self.sparse_k}) needs ~{store_gb:.0f} GB "
-                f"device memory (> {budget_gb:.0f} GB budget). Use "
-                f"-super5, or raise MUSCLE_TPU_HBM_BUDGET_GB.")
+        if self.mega is None and n * pad_to > post_mod.SMALL_DENSE_NL:
+            store_guard(n, len(pairs), pad_to, self.sparse_k, self.device)
         use_dense = (n >= 3 and self.consistency_iters > 0
                      and n * pad_to <= post_mod.SMALL_DENSE_NL)
 

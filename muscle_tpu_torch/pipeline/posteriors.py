@@ -392,8 +392,20 @@ def ensemble_pairs_posteriors_sparse(codes: np.ndarray, lens: np.ndarray,
 # _LONG_PALLAS_CELL_BUDGET runs kernels A/B at its rung rectangle; else
 # the same with x and y swapped, the posterior transposed back; else,
 # within _STRIPED_CELL_BUDGET, the Y-striped kernels 5/6 in stripes of
-# _STRIPE_W lanes; else the checkpoint/recompute scan. On the CPU every
-# long pair takes the scan, as the JAX package's CPU backend does.
+# _STRIPE_W lanes, in groups of up to 8 pairs of one rung rectangle. On
+# the CPU every long pair takes the scan, as the JAX package's CPU
+# backend does.
+#
+# _STRIPED_CELL_BUDGET is the JAX package's bound on a 16 GB TPU, and
+# decides only off the card. On the card every pair past A/B's budget
+# runs kernels 5/6, in groups of as many pairs of one rung rectangle as
+# the card's available memory holds, up to 8 (striped_need_bytes against
+# utils/device.free_bytes, read before the launch: a titin pair, 34,350
+# x 34,350 residues, needs ~6 GB alone; 8 pairs at the budget ~22 GB);
+# only a pair that cannot fit alone takes the checkpoint/recompute scan
+# (a Python loop of ~10^3 launches a DP row on the card). A group's
+# lanes do not interact and the kernels' geometry follows the stripe
+# width alone, so the grouping changes no number.
 _LONG_PALLAS_MAX_LY = 9856
 _LONG_PALLAS_CELL_BUDGET = 160 * 1024 * 1024
 _STRIPE_W = 2048
@@ -505,19 +517,24 @@ def _long_pairs_exact(codes, lens, pack, pairs, k, device, store):
         flush()
 
 
-def _long_pairs_sparse(codes, lens, pack, pairs, k, device):
-    """Per-pair long-sequence posterior loop into the sparse store."""
+def _striped_lanes(px: int, py: int, k: int, room: int) -> int:
+    """Pairs of one (px, py) rung rectangle that one launch of kernels 5/6
+    takes: as many as `room` bytes of device memory hold
+    (striped_need_bytes), up to 8; 0 where one alone does not fit."""
+    from ..ops.pairhmm_striped import striped_need_bytes
+    return max((b for b in range(1, 9)
+                if striped_need_bytes(b, px, py, _STRIPE_W, k) <= room),
+               default=0)
+
+
+def _long_pair_plan(lens, pairs, use_kernels: bool, k: int, device):
+    """The long-pair router's decisions: [(route, pair indices)], one
+    entry a launch group in launch order (route a key of ROUTES; a scan
+    entry holds one pair). Kernel groups are pairs of one (px, py) rung
+    rectangle: the padding decides the numbers, so the groups within the
+    JAX package's limits are its own."""
     from collections import defaultdict
-    from ..ops.pairhmm_long import long_pair_posterior_sparse
-    l = codes.shape[1]
-    n_pairs = len(pairs)
-    sv = torch.zeros((store_rows(n_pairs), l, k), dtype=torch.float32,
-                     device=device)
-    sc = torch.full((store_rows(n_pairs), l, k), -1, dtype=torch.int32,
-                    device=device)
-    ea = np.zeros(n_pairs, np.float32)
-    max_nnz = 0
-    use_kernels = default_backend(device) == "cuda"
+    from ..utils.device import free_bytes
 
     def fits(x, y):
         py = round_up(int(lens[y]), 128)
@@ -528,23 +545,50 @@ def _long_pairs_sparse(codes, lens, pack, pairs, k, device):
         return (round_up(int(lens[x]), 128) * round_up(int(lens[y]), _STRIPE_W)
                 <= _STRIPED_CELL_BUDGET)
 
-    # group kernel-eligible pairs by their (px, py) rung rectangle: the
-    # padding decides the numbers, so the groups are JAX's
+    # the card's memory sizes the striped groups; off it (kernels forced
+    # on CPU tensors) _STRIPED_CELL_BUDGET decides, as in the JAX package
+    room = free_bytes(device) if use_kernels else None
     groups: dict[tuple[int, int, bool], list[int]] = defaultdict(list)
-    striped_groups: dict[tuple[int, int], list[int]] = defaultdict(list)
-    scan_idx = []
+    striped: dict[tuple[int, int], list[int]] = defaultdict(list)
+    scan = []
     for i, (x, y) in enumerate(pairs):
-        if use_kernels and fits(x, y):
-            groups[(_long_rung(int(lens[x])), _long_rung(int(lens[y])),
-                    False)].append(i)
-        elif use_kernels and fits(y, x):
-            groups[(_long_rung(int(lens[y])), _long_rung(int(lens[x])),
-                    True)].append(i)
-        elif use_kernels and fits_striped(x, y):
-            striped_groups[(_long_rung(int(lens[x])),
-                            round_up(int(lens[y]), _STRIPE_W))].append(i)
+        lx, ly = int(lens[x]), int(lens[y])
+        if not use_kernels:
+            scan.append(i)
+        elif fits(x, y):
+            groups[(_long_rung(lx), _long_rung(ly), False)].append(i)
+        elif fits(y, x):
+            groups[(_long_rung(ly), _long_rung(lx), True)].append(i)
+        elif room is not None or fits_striped(x, y):
+            striped[(_long_rung(lx), round_up(ly, _STRIPE_W))].append(i)
         else:
-            scan_idx.append(i)
+            scan.append(i)
+
+    plan = [("transposed" if swapped else "in_cap", idxs[lo:lo + 8])
+            for (_, _, swapped), idxs in groups.items()
+            for lo in range(0, len(idxs), 8)]
+    for (px, py), idxs in striped.items():
+        lanes = 8 if room is None else _striped_lanes(px, py, k, room)
+        if lanes:
+            plan += [("striped", idxs[lo:lo + lanes])
+                     for lo in range(0, len(idxs), lanes)]
+        else:
+            scan += idxs
+    return plan + [("scan", [i]) for i in scan]
+
+
+def _long_pairs_sparse(codes, lens, pack, pairs, k, device):
+    """Per-pair long-sequence posterior loop into the sparse store."""
+    from ..ops.pairhmm_long import long_pair_posterior_sparse
+    l = codes.shape[1]
+    n_pairs = len(pairs)
+    sv = torch.zeros((store_rows(n_pairs), l, k), dtype=torch.float32,
+                     device=device)
+    sc = torch.full((store_rows(n_pairs), l, k), -1, dtype=torch.int32,
+                    device=device)
+    ea = np.zeros(n_pairs, np.float32)
+    max_nnz = 0
+    use_kernels = default_backend(device) == "cuda"
 
     def store(ch, vals, cols, ea_b, nnz):
         nonlocal max_nnz
@@ -559,33 +603,27 @@ def _long_pairs_sparse(codes, lens, pack, pairs, k, device):
         _long_pairs_exact(codes, lens, pack, pairs, k, device, store)
         return sv, sc, ea, max_nnz
 
-    for (_, _, swapped), idxs in groups.items():
-        for lo in range(0, len(idxs), 8):
-            ch = idxs[lo:lo + 8]
+    for route, ch in _long_pair_plan(lens, pairs, use_kernels, k, device):
+        if route == "scan":
+            x, y = pairs[ch[0]]
+            vals, cols, ea_p, _tot = long_pair_posterior_sparse(
+                codes[x][:lens[x]], codes[y][:lens[y]], pack, k=k,
+                row_block=2048, device=device)
+            store(ch, torch.as_tensor(vals[None]),
+                  torch.as_tensor(cols[None]), [ea_p], 0)
+            # nnz beyond K is invisible here (top-K per row): report the
+            # stored max
+            max_nnz = max(max_nnz, int((vals > 0).sum(axis=1).max()))
+        elif route == "striped":
+            store(ch, *_long_pairs_striped_batch(
+                codes, lens, pack, [pairs[t] for t in ch], k, device))
+        else:
+            swapped = route == "transposed"
             batch = [pairs[t][::-1] if swapped else pairs[t] for t in ch]
             store(ch, *_long_pairs_pallas_batch(codes, lens, pack, batch, k,
                                                 device,
                                                 transpose_post=swapped))
-            ROUTES["transposed" if swapped else "in_cap"] += len(ch)
-
-    for idxs in striped_groups.values():
-        for lo in range(0, len(idxs), 8):
-            ch = idxs[lo:lo + 8]
-            store(ch, *_long_pairs_striped_batch(
-                codes, lens, pack, [pairs[t] for t in ch], k, device))
-            ROUTES["striped"] += len(ch)
-
-    for i in scan_idx:
-        x, y = pairs[i]
-        vals, cols, ea_p, _tot = long_pair_posterior_sparse(
-            codes[x][:lens[x]], codes[y][:lens[y]], pack, k=k,
-            row_block=2048, device=device)
-        store([i], torch.as_tensor(vals[None]), torch.as_tensor(cols[None]),
-              [ea_p], 0)
-        # nnz beyond K is invisible here (top-K per row): report the
-        # stored max
-        max_nnz = max(max_nnz, int((vals > 0).sum(axis=1).max()))
-        ROUTES["scan"] += 1
+        ROUTES[route] += len(ch)
     return sv, sc, ea, max_nnz
 
 
