@@ -129,8 +129,11 @@ Phases (each raises on failure, so the run exits non-zero):
      align() of a synthetic family of CAPACITY_N = 440 proteins at pad
      512 (a 12.66 GB store, past the JAX package's 12 GB guard), its
      peak required within the store guard's prediction
-     (pipeline/mpc.py); the first n past the derived limit required to
-     raise MemoryError before the pair stage; long pairs through the
+     (pipeline/mpc.py); at CAPACITY_PAD = 1024 (lengths 769-1024) the
+     first n whose store passes 12 GB (304), its reserved peak required
+     within that pad's line (mpc.STORE_FITS); at each fitted pad the
+     first n past the derived limit required to raise MemoryError
+     before the pair stage; long pairs through the
      long-pair router, each store and EA compared with the
      reference-order (exact) route's on the same pairs (the posterior's
      max |d| printed beside the kernel gate, with its worst cell and
@@ -2241,6 +2244,10 @@ def phase_scan_route(dev, lengths=(512, 480), row_block=256) -> None:
 # its 12.66 GB sparse store passes the JAX package's 12 GB guard (set for
 # a 16 GB TPU), which the port's guard now derives from the card's memory
 CAPACITY_N = 440
+# at pad 1024 (lengths 769-1024), fitted in pipeline/mpc.STORE_FITS: the
+# first n whose store passes the JAX package's 12 GB, through align(),
+# its reserved peak within the pad's line
+CAPACITY_PAD = 1024
 # pairs past _STRIPED_CELL_BUDGET (the JAX package's 25k x 25k) through the
 # long-pair router: kernels 5/6 in a group sized to the card's memory, not
 # the scan; the longer is titin's length, also aligned as a two-sequence
@@ -2285,13 +2292,163 @@ def store_gate(v1, c1, v2, c2, width, rows=4096):
     return worst, where, over
 
 
+def past_12gb(pad: int, k: int = 32) -> int:
+    """The first n whose (P+1, pad, K) store passes the JAX package's
+    12 GB."""
+    n = 2
+    while (n * (n - 1) // 2 + 1) * pad * k * 8 <= 12e9:
+        n += 1
+    return n
+
+
+def rung_below(pad: int) -> int:
+    """The store ladder's rung below `pad`: families of lengths past it
+    pad to `pad`."""
+    from muscle_tpu_torch.pipeline import posteriors as post_mod
+    return max(r for r in post_mod.BUCKET_LADDER if r < pad)
+
+
+def past_the_limit(pad: int, lo: int, hi: int, start: int, dev) -> int:
+    """The first n from `start` that the store guard refuses at `pad` on
+    this card: align() of n proteins of lo-hi residues must raise
+    MemoryError before the pair stage, within PAST_LIMIT_S."""
+    from muscle_tpu_torch import align
+    from muscle_tpu_torch.pipeline import mpc
+    from muscle_tpu_torch.pipeline import posteriors as post_mod
+    past = start
+    while True:
+        try:
+            mpc.store_guard(past, past * (past - 1) // 2, pad, 32, dev)
+        except MemoryError:
+            break
+        past += 1
+    seqs = synthetic_family(past, lo, hi, seed=past)
+    stage = post_mod.all_pairs_posteriors_sparse
+
+    def reached(*args, **kwargs):
+        raise SmokeFailure(f"n = {past} at pad {pad}: the pair stage was "
+                           "reached")
+
+    post_mod.all_pairs_posteriors_sparse = reached
+    t0 = time.perf_counter()
+    try:
+        align(seqs, device=dev)
+        raise SmokeFailure(f"n = {past} at pad {pad}: no MemoryError")
+    except MemoryError as e:
+        raised = time.perf_counter() - t0
+        store = (past * (past - 1) // 2 + 1) * pad * 32 * 8
+        print(f"capacity n={past} pad {pad} (the first n past the derived "
+              f"limit, store {store / 1e9:.3f} GB of (P+1) rows): "
+              f"MemoryError before the pair stage in {raised:.2f}s: {e}",
+              flush=True)
+    finally:
+        post_mod.all_pairs_posteriors_sparse = stage
+    if raised > PAST_LIMIT_S:
+        raise SmokeFailure(f"n = {past} at pad {pad}: raised after "
+                           f"{raised:.1f}s")
+    return past
+
+
+CAPACITY_PAD_LIMIT_S = 600
+
+
+def capacity_pad_main(outdir) -> int:
+    """The child of phase_capacity_pad: align() of the first n whose
+    store passes 12 GB at CAPACITY_PAD (lengths past the rung below),
+    the launch counts set to 0 just before it and read just after; its
+    reserved peak, wall, stages and launches to outdir/capacity_pad.json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from muscle_tpu_torch import align
+    from muscle_tpu_torch.pipeline import mpc
+    from muscle_tpu_torch.pipeline import posteriors as post_mod
+    from muscle_tpu_torch.utils import logging as mlog
+    from muscle_tpu_torch.utils.device import device_memory_bytes
+    pad = CAPACITY_PAD
+    lo = rung_below(pad) + 1
+    n = past_12gb(pad)
+    seqs = synthetic_family(n, lo, pad, seed=n)
+    total, avail = device_memory_bytes("cuda")
+    mlog.STAGE_TIMES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    msa = align(seqs, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launches()
+    check_alignment(seqs, msa, f"capacity n={n} pad {pad}")
+    pairs = n * (n - 1) // 2
+    out = {"n": n, "lo": lo, "pad": pad, "pairs": pairs, "wall_s": wall,
+           "width": msa.col_count(), "total": total, "available": avail,
+           "store": (pairs + 1) * pad * 32 * 8,
+           "store_alloc": post_mod.store_rows(pairs) * pad * 32 * 8,
+           "reserved": torch.cuda.max_memory_reserved(),
+           "allocated": torch.cuda.max_memory_allocated(),
+           "predicted": mpc.store_peak(pairs, pad, 32),
+           "stages": {k: round(v, 4) for k, v in mlog.STAGE_TIMES.items()},
+           "launches": got}
+    with open(os.path.join(outdir, "capacity_pad.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_capacity_pad() -> dict:
+    """align() of the first n past 12 GB at CAPACITY_PAD in a child
+    process (capacity_pad_main), its main-path launches added to
+    MAIN_PATH: kernels A/B, 8, 7 and mea_dirs required, the store past
+    12 GB, its reserved peak within the pad's line."""
+    import torch
+    outdir = os.path.join(ROOT, "build", "chip_smoke", "capacity_pad")
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "capacity_pad.json")
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.empty_cache()    # the child takes the card's memory
+    sys.stdout.flush()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                         "--capacity-pad", outdir],
+                        timeout=CAPACITY_PAD_LIMIT_S).returncode
+    if rc != 0 or not os.path.exists(path):
+        raise SmokeFailure(f"the pad-{CAPACITY_PAD} capacity run failed "
+                           f"(rc={rc})")
+    with open(path) as f:
+        out = json.load(f)
+    for k, v in out["launches"].items():
+        MAIN_PATH[k] = MAIN_PATH.get(k, 0) + v
+    name = f"capacity n={out['n']} L={out['lo']}-{out['pad']}"
+    print(f"family {name} (pad {out['pad']}, K 32, a child process; the "
+          f"first n whose store passes the JAX package's 12 GB): "
+          f"wall={out['wall_s']:.2f}s width={out['width']} store="
+          f"{out['store'] / 1e9:.3f} GB (allocated "
+          f"{out['store_alloc'] / 1e9:.3f} GB) peak_device_mem="
+          f"{out['allocated'] / 1e9:.3f} GB (reserved "
+          f"{out['reserved'] / 1e9:.3f} GB; the pad's line "
+          f"{out['predicted'] / 1e9:.3f} GB; card {out['total'] / 1e9:.3f} "
+          f"GB, {out['available'] / 1e9:.3f} GB available before the call) "
+          f"stages={json.dumps(out['stages'])} "
+          f"launches={json.dumps(out['launches'])}", flush=True)
+    missing = [k for k in PAIR_KERNELS + DENSIFY + REFINE_KERNELS
+               if out["launches"].get(k, 0) <= 0]
+    if missing:
+        raise SmokeFailure(f"{name}: {missing} not launched")
+    if out["store"] / 1e9 <= 12.0 or out["reserved"] > out["predicted"]:
+        raise SmokeFailure(f"{name}: store {out['store']}, reserved peak "
+                           f"{out['reserved']} against the line's "
+                           f"{out['predicted']:.0f}")
+    return out
+
+
 def phase_capacity(dev) -> dict:
     """The limits derived for the card's memory (pipeline/mpc.py's store
     guard, the long-pair router past _STRIPED_CELL_BUDGET), on the main
     path: align() of CAPACITY_N proteins at pad 512 (the JAX package's
-    12 GB guard raises there), its peak within the guard's prediction; a
-    family just past the derived limit, which must raise MemoryError
-    before the pair stage; GAP_SERIES and CAPACITY_PAIRS through the
+    12 GB guard raises there), its peak within the guard's prediction;
+    align() of the first n past 12 GB at CAPACITY_PAD in a child process
+    (phase_capacity_pad), its reserved peak within that pad's line; at
+    each fitted pad (mpc.STORE_FITS) a family
+    just past its derived limit, which must raise MemoryError before the
+    pair stage; GAP_SERIES and CAPACITY_PAIRS through the
     router, each store against the reference-order (exact) route's (the
     posterior's gap printed, the EA's required within the kernel gate),
     CAPACITY_PAIRS required on kernels 5/6 (no scan) with the peak
@@ -2299,7 +2456,7 @@ def phase_capacity(dev) -> dict:
     titin's shape held to their twins on STRIPE_HELD_ROWS rows and
     timed; titin's pair as a two-sequence -align through the CLI."""
     import torch
-    from muscle_tpu_torch import MultiSequence, align
+    from muscle_tpu_torch import MultiSequence
     from muscle_tpu_torch.alphabet import ALPHA_AMINO
     from muscle_tpu_torch.cli import main as cli_main
     from muscle_tpu_torch.hmm.params import HMMParams
@@ -2317,7 +2474,8 @@ def phase_capacity(dev) -> dict:
     n = CAPACITY_N
     seqs = synthetic_family(n, 400, 512, seed=n)
     store = store_of(n)
-    predicted = mpc.STORE_PEAK_PER_BYTE * store + mpc.STORE_PEAK_BASE
+    per_byte, base_bytes = mpc.STORE_FITS[512]
+    predicted = per_byte * store + base_bytes
     total, avail = device_memory_bytes(dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2343,38 +2501,19 @@ def phase_capacity(dev) -> dict:
                          "predicted": predicted, "store": store,
                          "stages": stages}
 
-    # (2) just past the derived limit: MemoryError before the pair stage
-    past = n
-    while True:
-        try:
-            mpc.store_guard(past, past * (past - 1) // 2, 512, 32, dev)
-        except MemoryError:
-            break
-        past += 1
-    seqs = synthetic_family(past, 400, 512, seed=past)
-    stage = post_mod.all_pairs_posteriors_sparse
+    # (2) just past the derived limit at each fitted pad: MemoryError
+    # before the pair stage
+    out["past_n"] = {}
+    for pad in sorted(mpc.STORE_FITS):
+        lo = 400 if pad == 512 else rung_below(pad) + 1
+        out["past_n"][pad] = past_the_limit(pad, lo, pad, past_12gb(pad),
+                                            dev)
 
-    def reached(*args, **kwargs):
-        raise SmokeFailure(f"n = {past}: the pair stage was reached")
+    # (3) the first n past 12 GB at CAPACITY_PAD, in a child process: a
+    # fresh allocator, as the line's runs had
+    out["capacity_pad"] = phase_capacity_pad()
 
-    post_mod.all_pairs_posteriors_sparse = reached
-    t0 = time.perf_counter()
-    try:
-        align(seqs, device=dev)
-        raise SmokeFailure(f"n = {past}: no MemoryError")
-    except MemoryError as e:
-        raised = time.perf_counter() - t0
-        print(f"capacity n={past} (the first n past the derived limit, store "
-              f"{store_of(past) / 1e9:.3f} GB of (P+1) rows): MemoryError "
-              "before the pair "
-              f"stage in {raised:.2f}s: {e}", flush=True)
-    finally:
-        post_mod.all_pairs_posteriors_sparse = stage
-    if raised > PAST_LIMIT_S:
-        raise SmokeFailure(f"n = {past}: raised after {raised:.1f}s")
-    out["past_n"] = past
-
-    # (3) long pairs through the router, each store against the exact
+    # (4) long pairs through the router, each store against the exact
     # route's on the same pairs: GAP_SERIES for the record (a 9000² pair
     # on kernels A/B, a 19000² pair striped within the JAX package's
     # budget), then CAPACITY_PAIRS past it (two 26,000² pairs in one
@@ -2522,7 +2661,7 @@ def phase_capacity(dev) -> dict:
     ly = lx
     seqs = MultiSequence(list(seqs)[:2])
 
-    # (4) the longer pair as a two-sequence -align through the CLI
+    # (5) the longer pair as a two-sequence -align through the CLI
     want = {"in_cap": 0, "transposed": 0, "striped": 1, "scan": 0}
     work = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -4476,6 +4615,19 @@ PROTDISTS_WIDE_LONG = 20600
 PROTDISTS_WIDE_LENGTHS = (300, 280)
 
 
+def protdists_wide_set():
+    """The long protein of PROTDISTS_WIDE_LONG residues, a copy of the
+    first short one inside it, and the PROTDISTS_WIDE_LENGTHS ones."""
+    from muscle_tpu_torch import MultiSequence, Sequence
+    rng = np.random.default_rng(20481)
+    rows = [rng.integers(0, 20, n) for n in PROTDISTS_WIDE_LENGTHS]
+    long_ = rng.integers(0, 20, PROTDISTS_WIDE_LONG)
+    at = PROTDISTS_WIDE_LONG // 2
+    long_[at:at + len(rows[0])] = rows[0]
+    return MultiSequence([Sequence(f"p{i}", bytes(AMINO_LETTERS[c] for c in r))
+                          for i, r in enumerate([long_] + rows)])
+
+
 def protdists_wide(workdir) -> dict:
     """-protdists through the CLI on the three proteins of
     PROTDISTS_WIDE_*: one nw_viterbi launch at 20609 lanes (a cluster of
@@ -4483,18 +4635,10 @@ def protdists_wide(workdir) -> dict:
     on the pairs' 300 rows); three finite distances, the pair of the
     long protein and its copy the nearest."""
     import torch
-    from muscle_tpu_torch import MultiSequence, Sequence
     from muscle_tpu_torch.cli import main as cli_main
-    rng = np.random.default_rng(20481)
-    rows = [rng.integers(0, 20, n) for n in PROTDISTS_WIDE_LENGTHS]
-    long_ = rng.integers(0, 20, PROTDISTS_WIDE_LONG)
-    at = PROTDISTS_WIDE_LONG // 2
-    long_[at:at + len(rows[0])] = rows[0]
-    seqs = MultiSequence([Sequence(f"p{i}", bytes(AMINO_LETTERS[c] for c in r))
-                          for i, r in enumerate([long_] + rows)])
     fa = os.path.join(workdir, "protdists_wide.fa")
     tsv = os.path.join(workdir, "protdists_wide.tsv")
-    seqs.write_fasta(fa)
+    protdists_wide_set().write_fasta(fa)
     name = (f"protdists-wide ({PROTDISTS_WIDE_LONG} + "
             f"{PROTDISTS_WIDE_LENGTHS})")
     n_dp = len(DP_CHECK.cases)
@@ -6189,6 +6333,8 @@ if __name__ == "__main__":
         sys.exit(cpu_refs_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--exact":
         sys.exit(exact_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--capacity-pad":
+        sys.exit(capacity_pad_main(sys.argv[2]))
     if len(sys.argv) == 4 and sys.argv[1] == "--dist-rank":
         sys.exit(dist_rank_main(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -14,10 +14,14 @@ import os
 
 import numpy as np
 
-from ..utils.build import LibSpec, ensure_built, package_path
+from ..utils import build as _build
+from ..utils.build import LibSpec, package_path
 
 _lib = None
-_failed = False
+# the build function whose build or load failed: the failure stands while
+# that function is utils.build's, and a stand-in put there for a while
+# (a test's) leaves no failure behind once the real one is back
+_failed_with = None
 
 
 def native_spec() -> LibSpec:
@@ -28,16 +32,18 @@ def native_spec() -> LibSpec:
 
 def get_lib():
     """The loaded shared library, or None if unavailable."""
-    global _lib, _failed
+    global _lib, _failed_with
     if _lib is not None:
         return _lib
-    if _failed or os.environ.get("MUSCLE_TPU_NO_NATIVE"):
+    # looked up on utils.build at each call, never bound at import
+    ensure_built = _build.ensure_built
+    if _failed_with is ensure_built or os.environ.get("MUSCLE_TPU_NO_NATIVE"):
         return None
     try:
         path = ensure_built([native_spec()])["muscle_native"]
         lib = ctypes.CDLL(path)
     except (OSError, RuntimeError):
-        _failed = True
+        _failed_with = ensure_built
         return None
     lib.mea_align.restype = ctypes.c_int64
     lib.mea_align.argtypes = [

@@ -66,25 +66,50 @@ DEVICE_REFINE_N = 64
 # sparse store is 8 B a slot. The JAX package raises once it passes
 # MUSCLE_TPU_HBM_BUDGET_GB (12 GB of a 16 GB TPU), and the port admits
 # every store that rule admits. Past it, on the card, with the variable
-# unset and at the one shape measured (pad 512, K 32), the call's peak
+# unset, at K = STORE_FIT_K and a pad of STORE_FITS, the call's peak
 # device memory (what torch's allocator reserves) is predicted from the
 # store as allocated, S = store_rows(P) * L * K * 8 bytes (the pair axis
 # rounded up by up to a quarter),
-#     peak = STORE_PEAK_PER_BYTE * S + STORE_PEAK_BASE,
+#     peak = per_byte * S + base     ((per_byte, base) = STORE_FITS[L]),
 # and must fit the card's available memory less MEMORY_HEADROOM
-# (utils/device.free_bytes). The line bounds from above the reserved
-# peaks of `align()` at pad 512, K 32 on NVIDIA H100 80GB HBM3, 700 W
-# (tools/torch_size_probe.py --peaks, then --fit): mutated copies of one
-# protein (their store trimmed to 24 slots) at n = 200 / 320 / 440 / 600,
-# 11.29 / 21.08 / 31.46 / 55.95 GB; unrelated proteins (no trim) at n =
-# 200 / 320 / 440 / 600 / 698, 11.63 / 24.25 / 35.80 / 63.40 / 77.77 GB
-# (n = 440 and 698 on the line). On a fresh 80 GB card (84.47 GB
-# available) the guard admits n = 698 at pad 512 and refuses 699, where
-# store_rows steps up by a quarter. Other pads and K keep the 12 GB rule
-# until they are measured.
-STORE_PEAK_PER_BYTE = 2.2291
-STORE_PEAK_BASE = 6.6803e9
-STORE_FIT_SHAPE = (512, 32)
+# (utils/device.free_bytes). Each line bounds from above the reserved
+# peaks of `align()` at its pad, K 32, on NVIDIA H100 80GB HBM3, 700 W
+# (tools/torch_size_probe.py --peaks --pad L, then --fit), of mutated
+# copies of one protein (their store trimmed) and of unrelated proteins
+# (no trim), lengths in (the rung below L, L]:
+# * pad 512 (lengths 400-512): mutated n = 200 / 320 / 440 / 600, 11.29 /
+#   21.08 / 31.46 / 55.95 GB; unrelated n = 200 / 320 / 440 / 600 / 698,
+#   11.63 / 24.25 / 35.80 / 63.40 / 77.77 GB (n = 440 and 698 on the
+#   line); a fresh 80 GB card (84.47 GB available) admits n = 698 and
+#   refuses 699, where store_rows steps up by a quarter.
+# * pad 768 (lengths 513-768): unrelated n = 357 / 446 / 558, 35.65 /
+#   51.88 / 76.53 GB (446 and 558 on the line), mutated n = 357 (K 24
+#   after the trim) 32.52 GB; admits n = 558 and refuses 559 (the JAX
+#   package's rule refuses 350).
+# * pad 1024 (lengths 769-1024; both families keep 32 slots, and their
+#   peaks are equal): n = 310 / 400 / 446, 40.74 / 69.19 / 70.80 GB (310
+#   and 446 on the line); admits n = 446 and refuses 447, where the
+#   allocated store steps from 26.13 to 32.66 GB (the JAX package's
+#   rule refuses 304).
+# Other pads and K keep the 12 GB rule until they are measured. The
+# lines differ by pad: the Gram consistency's panel (8192 x n * L bf16)
+# is larger at a larger pad for the same store.
+STORE_FITS = {
+    512: (2.2291, 6.6803e9),
+    768: (2.2360, 8.0700e9),
+    1024: (2.3576, 9.2076e9),
+}
+STORE_FIT_K = 32
+
+
+def store_peak(n_pairs: int, pad: int, k: int) -> float | None:
+    """The fitted reserved peak (bytes) of a call whose blocked store
+    holds n_pairs pairs at pad `pad`, K slots a row; None at a (pad, K)
+    not measured."""
+    fit = STORE_FITS.get(pad) if k == STORE_FIT_K else None
+    if fit is None:
+        return None
+    return fit[0] * post_mod.store_rows(n_pairs) * pad * k * 8 + fit[1]
 
 
 def store_guard(n: int, n_pairs: int, pad: int, k: int, device) -> None:
@@ -98,8 +123,8 @@ def store_guard(n: int, n_pairs: int, pad: int, k: int, device) -> None:
     store_gb = (n_pairs + 1) * pad * k * 8 / 1e9
     if store_gb <= budget_gb:
         return
-    mem = (device_memory_bytes(device)
-           if env is None and (pad, k) == STORE_FIT_SHAPE else None)
+    peak = store_peak(n_pairs, pad, k) if env is None else None
+    mem = device_memory_bytes(device) if peak is not None else None
     if mem is None:
         raise MemoryError(
             f"MPC sparse store for {n} seqs ({n_pairs} pairs, "
@@ -107,7 +132,6 @@ def store_guard(n: int, n_pairs: int, pad: int, k: int, device) -> None:
             f"device memory (> {budget_gb:.0f} GB budget). Use "
             f"-super5, or raise MUSCLE_TPU_HBM_BUDGET_GB.")
     store = post_mod.store_rows(n_pairs) * pad * k * 8
-    peak = STORE_PEAK_PER_BYTE * store + STORE_PEAK_BASE
     room = mem[1] - MEMORY_HEADROOM
     if peak > room:
         raise MemoryError(

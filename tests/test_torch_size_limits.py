@@ -9,10 +9,13 @@ derives them from the card's memory (utils/device.device_memory_bytes):
   under 0.0001 (both raise) and 1 (both run, texts equal); with no
   override, the JAX package's 12 GB;
 * with the helper standing for an 80 GB card, the derived guard admits
-  n = 440 at pad 512 (a store past the JAX package's 12 GB) and raises
-  past its limit before any pair is computed; it admits every store the
-  JAX package's rule admits, on a card of little memory too, and keeps
-  that rule at the pads and K it was not fitted at;
+  n = 440 at pad 512 (a store past the JAX package's 12 GB), and at each
+  other fitted pad the first n past 12 GB and its fitted limit's n - 1,
+  and raises at the limit before any pair is computed; it admits every
+  store the JAX package's rule admits, on a card of little memory too,
+  and keeps that rule at the pads and K it was not fitted at;
+* tools/torch_size_probe.py --fit draws one line a pad over saved runs
+  (no card);
 * with the same card, the long-pair router sends pairs past
   _STRIPED_CELL_BUDGET (26,000² and titin's 34,350²) to kernels 5/6 in
   groups that fit the card's available memory, keeps the groups of 8
@@ -31,11 +34,6 @@ from muscle_tpu.hmm.params import HMMParams as JHMMParams
 from muscle_tpu.pipeline import mpc as j_mpc
 from muscle_tpu.pipeline import posteriors as j_post
 from muscle_tpu.sequence import MultiSequence as JMS
-# imported at collection: a test that monkeypatches utils.build's
-# ensure_built and calls build_all (test_torch_sparse_topk.py) would
-# otherwise be the first import of the native bindings in its worker,
-# binding them to its stand-in for every later align()
-import muscle_tpu_torch.native  # noqa: F401
 from muscle_tpu_torch import align
 from muscle_tpu_torch.ops import pairhmm_striped as t_striped
 from muscle_tpu_torch.pipeline import mpc as t_mpc
@@ -149,12 +147,19 @@ def test_cpu_guard_keeps_the_jax_default(monkeypatch):
             t_mpc.store_guard(n, pairs, 512, 32, "cpu")
 
 
-def _derived_limit():
-    """The first n at pad 512, K 32 the derived guard refuses on CARD."""
+def _derived_limit(pad=512):
+    """The first n at `pad`, K 32 the derived guard refuses on CARD."""
     n = 2
-    while (t_mpc.STORE_PEAK_PER_BYTE
-           * t_post.store_rows(n * (n - 1) // 2) * 512 * 32 * 8
-           + t_mpc.STORE_PEAK_BASE <= CARD[1] - t_device.MEMORY_HEADROOM):
+    while (t_mpc.store_peak(n * (n - 1) // 2, pad, 32)
+           <= CARD[1] - t_device.MEMORY_HEADROOM):
+        n += 1
+    return n
+
+
+def _past_12gb(pad, k=32):
+    """The first n whose store passes the JAX package's 12 GB."""
+    n = 2
+    while (n * (n - 1) // 2 + 1) * pad * k * 8 <= 12e9:
         n += 1
     return n
 
@@ -186,18 +191,101 @@ def test_derived_guard_admits_what_jax_admits(monkeypatch):
         t_mpc.store_guard(429, 429 * 428 // 2, 512, 32, "cuda")
 
 
-@pytest.mark.parametrize("pad,k", [(1024, 32), (384, 32), (512, 16)])
+@pytest.mark.parametrize("pad,k", [(4096, 32), (1536, 32), (512, 16)])
 def test_derived_guard_only_at_the_fitted_shape(monkeypatch, pad, k):
-    """On the 80 GB card, a pad or K the line was not fitted at keeps the
+    """On the 80 GB card, a pad or K no line was fitted at keeps the
     JAX package's 12 GB: the first n past it raises with its text."""
     monkeypatch.delenv("MUSCLE_TPU_HBM_BUDGET_GB", raising=False)
     monkeypatch.setattr(t_mpc, "device_memory_bytes", lambda device: CARD)
-    n = 2
-    while (n * (n - 1) // 2 + 1) * pad * k * 8 <= 12e9:
-        n += 1
+    assert t_mpc.store_peak(1000, pad, k) is None
+    n = _past_12gb(pad, k)
     t_mpc.store_guard(n - 1, (n - 1) * (n - 2) // 2, pad, k, "cuda")
     with pytest.raises(MemoryError, match="12 GB budget"):
         t_mpc.store_guard(n, n * (n - 1) // 2, pad, k, "cuda")
+
+
+# the pads fitted past pad 512 (pipeline/mpc.STORE_FITS)
+FITTED_PADS = (768, 1024)
+# their runs' reserved peaks in bytes on NVIDIA H100 80GB HBM3, 700 W
+# (tools/torch_size_probe.py --peaks --pad P): (pad, family, n, peak)
+MEASURED_PEAKS = (
+    (768, "random", 357, 35_649_486_848),
+    (768, "mutated", 357, 32_518_438_912),
+    (768, "random", 446, 51_881_443_328),
+    (768, "random", 558, 76_525_076_480),
+    (1024, "mutated", 310, 40_743_469_056),
+    (1024, "random", 310, 40_743_469_056),
+    (1024, "mutated", 400, 69_189_238_784),
+    (1024, "random", 400, 69_189_238_784),
+    (1024, "mutated", 446, 70_799_851_520),
+    (1024, "random", 446, 70_799_851_520),
+)
+
+
+@pytest.mark.parametrize("pad,family,n,peak", MEASURED_PEAKS)
+def test_each_measured_peak_under_its_line(pad, family, n, peak):
+    assert t_mpc.store_peak(n * (n - 1) // 2, pad, 32) >= peak
+
+
+@pytest.mark.parametrize("pad", FITTED_PADS)
+def test_derived_guard_at_each_fitted_pad(monkeypatch, pad):
+    """On the 80 GB card, at a pad fitted past 512: the first n past
+    12 GB runs, and so does the fitted limit's n - 1; the limit raises
+    with its text, and under an explicit budget the JAX package's rule
+    holds again."""
+    monkeypatch.delenv("MUSCLE_TPU_HBM_BUDGET_GB", raising=False)
+    monkeypatch.setattr(t_mpc, "device_memory_bytes", lambda device: CARD)
+    first, limit = _past_12gb(pad), _derived_limit(pad)
+    assert first < limit
+    for n in (first, limit - 1):
+        t_mpc.store_guard(n, n * (n - 1) // 2, pad, 32, "cuda")
+    with pytest.raises(MemoryError, match=f"L={pad}, K=32\\): its .* Use "
+                       "-super5"):
+        t_mpc.store_guard(limit, limit * (limit - 1) // 2, pad, 32, "cuda")
+    monkeypatch.setenv("MUSCLE_TPU_HBM_BUDGET_GB", "12")
+    with pytest.raises(MemoryError, match="12 GB budget"):
+        t_mpc.store_guard(first, first * (first - 1) // 2, pad, 32, "cuda")
+
+
+def test_probe_fits_one_line_a_pad(tmp_path):
+    """tools/torch_size_probe.py --fit on two saved runs a pad: each
+    pad's line is the one through its two runs, the one line over both
+    pads bounds every run, and each pad's line says whether it bounds
+    the other pad's runs."""
+    import importlib.util
+    import json
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "size_probe", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "torch_size_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    runs = {512: ((10e9, 30e9), (20e9, 52e9)),
+            1024: ((10e9, 33e9), (20e9, 56e9))}
+    for pad, pts in runs.items():
+        for i, (store, peak) in enumerate(pts):
+            row = {"family": "random", "n": 300 + i, "pad": pad, "k": 32,
+                   "store_alloc": store, "peak_reserved": peak,
+                   "available": CARD[1]}
+            with open(probe.peak_path(str(tmp_path), "random", 300 + i, pad),
+                      "w") as f:
+                json.dump(row, f)
+    assert probe.fit_saved(str(tmp_path)) == 0
+    with open(tmp_path / "size_probe_fit.json") as f:
+        fit = json.load(f)
+    lines = fit["lines"]
+    assert set(lines) == {"512,32", "1024,32"}
+    for pad, ((s0, p0), (s1, p1)) in runs.items():
+        line = lines[f"{pad},32"]
+        assert line["per_byte"] == pytest.approx((p1 - p0) / (s1 - s0))
+        assert line["base"] == pytest.approx(p0 - line["per_byte"] * s0)
+        assert line["limit_n"] == probe.limit_n(
+            (line["per_byte"], line["base"]), pad, 32, CARD[1])
+    assert not lines["512,32"]["bounds_every_pad"]
+    assert lines["1024,32"]["bounds_every_pad"]
+    one = fit["one_line"]
+    assert all(one["per_byte"] * s + one["base"] >= p - 1
+               for pts in runs.values() for s, p in pts)
 
 
 def test_derived_guard_raises_before_the_pair_stage(monkeypatch):
